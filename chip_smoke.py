@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port on one NVIDIA H100.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (any failed check exits non-zero; no phase is skipped):
+  1. build every CUDA kernel from src/repro_torch/csrc (one nvcc each,
+     all in parallel);
+  2. hold each kernel against its plain PyTorch version on the card, at
+     the shapes of the main path (N = 463,715 YearPredictionMSD-sized
+     rows, d = 91, L = 100, K = 5; probes at B in {1, 16}, J in {1, 3}),
+     and time kernel, plain version and the PyTorch library call;
+  3. a small-input reference check: the same index build and 20 LGD
+     steps, with the same draws, on the card and on the CPU's plain path;
+  4. the main path: ``init`` + 300 ``lgd_step`` + 300 ``sgd_step`` at
+     N = 463,715 for the quadratic, srp and mips families x multiprobe
+     {0, 2}, with the kernels' launch counts set to 0 just before and
+     read just after: every kernel must have run;
+  5. a torch.profiler trace of 50 steady LGD steps per family: device
+     time per step, the device's idle share and the top kernels.
+
+Imports torch, numpy and repro_torch only.  Without a CUDA device, or
+without the repository around it, it exits non-zero and prints no
+result.  The last line is the JSON result; the lines before it carry
+every measurement (probe rows, paths, profiles, the kernels table).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+N_TRAIN = 463_715          # public YearPredictionMSD train split
+STEPS = 300
+FAMILIES = ("quadratic", "srp", "mips")
+
+
+def fail(msg: str):
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+# The H100 SXM's peaks (NVIDIA data sheet, dense), which every bound
+# assumes: fp32 FLOP/s outside the tensor cores, and HBM bytes/s.
+CARD = "NVIDIA H100 80GB HBM3"
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+
+
+def time_ms(torch, fn, reps: int, warmup: int = 3) -> dict:
+    """Time ``reps`` calls of ``fn`` two ways.
+
+    ``ms``: device time per call — the summed duration of every device
+    activity (kernels, copies) the calls make, from a torch.profiler
+    trace; the number the kernel table reports.  ``loop_ms``: CUDA
+    events around back-to-back calls, which for a kernel of a few
+    microseconds measures the host's dispatch instead.  Where the
+    profiler sees no device activity, ``ms`` is the loop time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    loop_ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"ms": device_us / 1e3 / reps if device_us else loop_ms,
+            "loop_ms": loop_ms, "timed_by": "profiler" if device_us
+            else "events"}
+
+
+def profile_steps(torch, family, ds, make_problem, init, lgd_step,
+                  steps: int = 50) -> dict:
+    """Trace ``steps`` steady LGD steps (multiprobe 0) with torch.profiler:
+    wall ms per step, device kernel ms per step, the device's idle share
+    and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    problem, opt = make_problem(family, 0, "sgd")
+    state, xt, yt, xa = init(g, problem, ds.x_train, ds.y_train, opt)
+    for _ in range(10):
+        state, _ = lgd_step(g, state, xt, yt, xa, problem, opt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = lgd_step(g, state, xt, yt, xa, problem, opt)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((e.name, e.time_range.elapsed_us()))
+    device_us = sum(us for _, us in kernels)
+    by_name: dict = {}
+    for name, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    if device_us == 0:
+        return {"wall_ms_per_step": wall_ms, "device": "not measured"}
+    return {
+        "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_us / 1e3 / steps,
+        "device_idle_share": 1.0 - device_us / 1e3 / steps / wall_ms,
+        "device_ops_per_step": len(kernels) / steps,
+        "top_device_us_per_step": {name[:60]: us / steps for name, us in top},
+    }
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a card")
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    try:
+        import numpy as np
+        from repro_torch import kernels
+        from repro_torch.core import (
+            IndexMutation, LGDState, compute_codes, full_loss, hash_points, init,
+            lgd_step, mutate_index, probe_masks, regression_query, sgd_step)
+        from repro_torch.core.simhash import quadratic_forms
+        from repro_torch.core.sampler import draw_samples
+        from repro_torch.data import make_regression
+        from repro_torch.kernels import build
+        from repro_torch.kernels.bucket_probe import (
+            bucket_probe_codes_cuda, bucket_probe_codes_ref,
+            bucket_probe_cuda, bucket_probe_multi_cuda,
+            bucket_probe_multi_ref, bucket_probe_ref)
+        from repro_torch.kernels.simhash import (
+            simhash_codes_cuda, simhash_codes_ref)
+        from repro_torch.quickstart import make_problem
+    except ImportError as e:
+        fail(f"the repro_torch package is not beside this script: {e}")
+
+    dev = torch.device("cuda")
+    kernels.require_full_fp32()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}",
+          flush=True)
+    if kind != CARD:
+        fail(f"the bounds assume the H100 SXM ({CARD}), not {kind}")
+    report = {"card": card, "kernels": {}, "probe_rows": [], "paths": {},
+              "profile": {}}
+
+    # -- 1. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    build.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    print(f"kernel build: {report['build_s']:.2f} s "
+          f"({len(build.SOURCES)} sources, one nvcc each)", flush=True)
+    for name in build.SOURCES:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    def timings(kernel, plain, library, reps):
+        """ms / plain_ms / library_ms (device time) plus the loop times."""
+        out = {}
+        for key, fn in (("ms", kernel), ("plain_ms", plain),
+                        ("library_ms", library)):
+            if fn is None:
+                continue
+            tm = time_ms(torch, fn, reps)
+            out[key] = tm["ms"]
+            out[key.replace("ms", "loop_ms")] = tm["loop_ms"]
+            out["timed_by"] = tm["timed_by"]
+        return out
+
+    def bound(nbytes: float, flops: float):
+        t_bytes, t_ops = nbytes / HBM_RATE, flops / FP32_PEAK
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    # -- 2. kernels against their plain versions, slice shapes --------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ds = make_regression(gen, "yearmsd-like", n_train=N_TRAIN, d=90,
+                         noise="pareto", device=dev)
+    prob_srp, _ = make_problem("srp", 0, "sgd")
+    _, _, x_aug = prob_srp.preprocess(ds.x_train, ds.y_train)   # (N, 91)
+    p_lin = prob_srp.lsh
+    n, d = x_aug.shape
+    l, k = p_lin.l, p_lin.k
+    lk = l * k
+    idx_lin = mutate_index(None, IndexMutation("build", generator=gen,
+                                               x_aug=x_aug), p_lin)
+    w = idx_lin.projections
+    sc = idx_lin.sorted_codes
+
+    got = simhash_codes_cuda(x_aug, w, k=k, l=l)                # (L, N)
+    ref = simhash_codes_ref(x_aug, w, k=k, l=l).T
+    near = ((x_aug @ w).abs() < 1e-4).reshape(n, l, k).any(-1).T
+    diff = (got - ref).abs()
+    err = int(diff[~near].max())
+    flips = int((diff > 0).sum())
+    print(f"simhash (N={n}, d={d}, L={l}, K={k}): max |err| outside "
+          f"near-zero = {err}, codes differing = {flips}, near-zero "
+          f"(|proj| < 1e-4) = {int(near.sum())}", flush=True)
+    if err != 0:
+        fail("simhash kernel disagrees with its plain version")
+    nb, fl = bound(n * d * 4 + d * lk * 4 + n * l * 8, 2.0 * n * d * lk)
+    report["kernels"]["simhash"] = dict(
+        name="simhash", route="cuda", source="src/repro_torch/csrc/simhash.cu",
+        replaces="src/repro/kernels/simhash/kernel.py:76",
+        max_abs_err=err, bound_ms=nb, bound_by=fl, library_ms=None,
+        **timings(lambda: simhash_codes_cuda(x_aug, w, k=k, l=l),
+                  lambda: simhash_codes_ref(x_aug, w, k=k, l=l), None, 10))
+    del got, ref, near, diff
+
+    prob_q, _ = make_problem("quadratic", 0, "sgd")
+    idx_q = mutate_index(None, IndexMutation("build", generator=gen,
+                                             x_aug=x_aug), prob_q.lsh)
+    levels = math.floor(math.log2(n))   # fewest loads of one search of N codes
+
+    def probe_bound(rows: int, hashed_b: int):
+        """rows = B*J*L searches; hashed_b queries hashed in the kernel."""
+        nbytes = rows * (2 * levels * 8 + 2 * 4)
+        flops = 0.0
+        if hashed_b:
+            nbytes += hashed_b * d * 4 + d * lk * 4
+            flops = 2.0 * hashed_b * d * lk
+        return bound(nbytes, flops)
+
+    def two_searches(qc_lb, sorted_codes):
+        return (torch.searchsorted(sorted_codes, qc_lb, side="left",
+                                   out_int32=True),
+                torch.searchsorted(sorted_codes, qc_lb, side="right",
+                                   out_int32=True))
+
+    def check_hashed(name, b, j, got, want, q):
+        # exempt (b, t) whose query projection is near zero: summation
+        # order may flip its sign, and with it the bucket
+        near = ((q @ w).abs() < 1e-4).reshape(b, 1, l, k).any(-1)
+        near = near.expand(b, j, l)
+        e = max(int((got[0] - want[0]).abs()[~near].max()),
+                int((got[1] - want[1]).abs()[~near].max()))
+        if e != 0:
+            fail(f"{name} kernel disagrees with its plain version (B={b})")
+        return e
+
+    masks3 = probe_masks(k, 3)
+    for b in (1, 16):
+        theta = 0.1 * torch.randn((b, d - 1), generator=gen, device=dev)
+        q = regression_query(theta).contiguous()
+        qcodes = compute_codes(q, w, k=k, l=l)
+        # fused (J = 1)
+        got = bucket_probe_cuda(q, w, sc, k=k, l=l)
+        want = bucket_probe_ref(q, w, sc, k=k, l=l)
+        e = check_hashed("bucket_probe", b, 1, (got[0][:, None], got[1][:, None]),
+                         (want[0][:, None], want[1][:, None]), q)
+        nb, fl = probe_bound(b * l, b)
+        qt = qcodes.T.contiguous()
+        row = dict(name="bucket_probe", B=b, J=1, max_abs_err=e,
+                   bound_ms=nb, bound_by=fl, **timings(
+                       lambda: bucket_probe_cuda(q, w, sc, k=k, l=l),
+                       lambda: bucket_probe_ref(q, w, sc, k=k, l=l),
+                       lambda: two_searches(qt, sc), 100))
+        report["probe_rows"].append(row)
+        # multi (J = 3)
+        got = bucket_probe_multi_cuda(q, w, sc, masks3, k=k, l=l)
+        want = bucket_probe_multi_ref(q, w, sc, masks3, k=k, l=l)
+        e = check_hashed("bucket_probe_multi", b, 3, got, want, q)
+        marr = torch.tensor(masks3, dtype=torch.int64, device=dev)
+        pt = (qcodes[:, None, :] ^ marr[None, :, None]).reshape(
+            b * 3, l).T.contiguous()
+        nb, fl = probe_bound(b * 3 * l, b)
+        row = dict(name="bucket_probe_multi", B=b, J=3, max_abs_err=e,
+                   bound_ms=nb, bound_by=fl, **timings(
+                       lambda: bucket_probe_multi_cuda(q, w, sc, masks3,
+                                                       k=k, l=l),
+                       lambda: bucket_probe_multi_ref(q, w, sc, masks3,
+                                                      k=k, l=l),
+                       lambda: two_searches(pt, sc), 100))
+        report["probe_rows"].append(row)
+        # codes (quadratic family), J in {1, 3}
+        qq = compute_codes(q, idx_q.projections, k=k, l=l, quadratic=True)
+        for j in (1, 3):
+            pc = (qq[:, None, :] ^ marr[None, :j, None]).reshape(b * j, l)
+            pc = pc.contiguous()
+            got = bucket_probe_codes_cuda(pc, idx_q.sorted_codes)
+            want = bucket_probe_codes_ref(pc, idx_q.sorted_codes)
+            e = max(int((got[0] - want[0]).abs().max()),
+                    int((got[1] - want[1]).abs().max()))
+            if e != 0:
+                fail(f"bucket_probe_codes kernel disagrees (B={b}, J={j})")
+            pct = pc.T.contiguous()
+            nb, fl = probe_bound(b * j * l, 0)
+            row = dict(name="bucket_probe_codes", B=b, J=j, max_abs_err=e,
+                       bound_ms=nb, bound_by=fl, **timings(
+                           lambda: bucket_probe_codes_cuda(
+                               pc, idx_q.sorted_codes),
+                           lambda: bucket_probe_codes_ref(
+                               pc, idx_q.sorted_codes),
+                           lambda: two_searches(pct, idx_q.sorted_codes),
+                           100))
+            report["probe_rows"].append(row)
+    for row in report["probe_rows"]:
+        print("probe " + json.dumps(row), flush=True)
+    # the main path probes ONE query per step: B = 1 rows go in the table
+    main_shape = {"bucket_probe": (1, 1), "bucket_probe_multi": (1, 3),
+                  "bucket_probe_codes": (1, 1)}
+    for row in report["probe_rows"]:
+        if (row["B"], row["J"]) == main_shape[row["name"]]:
+            report["kernels"][row["name"]] = dict(
+                name=row["name"], route="cuda",
+                source="src/repro_torch/csrc/bucket_probe.cu",
+                replaces={
+                    "bucket_probe":
+                        "src/repro/kernels/bucket_probe/kernel.py:164",
+                    "bucket_probe_multi":
+                        "src/repro/kernels/bucket_probe/kernel.py:200",
+                    "bucket_probe_codes":
+                        "src/repro/kernels/bucket_probe/kernel.py:246",
+                }[row["name"]],
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"])
+    del idx_lin, idx_q, sc, w
+
+    # -- 3. small input: the card against the CPU's plain path --------------
+    gcpu = torch.Generator().manual_seed(1)
+    small = make_regression(gcpu, n_train=2000, n_test=10, d=90,
+                            device="cpu")
+    for family, mp in (("quadratic", 0), ("srp", 2), ("mips", 0)):
+        problem, opt = make_problem(family, mp, "sgd")
+        proj = (torch.randn((problem.lsh.l * k, problem.lsh.dim,
+                             problem.lsh.dim), generator=gcpu)
+                if family == "quadratic" else
+                torch.randn((problem.lsh.dim, problem.lsh.l * k),
+                            generator=gcpu))
+        # both devices start from the CPU's preprocessed data: the
+        # Simple-LSH tail sqrt(1 - |x/M|^2) magnifies last-bit
+        # differences of the two devices' own preprocessing
+        st_c, xt_c, yt_c, xa_c = init(None, problem, small.x_train,
+                                      small.y_train, opt, projections=proj)
+        idx_g = mutate_index(None, IndexMutation(
+            "build", projections=proj.to(dev), x_aug=xa_c.to(dev)),
+            problem.lsh)
+        # codes may differ only where a projection is near zero (the sums
+        # run in another order); with no such flip the sorted index must
+        # be bitwise equal
+        pr = (quadratic_forms(xa_c, proj) if family == "quadratic"
+              else xa_c @ proj)
+        near = (pr.abs() < 1e-4).reshape(-1, problem.lsh.l, k).any(-1).T
+        codes = [hash_points(xa_c, proj, problem.lsh),
+                 hash_points(xa_c.to(dev), proj.to(dev), problem.lsh).cpu()]
+        if not torch.equal(codes[0][~near], codes[1][~near]):
+            fail(f"{family}: codes hashed on the card differ from the CPU's")
+        flips = int((codes[0] != codes[1]).sum())
+        if flips == 0 and not (
+                torch.equal(idx_g.sorted_codes.cpu(),
+                            st_c.index.sorted_codes)
+                and torch.equal(idx_g.order.cpu(), st_c.index.order)):
+            fail(f"{family}: index built on the card differs from the CPU's")
+        def to_dev(t):
+            return None if t is None else t.to(dev)
+
+        st_g = LGDState(to_dev(st_c.theta),
+                        type(st_c.opt_state)(*map(to_dev, st_c.opt_state)),
+                        type(st_c.index)(*map(to_dev, st_c.index)),
+                        to_dev(st_c.step))
+        runs = {"cpu": [st_c, xt_c, yt_c, xa_c],
+                "cuda": [st_g, xt_c.to(dev), yt_c.to(dev), xa_c.to(dev)]}
+        for _ in range(20):
+            dr = draw_samples(gcpu, (problem.minibatch,),
+                              max(2 * problem.lsh.l, 8), problem.lsh.l, 2000,
+                              "cpu")
+            for where in ("cpu", "cuda"):
+                st, xt, yt, xa = runs[where]
+                st, _ = lgd_step(None, st, xt, yt, xa, problem, opt,
+                                 draws=type(dr)(*(t.to(where) for t in dr)))
+                runs[where][0] = st
+        th_c, th_g = runs["cpu"][0].theta, runs["cuda"][0].theta.cpu()
+        if not torch.allclose(th_g, th_c, rtol=1e-4, atol=1e-6):
+            fail(f"{family}: 20 LGD steps on the card differ from the CPU's "
+                 f"(max |d theta| {float((th_g - th_c).abs().max()):.3g})")
+        print(f"small-input check {family} mp{mp}: {flips} near-zero code "
+              f"flips, theta after 20 steps max |diff| "
+              f"{float((th_g - th_c).abs().max()):.3g}", flush=True)
+
+    # -- 4. the main path ---------------------------------------------------
+    expect = {0: ("simhash", "bucket_probe"), 2: ("simhash",
+                                                  "bucket_probe_multi")}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for family in FAMILIES:
+        for mp in (0, 2):
+            before = dict(kernels.launches)
+            g = torch.Generator(device=dev).manual_seed(2)
+            problem, opt = make_problem(family, mp, "sgd")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, xt, yt, xa = init(g, problem, ds.x_train, ds.y_train, opt)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            s_lgd = s_sgd = state
+            losses = {"lgd": [], "sgd": []}
+            t_lgd, t_sgd = [], []
+            for step in range(STEPS + 1):
+                if step in (0, STEPS // 2, STEPS):
+                    losses["lgd"].append(float(full_loss(s_lgd.theta, xt, yt,
+                                                         problem)))
+                    losses["sgd"].append(float(full_loss(s_sgd.theta, xt, yt,
+                                                         problem)))
+                if step == STEPS:
+                    break
+                t0 = time.perf_counter()
+                s_lgd, m = lgd_step(g, s_lgd, xt, yt, xa, problem, opt)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                s_sgd, _ = sgd_step(g, s_sgd, xt, yt, problem, opt)
+                torch.cuda.synchronize()
+                t_lgd.append((t1 - t0) * 1e3)
+                t_sgd.append((time.perf_counter() - t1) * 1e3)
+            used = {kname: kernels.launches[kname] - before[kname]
+                    for kname in kernels.launches}
+            key = f"{family}/mp{mp}"
+            report["paths"][key] = dict(
+                build_s=build_s, lgd_loss=losses["lgd"],
+                sgd_loss=losses["sgd"],
+                lgd_step_ms_p50=float(np.median(t_lgd)),
+                sgd_step_ms_p50=float(np.median(t_sgd)),
+                fallback_frac_last=float(m["fallback_frac"]),
+                bucket_size_mean_last=float(m["bucket_size_mean"]),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=used)
+            print(f"path {key} " + json.dumps(report["paths"][key]),
+                  flush=True)
+            if not all(math.isfinite(v) for v in
+                       losses["lgd"] + losses["sgd"]):
+                fail(f"{key}: non-finite loss {losses}")
+            if not losses["lgd"][-1] < losses["lgd"][0]:
+                fail(f"{key}: LGD loss did not fall {losses['lgd']}")
+            want = (("bucket_probe_codes",) if family == "quadratic"
+                    else expect[mp])
+            for kname in want:
+                if used[kname] <= 0:
+                    fail(f"{key}: kernel {kname} was never launched")
+            del state, s_lgd, s_sgd, xt, yt, xa
+    counts = dict(kernels.launches)
+    for kname, n_launch in counts.items():
+        if n_launch <= 0:
+            fail(f"kernel {kname} was not launched on the main path")
+        report["kernels"][kname]["launches"] = n_launch
+
+    # -- 5. where an LGD step's time goes (after the counts are read) -------
+    for family in FAMILIES:
+        report["profile"][family] = profile_steps(
+            torch, family, ds, make_problem, init, lgd_step)
+        print(f"profile {family}/mp0 " + json.dumps(report["profile"][family]),
+              flush=True)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {kk: report["kernels"][kname][kk] for kk in keys}
+        for kname in ("simhash", "bucket_probe", "bucket_probe_multi",
+                      "bucket_probe_codes")]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,294 @@
+"""Algorithm 1 of the paper: LSH sampling with exact sampling probability.
+
+PyTorch port of ``repro.core.sampler`` (``sample``, ``sample_batched``,
+``sample_drain``; the gather variants come with the LM slice).
+
+* ``sample`` — m independent repetitions of the paper's single-sample
+  Algorithm 1: each repetition draws tables with replacement until a
+  non-empty bucket is found (l = #probes), samples uniformly inside the
+  bucket, and reports
+      p = cp(x, q)^K * (1 - cp(x, q)^K)^(l-1) / |S_b|.
+* ``sample_batched`` — ``sample`` for B queries at once: one probe
+  kernel launch hashes all B queries and finds all B·J·L buckets.
+* ``sample_drain`` (Appendix B.2) — the whole minibatch from the first
+  non-empty bucket.
+
+``max_probes`` caps the table draws; if every probed bucket is empty
+the sample falls back to a uniform draw with p = 1/N (flagged), which
+keeps the estimator unbiased.  With ``multiprobe > 0`` each table draw
+walks ``J = 1 + multiprobe`` Hamming-ball probe codes before the next
+draw, and the probability is corrected for the walk:
+
+    p = q_{r_j} * (1 - Q)^(l-1) / |S_b|,      Q = sum_{i<J} q_{r_i}.
+
+RANDOM DRAWS.  Every random number a call uses is in one
+``SampleDraws``: the table drawn at each probe, the within-bucket
+uniform and the fallback id of every repetition.  By default they come
+from the caller's ``torch.Generator``; a caller may pass them instead
+(``draws=``).  The parity tests do that with the reference's own draws,
+rebuilt from the same JAX key, because torch's Philox and JAX's
+threefry never give the same bits.
+
+The m (and B) repetitions run as one batch of tensor operations — the
+reference's ``vmap`` written out — with no host synchronisation.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .families import get_family
+from .simhash import LSHParams, probe_masks
+from .tables import LSHIndex, bucket_bounds_batched, bucket_bounds_multi
+
+
+class SampleResult(NamedTuple):
+    indices: torch.Tensor       # (..., m) int64 — sampled point ids
+    probs: torch.Tensor         # (..., m) f32   — Alg. 1 probability
+    n_probes: torch.Tensor      # (..., m) int32 — l, tables probed
+    bucket_sizes: torch.Tensor  # (..., m) int32 — |S_b| of chosen bucket
+    fallback: torch.Tensor      # (..., m) bool  — uniform fallback used
+    probe_code: torch.Tensor    # (..., m) int32 — winning probe index
+    #                             (0 = exact bucket, -1 = uniform fallback)
+
+
+class SampleDraws(NamedTuple):
+    """The random numbers of one sampling call (see module docstring)."""
+
+    tables: torch.Tensor    # (..., m, max_probes) int64 in [0, L)
+    slot_u: torch.Tensor    # (..., m) float32 in [0, 1)
+    fallback: torch.Tensor  # (..., m) int64 in [0, N)
+
+
+def draw_samples(generator: torch.Generator, shape: tuple, max_probes: int,
+                 n_tables: int, n_points: int, device) -> SampleDraws:
+    """Draw ``SampleDraws`` for repetitions of the given ``shape``
+    ((m,) for ``sample``, (B, m) for ``sample_batched``)."""
+    if generator is None:
+        raise ValueError("sampling needs a torch.Generator or explicit draws")
+    shape = tuple(shape)
+    return SampleDraws(
+        torch.randint(0, n_tables, shape + (max_probes,), generator=generator,
+                      device=device),
+        torch.rand(shape, generator=generator, device=device),
+        torch.randint(0, n_points, shape, generator=generator,
+                      device=device))
+
+
+def _uniform_below(u: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
+    """Uniform integer in [0, bound) from u in [0, 1): floor(u * bound).
+
+    Not ``randint(0, N) % bound``, which over-weights small residues
+    whenever bound does not divide N; the min() guards the u -> 1 edge."""
+    slot = torch.floor(u * bound.to(torch.float32)).to(torch.int64)
+    return torch.minimum(slot, bound.to(torch.int64) - 1)
+
+
+def popcounts(masks: tuple, device) -> torch.Tensor:
+    """Float popcount r of each probe mask (its probe class)."""
+    return torch.tensor([bin(m).count("1") for m in masks],
+                        dtype=torch.float32, device=device)
+
+
+def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
+                 params: LSHParams, max_probes: int,
+                 masks: tuple) -> SampleResult:
+    """Algorithm 1 for a batch of queries given their bucket bounds.
+
+    ``lo``/``hi`` are (B, J, L) — bucket bounds of the J Hamming-ball
+    probe codes per table; ``queries`` (B, d); draws (B, m, ...).  Each
+    of the ``max_probes`` table draws walks the probe sequence in order;
+    the first non-empty bucket in (table-draw, probe) order wins.
+    """
+    n_tables, n_points = order.shape
+    j_codes = len(masks)
+    sizes = hi - lo                                          # (B, J, L)
+    ts = draws.tables                                        # (B, m, P)
+    b, m, p = ts.shape
+    if lo.shape != (b, j_codes, n_tables) or p != max_probes:
+        raise ValueError(
+            f"draws {tuple(ts.shape)} do not match bounds "
+            f"{tuple(lo.shape)} and max_probes={max_probes}")
+    # sz[b, r, j, i] = sizes[b, j, ts[b, r, i]]
+    sz = torch.gather(sizes[:, None].expand(b, m, j_codes, n_tables), 3,
+                      ts[:, :, None, :].expand(b, m, j_codes, p))
+    nonempty = (sz > 0).transpose(2, 3).reshape(b, m, p * j_codes)
+    pos = torch.arange(p * j_codes, device=ts.device)
+    first = torch.where(nonempty, pos, p * j_codes).amin(-1)  # (B, m)
+    found = first < p * j_codes
+    first = torch.where(found, first, 0)
+    i = first // j_codes                                     # table-draw index
+    pj = first % j_codes                                     # probe index
+    t = torch.gather(ts, 2, i[..., None])[..., 0]
+    l = i + 1
+
+    bidx = torch.arange(b, device=ts.device)[:, None]
+    size_raw = sizes[bidx, pj, t]
+    size = torch.clamp(size_raw, min=1)
+    slot = lo[bidx, pj, t] + _uniform_below(draws.slot_u, size)
+    # an unfound repetition's slot may sit past the end; its id is
+    # replaced by the fallback below, so clamp only to keep it in range
+    idx = order[t, torch.clamp(slot, max=n_points - 1)]
+    idx = torch.where(found, idx, draws.fallback)
+
+    fam = get_family(params.family)
+    cp = fam.collision_prob(x_aug[idx], queries[:, None, :])  # (B, m)
+    if j_codes == 1:
+        cpk = cp ** params.k
+        p_lsh = cpk * (1.0 - cpk) ** (l - 1) / size.to(torch.float32)
+    else:
+        # q_r per probed mask; the J buckets of one table are disjoint,
+        # so the per-table miss probability is 1 - sum(q).
+        q_all = fam.probe_class_probs(cp[..., None], params.k,
+                                      popcounts(masks, cp.device))
+        miss = torch.clamp(1.0 - q_all.sum(-1), min=0.0)
+        p_lsh = (torch.gather(q_all, -1, pj[..., None])[..., 0]
+                 * miss ** (l - 1) / size.to(torch.float32))
+    probs = torch.where(found, p_lsh, 1.0 / n_points).to(torch.float32)
+    return SampleResult(
+        indices=idx,
+        probs=probs,
+        n_probes=torch.where(found, l, max_probes).to(torch.int32),
+        bucket_sizes=torch.where(found, size_raw, 0).to(torch.int32),
+        fallback=~found,
+        probe_code=torch.where(found, pj, -1).to(torch.int32),
+    )
+
+
+def _probe_bounds(index, queries, params, masks):
+    """(…, J, L) bucket bounds for the probe sequence."""
+    if len(masks) == 1:
+        lo, hi = bucket_bounds_batched(index, queries, params)
+        return lo[..., None, :], hi[..., None, :]
+    return bucket_bounds_multi(index, queries, params, masks)
+
+
+def sample(
+    generator: Optional[torch.Generator],
+    index: LSHIndex,
+    x_aug: torch.Tensor,
+    query: torch.Tensor,
+    params: LSHParams,
+    m: int = 1,
+    max_probes: Optional[int] = None,
+    multiprobe: int = 0,
+    draws: Optional[SampleDraws] = None,
+) -> SampleResult:
+    """m independent LSH samples for one query (paper Algorithm 1 x m).
+
+    Args:
+      generator: draws the random numbers (unused when ``draws`` given).
+      index / x_aug: the LSH index and the (N, d) hashed vectors.
+      query: (d,) query vector.
+      params: hash-family hyper-parameters.
+      m: number of independent repetitions.
+      max_probes: cap on table draws per repetition (default max(2L, 8)).
+      multiprobe: ADDITIONAL Hamming-ball probe codes walked per table.
+      draws: explicit ``SampleDraws`` with fields shaped (m, ...).
+
+    Returns:
+      ``SampleResult`` with every field shaped (m,); ``1/(probs * N)``
+      importance weights are unbiased.
+    """
+    max_probes = max_probes or max(2 * params.l, 8)
+    masks = probe_masks(params.k, 1 + multiprobe)
+    if draws is None:
+        draws = draw_samples(generator, (m,), max_probes, index.n_tables,
+                             index.n_points, x_aug.device)
+    lo, hi = _probe_bounds(index, query, params, masks)     # (J, L)
+    res = _sample_rows(SampleDraws(*(d[None] for d in draws)), lo[None],
+                       hi[None], index.order, x_aug, query[None], params,
+                       max_probes, masks)
+    return SampleResult(*(f[0] for f in res))
+
+
+def sample_batched(
+    generator: Optional[torch.Generator],
+    index: LSHIndex,
+    x_aug: torch.Tensor,
+    queries: torch.Tensor,          # (B, d)
+    params: LSHParams,
+    m: int = 1,
+    max_probes: Optional[int] = None,
+    multiprobe: int = 0,
+    draws: Optional[SampleDraws] = None,
+) -> SampleResult:
+    """Algorithm 1 for B queries at once; every field comes back (B, m).
+
+    One probe-kernel launch hashes all B queries and finds all B·J·L
+    bucket slices; each (query, repetition) pair is an independent,
+    exact-probability sample.  ``draws`` fields are shaped (B, m, ...).
+    """
+    if queries.dim() != 2:
+        raise ValueError(
+            f"sample_batched expects queries (B, d), got "
+            f"{tuple(queries.shape)}; use sample() for a single query")
+    max_probes = max_probes or max(2 * params.l, 8)
+    masks = probe_masks(params.k, 1 + multiprobe)
+    if draws is None:
+        draws = draw_samples(generator, (queries.shape[0], m), max_probes,
+                             index.n_tables, index.n_points, x_aug.device)
+    lo, hi = _probe_bounds(index, queries, params, masks)   # (B, J, L)
+    return _sample_rows(draws, lo, hi, index.order, x_aug, queries, params,
+                        max_probes, masks)
+
+
+def sample_drain(
+    generator: Optional[torch.Generator],
+    index: LSHIndex,
+    x_aug: torch.Tensor,
+    query: torch.Tensor,
+    params: LSHParams,
+    m: int = 1,
+    max_probes: Optional[int] = None,
+    draws: Optional[SampleDraws] = None,
+) -> SampleResult:
+    """Appendix B.2: draw the whole minibatch from the first non-empty
+    bucket.  ``draws``: tables (max_probes,), slot_u (m,), fallback (m,)."""
+    max_probes = max_probes or max(2 * params.l, 8)
+    n_tables, n_points = index.order.shape
+    if draws is None:
+        if generator is None:
+            raise ValueError(
+                "sampling needs a torch.Generator or explicit draws")
+        dev = x_aug.device
+        draws = SampleDraws(
+            torch.randint(0, n_tables, (max_probes,), generator=generator,
+                          device=dev),
+            torch.rand((m,), generator=generator, device=dev),
+            torch.randint(0, n_points, (m,), generator=generator,
+                          device=dev))
+    lo, hi = bucket_bounds_batched(index, query, params)    # (L,)
+    sizes = hi - lo
+    ts = draws.tables
+    nonempty = sizes[ts] > 0
+    pos = torch.arange(max_probes, device=ts.device)
+    first = torch.where(nonempty, pos, max_probes).amin()
+    found = first < max_probes
+    j = torch.where(found, first, 0)
+    t = ts[j]
+    l = j + 1
+    size = torch.clamp(sizes[t], min=1)
+
+    slots = lo[t] + _uniform_below(draws.slot_u, size)
+    idx = index.order[t, torch.clamp(slots, max=n_points - 1)]
+    idx = torch.where(found, idx, draws.fallback)
+
+    cp = get_family(params.family).collision_prob(x_aug[idx], query)
+    cpk = cp ** params.k
+    p_lsh = cpk * (1.0 - cpk) ** (l - 1) / size.to(torch.float32)
+    probs = torch.where(found, p_lsh, 1.0 / n_points).to(torch.float32)
+
+    def full(v):   # one 0-d result, repeated for the m draws
+        return torch.broadcast_to(v, (m,)).to(torch.int32)
+
+    return SampleResult(
+        indices=idx,
+        probs=probs,
+        n_probes=full(torch.where(found, l, max_probes)),
+        bucket_sizes=full(torch.where(found, sizes[t], 0)),
+        fallback=torch.broadcast_to(~found, (m,)),
+        probe_code=full(torch.where(found, 0, -1)),
+    )

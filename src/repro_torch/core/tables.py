@@ -1,0 +1,241 @@
+"""The sorted-code LSH index (PyTorch port of ``repro.core.tables``).
+
+  per table t:
+    order[t, :]      stable argsort of the codes of table t    (L, N) int64
+    sorted_codes[t]  codes[t, order[t]]                        (L, N) int64
+
+A bucket is the contiguous slice [lo, hi) of a table's sorted codes that
+equals the query's code.  Both halves of the hot path run hand-written
+kernels on a card and plain PyTorch on the CPU:
+
+  * build/refresh hashing: ``kernels.simhash`` (linear families; the
+    quadratic family hashes with plain chunked quadratic forms, as the
+    JAX package leaves it to XLA);
+  * query probing: ``kernels.bucket_probe`` — per-(query, probe, table)
+    binary searches over ``sorted_codes``.
+
+Sorts are stable (``torch.sort(stable=True)``), as ``jnp.argsort`` is,
+so tie order — and with it ``order`` — matches the reference bitwise.
+
+This slice ports ``build`` and ``refresh``.  The ``delta``, ``append``
+and ``evict`` merges, ``grow_index`` and the banded helpers wait for
+the streaming slice (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels.bucket_probe import (
+    bucket_probe,
+    bucket_probe_codes,
+    bucket_probe_multi,
+)
+from repro_torch.kernels.simhash import simhash_codes
+
+from .families import get_family
+from .simhash import LSHParams, compute_codes, make_projections
+
+
+class LSHIndex(NamedTuple):
+    """Sorted-code LSH index over n points."""
+
+    projections: torch.Tensor   # (d, L*K) or (L*K, d, d) for quadratic
+    sorted_codes: torch.Tensor  # (L, N) int64, ascending per row
+    order: torch.Tensor         # (L, N) int64: order[t, j] = original point id
+
+    @property
+    def n_tables(self) -> int:
+        return self.sorted_codes.shape[0]
+
+    @property
+    def n_points(self) -> int:
+        return self.sorted_codes.shape[1]
+
+
+def _hash_points(x: torch.Tensor, proj: torch.Tensor,
+                 params: LSHParams) -> torch.Tensor:
+    """(N, d) augmented points -> (L, N) contiguous int64 codes."""
+    if get_family(params.family).proj_kind == "quadratic":
+        codes = compute_codes(x, proj, k=params.k, l=params.l,
+                              quadratic=True)
+    else:
+        codes = simhash_codes(x, proj, k=params.k, l=params.l)
+    return codes.T.contiguous()   # a no-op copy for the kernel's (L, N) layout
+
+
+# Sentinel code of an EMPTY capacity slot: every live code is < 2^32 - 1
+# for K <= 31, so empty slots sort after all of them.
+EMPTY_CODE = 0xFFFFFFFF
+
+
+def _mask_codes(codes: torch.Tensor,
+                live_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Force the codes of dead capacity slots to the sentinel."""
+    if live_mask is None:
+        return codes
+    return torch.where(live_mask[None, :], codes,
+                       torch.full_like(codes, EMPTY_CODE))
+
+
+def _sort_rows(codes: torch.Tensor):
+    """Stable per-table sort -> (sorted_codes, order)."""
+    return torch.sort(codes, dim=1, stable=True)
+
+
+def _build_impl(generator, projections, x_aug: torch.Tensor,
+                params: LSHParams,
+                live_mask: Optional[torch.Tensor]) -> LSHIndex:
+    if params.dim != x_aug.shape[-1]:
+        raise ValueError(
+            f"params.dim={params.dim} != data dim {x_aug.shape[-1]}")
+    proj = (make_projections(generator, params, x_aug.device)
+            if projections is None else projections)
+    codes = _mask_codes(_hash_points(x_aug, proj, params), live_mask)
+    sorted_codes, order = _sort_rows(codes)
+    return LSHIndex(proj, sorted_codes, order)
+
+
+def _refresh_impl(index: LSHIndex, x_aug: torch.Tensor, params: LSHParams,
+                  live_mask: Optional[torch.Tensor],
+                  warm_start: bool) -> LSHIndex:
+    codes = _mask_codes(_hash_points(x_aug, index.projections, params),
+                        live_mask)
+    if not warm_start:
+        sorted_codes, order = _sort_rows(codes)
+        return LSHIndex(index.projections, sorted_codes, order)
+    # compose a stable sort of the codes permuted by the previous order:
+    # ties keep their previous layout, unchanged codes keep their slots.
+    prev = index.order
+    permuted = torch.gather(codes, 1, prev)
+    sorted_codes, delta = _sort_rows(permuted)
+    return LSHIndex(index.projections, sorted_codes,
+                    torch.gather(prev, 1, delta))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class IndexMutation:
+    """ONE declarative description of an index write (see ``mutate_index``).
+
+      * ``"build"``   — ``x_aug`` (N, d) and either ``generator`` (draws
+        the projections) or ``projections`` (given — the hook the
+        parity tests use to build on the reference's projections);
+        optional ``live_mask`` (N,) bool.
+      * ``"refresh"`` — ``x_aug`` fresh (N, d) features (projections are
+        reused); ``warm_start`` keeps tie layouts stable.
+    """
+
+    op: str
+    generator: Optional[torch.Generator] = None
+    projections: Optional[torch.Tensor] = None
+    x_aug: Optional[torch.Tensor] = None
+    live_mask: Optional[torch.Tensor] = None
+    warm_start: bool = True
+
+    _OPS = ("build", "refresh")
+    _LATER = ("delta", "append", "evict")
+
+    def __post_init__(self):
+        if self.op in self._LATER:
+            raise ValueError(
+                f"IndexMutation op {self.op!r} is not ported to PyTorch "
+                "yet; it comes with the streaming slice (ROADMAP.md "
+                "queue 1)")
+        if self.op not in self._OPS:
+            raise ValueError(
+                f"IndexMutation.op must be one of {self._OPS}, "
+                f"got {self.op!r}")
+
+
+def mutate_index(index: Optional[LSHIndex], mutation: IndexMutation,
+                 params: LSHParams) -> LSHIndex:
+    """THE index write entry point: apply ``mutation``, return a new index.
+
+    Runs on the device of ``x_aug``: the simhash kernel on a card, the
+    plain version on the CPU.  Each op is a pure function of its inputs
+    (and of the generator's state for a build)."""
+    if mutation.x_aug is None:
+        raise ValueError(f"IndexMutation(op={mutation.op!r}) requires x_aug")
+    if mutation.op == "build":
+        if mutation.generator is None and mutation.projections is None:
+            raise ValueError(
+                "IndexMutation(op='build') requires generator or projections")
+        return _build_impl(mutation.generator, mutation.projections,
+                           mutation.x_aug, params, mutation.live_mask)
+    if index is None:
+        raise ValueError(f"IndexMutation(op={mutation.op!r}) requires an index")
+    return _refresh_impl(index, mutation.x_aug, params, mutation.live_mask,
+                         mutation.warm_start)
+
+
+def hash_points(x: torch.Tensor, proj: torch.Tensor,
+                params: LSHParams) -> torch.Tensor:
+    """Public (L, N)-layout hashing entry."""
+    return _hash_points(x, proj, params)
+
+
+def query_codes(index: LSHIndex, q: torch.Tensor,
+                params: LSHParams) -> torch.Tensor:
+    """Hash a query (d,) or batch (m, d) -> (L,) or (m, L) int64."""
+    return compute_codes(
+        q, index.projections, k=params.k, l=params.l,
+        quadratic=get_family(params.family).proj_kind == "quadratic")
+
+
+def bucket_bounds(index: LSHIndex, qcodes: torch.Tensor):
+    """For each table, the [lo, hi) slice of the query's bucket.
+
+    qcodes: (L,) int64 -> lo, hi: (L,) int32, from ``bucket_probe_codes``
+    (the kernel on a card)."""
+    return bucket_probe_codes(qcodes, index.sorted_codes)
+
+
+def bucket_bounds_batched(index: LSHIndex, queries: torch.Tensor,
+                          params: LSHParams):
+    """Hash + probe for a query batch (B, d) (or a single (d,)).
+
+    Returns (lo, hi) int32 of shape (B, L) — or (L,) for a 1-D query.
+    Linear families run the fused ``bucket_probe`` kernel on a card;
+    the quadratic family hashes with plain quadratic forms and probes
+    with ``bucket_probe_codes``.
+
+    There is no cutover by N/B: the JAX package's
+    ``COUNTING_PROBE_MAX_POINTS_PER_QUERY`` bounds the TPU kernel, which
+    streams all L*N codes per call.  The Hopper kernel binary-searches,
+    so its cost grows with log N and every CUDA tensor takes it.
+    """
+    if get_family(params.family).proj_kind == "quadratic":
+        return bucket_probe_codes(query_codes(index, queries, params),
+                                  index.sorted_codes)
+    return bucket_probe(queries, index.projections, index.sorted_codes,
+                        k=params.k, l=params.l)
+
+
+def bucket_bounds_multi(index: LSHIndex, queries: torch.Tensor,
+                        params: LSHParams, masks: tuple):
+    """Bucket bounds for the full multi-probe code sequence.
+
+    For every query, table t and probe mask ``masks[j]``, the [lo, hi)
+    slice of the bucket whose code is ``code(q)[t] ^ masks[j]``.
+
+    Returns (lo, hi) int32 of shape (B, J, L) — or (J, L) for a 1-D query.
+    Linear families run the fused multi-probe kernel; the quadratic
+    family probes its J·L perturbed codes with ``bucket_probe_codes``.
+    """
+    if get_family(params.family).proj_kind != "quadratic":
+        return bucket_probe_multi(queries, index.projections,
+                                  index.sorted_codes, tuple(masks),
+                                  k=params.k, l=params.l)
+    qcodes = query_codes(index, queries, params)            # (..., L)
+    squeeze = qcodes.dim() == 1
+    if squeeze:
+        qcodes = qcodes[None]
+    marr = torch.tensor(list(masks), dtype=torch.int64, device=qcodes.device)
+    pcodes = qcodes[:, None, :] ^ marr[None, :, None]       # (B, J, L)
+    b, j, l = pcodes.shape
+    lo, hi = bucket_probe_codes(pcodes.reshape(b * j, l), index.sorted_codes)
+    lo, hi = lo.reshape(b, j, l), hi.reshape(b, j, l)
+    return (lo[0], hi[0]) if squeeze else (lo, hi)

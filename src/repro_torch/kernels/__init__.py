@@ -1,0 +1,91 @@
+"""Hand-written Hopper kernels and their dispatch.
+
+Each kernel package (``simhash``, ``bucket_probe``) is a triple:
+
+  * ``kernel.py`` — the ctypes wrapper around the CUDA C++ entry point in
+    ``repro_torch/csrc/``: checks device, dtype, shape and contiguity,
+    launches on the current stream, raises on a CUDA error and counts
+    the launch in ``launches``;
+  * ``ref.py``    — the plain PyTorch version of the same function;
+  * ``ops.py``    — the public function: a CUDA tensor goes to the
+    kernel (which launches or raises — there is no fallback), a CPU
+    tensor goes to the plain version.
+
+Dispatch is by the tensor's device, the counterpart of the JAX
+package's ``default_use_pallas()`` backend check.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Launch counts of the hand-written kernels, one per wrapper.  A wrapper
+# adds one where it launches its kernel and nowhere else, so a run can
+# show that its main path went through every kernel.
+launches = {
+    "simhash": 0,
+    "bucket_probe": 0,
+    "bucket_probe_multi": 0,
+    "bucket_probe_codes": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def round_up(a: int, b: int) -> int:
+    """Round ``a`` up to the next multiple of ``b`` (block padding)."""
+    return (a + b - 1) // b * b
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True when ``t`` takes the kernel path; False for the plain path.
+
+    Only a CPU tensor takes the plain version.  Any other device raises,
+    so no tensor silently leaves the kernel path."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}: use cuda or cpu")
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int,
+                 device=None) -> None:
+    """A kernel wrapper's input check: a contiguous CUDA tensor of the
+    given dtype and rank (on ``device`` when given)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU, and an error (never a silent CPU run) when no card exists."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path")
+    return dev
+
+
+def require_full_fp32() -> None:
+    """Turn TF32 off for matmuls and convolutions, and check that it is off.
+
+    TF32 keeps ~10 mantissa bits: a TF32 projection flips the sign of
+    near-zero projections and breaks code parity with the reference."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise RuntimeError("TF32 must stay off for SimHash code parity")

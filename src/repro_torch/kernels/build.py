@@ -1,0 +1,88 @@
+"""Build the CUDA sources in ``repro_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library.  The first call of
+``library`` builds every source at once — one ``nvcc`` process per
+source, all started together — into ``build/kernels/<hash>/`` at the
+root of the checkout, where ``<hash>`` covers the sources and the
+flags, so an edited source builds anew and an unchanged one is reused.
+Nothing is built when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("simhash", "bucket_probe")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh", ".h"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build_all() -> dict:
+    """Compile every missing library in parallel; return name -> path."""
+    out = _build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    paths = {name: out / f"lib{name}.so" for name in SOURCES}
+    todo = [n for n in SOURCES if not paths[n].exists()]
+    nvcc = _nvcc() if todo else None
+    procs = {}
+    for name in todo:
+        tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
+        log = open(out / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    failed = []
+    for name, (proc, tmp, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name}: nvcc exit {rc}\n"
+                          f"{(out / f'{name}.log').read_text()}")
+            continue
+        os.replace(tmp, paths[name])   # atomic: readers see whole files
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (registers, spills) of the last build."""
+    path = _build_dir() / f"{name}.log"
+    return path.read_text() if path.exists() else ""
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu`` (built on first use)."""
+    if name not in _libs:
+        path = build_all()[name]
+        _libs[name] = ctypes.CDLL(str(path))
+    return _libs[name]

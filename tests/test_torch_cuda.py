@@ -1,0 +1,151 @@
+"""The port's hand-written CUDA kernels against their plain versions.
+
+These need a card and skip without one.  The file imports no JAX, so it
+also runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Codes must be equal except where a projection is within 1e-4 of zero
+(kernel and plain version sum in different orders); lo/hi bitwise
+outside the tables whose query code is exempt that way.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import (
+    IndexMutation, LGDProblem, LSHParams, bucket_bounds, draw_samples, init,
+    lgd_step, mutate_index, probe_masks, query_codes)
+from repro_torch.kernels import launches
+from repro_torch.kernels.bucket_probe import (
+    bucket_probe_codes_cuda,
+    bucket_probe_codes_ref,
+    bucket_probe_cuda,
+    bucket_probe_multi_cuda,
+    bucket_probe_multi_ref,
+    bucket_probe_ref,
+)
+from repro_torch.kernels.simhash import simhash_codes_cuda, simhash_codes_ref
+from repro_torch.optim import make_optimizer
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _near(q, w, k):
+    """(B, L) mask of codes with a projection within 1e-4 of zero."""
+    proj = q.double() @ w.double()
+    return (proj.abs() < 1e-4).reshape(q.shape[0], -1, k).any(-1).cpu()
+
+
+def _inputs(card, seed, n, d, l, k, b):
+    g = torch.Generator(device=card).manual_seed(seed)
+    shift = torch.linspace(0, 2, d, device=card)
+    x = torch.randn((n, d), generator=g, device=card) + shift
+    w = torch.randn((d, l * k), generator=g, device=card)
+    sc = torch.sort(simhash_codes_ref(x, w, k=k, l=l).T.contiguous(),
+                    dim=1).values
+    q = torch.randn((b, d), generator=g, device=card) + shift
+    return x, w, sc, q
+
+
+@pytest.mark.parametrize("n,d,l,k", [
+    (3000, 91, 100, 5),    # the slice's widths
+    (777, 40, 7, 32),      # max K, ragged row tile
+    (5, 3, 1, 1),          # degenerate
+])
+def test_simhash(card, n, d, l, k):
+    x, w, _, _ = _inputs(card, 0, n, d, l, k, 1)
+    before = launches["simhash"]
+    got = simhash_codes_cuda(x, w, k=k, l=l)
+    assert got.shape == (l, n) and got.dtype == torch.int64
+    assert launches["simhash"] == before + 1
+    keep = ~_near(x, w, k).T
+    np.testing.assert_array_equal(
+        got.cpu()[keep], simhash_codes_ref(x, w, k=k, l=l).T.cpu()[keep])
+
+
+@pytest.mark.parametrize("b", [1, 16])
+def test_probes(card, b):
+    _, w, sc, q = _inputs(card, 1, 5000, 24, 16, 4, b)
+    keep = ~_near(q, w, 4)
+    got = bucket_probe_cuda(q, w, sc, k=4, l=16)
+    want = bucket_probe_ref(q, w, sc, k=4, l=16)
+    for a, c in zip(got, want):
+        np.testing.assert_array_equal(a.cpu()[keep], c.cpu()[keep])
+    masks = probe_masks(4, 7)
+    got = bucket_probe_multi_cuda(q, w, sc, masks, k=4, l=16)
+    want = bucket_probe_multi_ref(q, w, sc, masks, k=4, l=16)
+    keep_j = keep[:, None, :].expand(b, len(masks), 16)
+    for a, c in zip(got, want):
+        np.testing.assert_array_equal(a.cpu()[keep_j], c.cpu()[keep_j])
+    qc = torch.randint(0, 17, (b, 16), device=card)
+    for a, c in zip(bucket_probe_codes_cuda(qc, sc),
+                    bucket_probe_codes_ref(qc, sc)):
+        np.testing.assert_array_equal(a.cpu(), c.cpu())
+
+
+def test_bucket_bounds_launches_the_probe_kernel(card):
+    """The core entries probe a card index with the kernel, never with
+    the plain searches."""
+    x, w, _, q = _inputs(card, 2, 2000, 12, 8, 3, 1)
+    p = LSHParams(k=3, l=8, dim=12, family="dense")
+    index = mutate_index(None, IndexMutation("build", projections=w,
+                                             x_aug=x), p)
+    qc = query_codes(index, q[0], p)
+    before = launches["bucket_probe_codes"]
+    lo, hi = bucket_bounds(index, qc)
+    assert launches["bucket_probe_codes"] == before + 1
+    want = bucket_probe_codes_ref(qc[None], index.sorted_codes)
+    np.testing.assert_array_equal(lo.cpu(), want[0][0].cpu())
+    np.testing.assert_array_equal(hi.cpu(), want[1][0].cpu())
+
+
+def test_wrappers_raise_on_bad_inputs(card):
+    x = torch.zeros((4, 3), device=card)
+    with pytest.raises(TypeError):
+        simhash_codes_cuda(x.double(), torch.zeros((3, 4), device=card),
+                           k=2, l=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        simhash_codes_cuda(torch.zeros((3, 4), device=card).T,
+                           torch.zeros((3, 4), device=card), k=2, l=2)
+    with pytest.raises(ValueError, match="tables"):
+        bucket_probe_codes_cuda(torch.zeros((1, 2), dtype=torch.int64,
+                                            device=card),
+                                torch.zeros((3, 5), dtype=torch.int64,
+                                            device=card))
+
+
+def test_index_and_step_match_cpu(card):
+    """An index built on the card equals the CPU's, and one LGD step
+    with the same draws gives the same theta."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((800, 12), generator=g)
+    y = x @ torch.randn(12, generator=g) + torch.randn(800, generator=g)
+    p = LSHParams(k=4, l=10, dim=13, family="dense")
+    proj = torch.randn((13, 40), generator=g)
+    prob = LGDProblem(kind="regression", lsh=p, minibatch=8, multiprobe=2)
+    opt = make_optimizer("sgd", 0.05)
+    st, xt, yt, xa = init(None, prob, x, y, opt, projections=proj)
+    idx_g = mutate_index(None, IndexMutation(
+        "build", projections=proj.to(card), x_aug=xa.to(card)), p)
+    np.testing.assert_array_equal(idx_g.sorted_codes.cpu(),
+                                  st.index.sorted_codes)
+    np.testing.assert_array_equal(idx_g.order.cpu(), st.index.order)
+    dr = draw_samples(g, (8,), 20, 10, 800, "cpu")
+    st_c, _ = lgd_step(None, st, xt, yt, xa, prob, opt, draws=dr)
+    st_g = st._replace(theta=st.theta.to(card), index=idx_g,
+                       step=st.step.to(card),
+                       opt_state=type(st.opt_state)(st.opt_state.step.to(
+                           card), None))
+    st_g, _ = lgd_step(None, st_g, xt.to(card), yt.to(card), xa.to(card),
+                       prob, opt, draws=type(dr)(*(t.to(card) for t in dr)))
+    torch.testing.assert_close(st_g.theta.cpu(), st_c.theta, rtol=1e-4,
+                               atol=1e-6)

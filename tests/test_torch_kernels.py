@@ -1,0 +1,161 @@
+"""Parity of the port's kernel modules with the JAX package's.
+
+On the CPU each port wrapper runs its plain PyTorch version; it is held
+against the JAX kernel run in Pallas interpret mode and against the
+JAX plain version, on the same numpy inputs.  lo/hi must be bitwise
+equal; codes bitwise except bits whose projection is within 1e-4 of
+zero (the two packages sum in different orders).
+
+The CUDA kernels themselves are tested on a card by
+tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_codes_match, n, t
+from repro.kernels.bucket_probe import ops as jbp
+from repro.kernels.simhash import ops as jsh
+from repro_torch.kernels import launches, on_cuda, round_up
+from repro_torch.kernels.bucket_probe import (
+    bucket_probe,
+    bucket_probe_codes,
+    bucket_probe_codes_cuda,
+    bucket_probe_multi,
+    bucket_probe_multi_ref,
+)
+from repro_torch.kernels.simhash import (
+    simhash_codes,
+    simhash_codes_cuda,
+    simhash_codes_ref,
+)
+from repro_torch.core.simhash import probe_masks
+
+
+def _index_inputs(seed, n_pts, d, l, k, b):
+    """Skewed points (so buckets are populated), projections, sorted
+    codes of the reference and a query batch — all numpy."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n_pts, d)) +
+         np.linspace(0, 2, d)).astype(np.float32)
+    w = rng.standard_normal((d, l * k)).astype(np.float32)
+    codes = np.asarray(jsh.simhash_codes(x, w, k=k, l=l, use_pallas=False))
+    sc = np.sort(codes.T, axis=1)
+    q = (rng.standard_normal((b, d)) + np.linspace(0, 2, d)).astype(
+        np.float32)
+    return x, w, sc, q
+
+
+def _query_near(q, w, b, j, l, k):
+    """(B, J, L) mask of tables whose query projection is near zero."""
+    proj = np.asarray(q, np.float64) @ np.asarray(w, np.float64)
+    near = (np.abs(proj) < 1e-4).reshape(b, 1, l, k).any(-1)
+    return np.broadcast_to(near, (b, j, l))
+
+
+class TestSimhash:
+    @pytest.mark.parametrize("n_pts,d,k,l", [
+        (300, 24, 5, 16),     # padding on both axes of the TPU kernel
+        (64, 20, 32, 2),      # max K
+        (8, 16, 1, 1),        # degenerate
+    ])
+    def test_matches_jax_kernel_and_ref(self, n_pts, d, k, l):
+        rng = np.random.default_rng(n_pts * d)
+        x = rng.standard_normal((n_pts, d)).astype(np.float32)
+        w = rng.standard_normal((d, l * k)).astype(np.float32)
+        got = simhash_codes(t(x), t(w), k=k, l=l)
+        assert got.dtype == torch.int64 and got.shape == (n_pts, l)
+        proj = x @ w
+        for want in (jsh.simhash_codes(x, w, k=k, l=l, use_pallas=True,
+                                       interpret=True),
+                     jsh.simhash_codes(x, w, k=k, l=l, use_pallas=False)):
+            assert_codes_match(got, want, proj, k)
+        np.testing.assert_array_equal(
+            n(got), n(simhash_codes_ref(t(x), t(w), k=k, l=l)))
+
+    def test_rejects_bad_projection_shape(self):
+        with pytest.raises(ValueError, match="projections"):
+            simhash_codes(torch.zeros(4, 3), torch.zeros(3, 7), k=2, l=4)
+
+
+class TestBucketProbe:
+    N, D, L, K = 700, 12, 16, 3
+
+    @pytest.mark.parametrize("b", [1, 5])
+    def test_fused_matches_jax(self, b):
+        x, w, sc, q = _index_inputs(1, self.N, self.D, self.L, self.K, b)
+        lo, hi = bucket_probe(t(q), t(w), t(sc), k=self.K, l=self.L)
+        jlo, jhi = jbp.bucket_probe(q, w, sc, k=self.K, l=self.L,
+                                    use_pallas=True, interpret=True)
+        keep = ~_query_near(q, w, b, 1, self.L, self.K)[:, 0]
+        assert lo.dtype == torch.int32 and lo.shape == (b, self.L)
+        np.testing.assert_array_equal(n(lo)[keep], n(jlo)[keep])
+        np.testing.assert_array_equal(n(hi)[keep], n(jhi)[keep])
+        assert (n(hi) - n(lo)).sum() > 0, "no populated bucket probed"
+
+    @pytest.mark.parametrize("b,j", [(1, 3), (4, 7)])
+    def test_multi_matches_jax(self, b, j):
+        x, w, sc, q = _index_inputs(2, self.N, self.D, self.L, self.K, b)
+        masks = probe_masks(self.K, j)
+        lo, hi = bucket_probe_multi(t(q), t(w), t(sc), masks, k=self.K,
+                                    l=self.L)
+        jlo, jhi = jbp.bucket_probe_multi(q, w, sc, masks, k=self.K,
+                                          l=self.L, use_pallas=True,
+                                          interpret=True)
+        keep = ~_query_near(q, w, b, j, self.L, self.K)
+        assert lo.shape == (b, j, self.L)
+        np.testing.assert_array_equal(n(lo)[keep], n(jlo)[keep])
+        np.testing.assert_array_equal(n(hi)[keep], n(jhi)[keep])
+        np.testing.assert_array_equal(
+            n(lo), n(bucket_probe_multi_ref(t(q), t(w), t(sc), masks,
+                                            k=self.K, l=self.L)[0]))
+
+    @pytest.mark.parametrize("b", [1, 6])
+    def test_codes_matches_jax_bitwise(self, b):
+        _, _, sc, _ = _index_inputs(3, self.N, self.D, self.L, self.K, 1)
+        rng = np.random.default_rng(b)
+        qc = rng.integers(0, 2 ** self.K + 1, (b, self.L)).astype(np.uint32)
+        lo, hi = bucket_probe_codes(t(qc), t(sc))
+        jlo, jhi = jbp.bucket_probe_codes(qc, sc, use_pallas=True,
+                                          interpret=True)
+        np.testing.assert_array_equal(n(lo), n(jlo))
+        np.testing.assert_array_equal(n(hi), n(jhi))
+
+    def test_single_query_drops_batch_axis(self):
+        _, w, sc, q = _index_inputs(4, 50, self.D, self.L, self.K, 1)
+        lo, hi = bucket_probe(t(q[0]), t(w), t(sc), k=self.K, l=self.L)
+        assert lo.shape == (self.L,)
+        lo2, _ = bucket_probe_multi(t(q[0]), t(w), t(sc), (0, 1), k=self.K,
+                                    l=self.L)
+        assert lo2.shape == (2, self.L)
+        np.testing.assert_array_equal(n(lo2[0]), n(lo))
+
+    def test_sentinel_sorts_last(self):
+        """int64 codes: EMPTY_CODE slots never fall in a live bucket."""
+        sc = np.sort(np.array([[0, 1, 1, 0xFFFFFFFF, 0xFFFFFFFF]],
+                              np.uint32), axis=1)
+        lo, hi = bucket_probe_codes(t(np.array([[1, 31]], np.uint32)).T,
+                                    t(sc))
+        np.testing.assert_array_equal(n(lo)[:, 0], [1, 3])
+        np.testing.assert_array_equal(n(hi)[:, 0], [3, 3])
+
+
+class TestDispatch:
+    def test_round_up(self):
+        assert [round_up(a, 8) for a in (0, 1, 8, 9)] == [0, 8, 8, 16]
+
+    def test_other_devices_raise(self):
+        with pytest.raises(ValueError, match="unsupported device"):
+            on_cuda(torch.empty(2, device="meta"))
+
+    def test_kernel_wrappers_refuse_cpu_tensors(self):
+        """A wrapper launches its kernel or raises — never runs on."""
+        x = torch.zeros(4, 3)
+        before = dict(launches)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            simhash_codes_cuda(x, torch.zeros(3, 4), k=2, l=2)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            bucket_probe_codes_cuda(torch.zeros(1, 2, dtype=torch.int64),
+                                    torch.zeros(2, 5, dtype=torch.int64))
+        assert launches == before
