@@ -19,6 +19,23 @@ Phases (any failed check exits non-zero; no phase is skipped):
   5. a torch.profiler trace of 50 steady LGD steps per family: device
      time per step, the device's idle share and the top kernels.
 
+The LM serving slice adds, each after the phase it extends:
+  2b. the flash-attention and flash-decode kernels against their plain
+      versions at the phi4-mini serve shapes (B = 4, Hkv = 8, G = 3,
+      D = 128; prompt S = 2,048, cache S = 2,560 with kv_len
+      [1, 777, 2048, 2560]), in f32 and bf16, timed beside the plain
+      version and torch's scaled_dot_product_attention;
+  3b. a small-input check: phi4-mini SMOKE (f32) with the same weights on
+      the card (kernels) and the CPU (plain versions), prefill of 2 x 256
+      tokens and 8 teacher-forced decode steps;
+  4b. the serve path at full width: phi4-mini FULL in bf16 (32 layers,
+      random weights), B = 4, prompt 2,048, 512 greedy decode steps,
+      through the functions ``python -m repro_torch.serve --size full``
+      calls, with the launch counts set to 0 just before and read just
+      after (32 flash_attention, 16,384 flash_decode); then the prompt
+      and the first decode step again with attn_impl="ref" on the card;
+  5b. a torch.profiler trace of 20 steady decode steps at full width.
+
 Imports torch, numpy and repro_torch only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
 result.  The last line is the JSON result; the lines before it carry
@@ -49,7 +66,29 @@ def fail(msg: str):
 # assumes: fp32 FLOP/s outside the tensor cores, and HBM bytes/s.
 CARD = "NVIDIA H100 80GB HBM3"
 FP32_PEAK = 67e12
+BF16_PEAK = 989e12      # dense bf16 tensor-core FLOP/s
 HBM_RATE = 3.35e12
+LGD_KERNELS = ("simhash", "bucket_probe", "bucket_probe_multi",
+               "bucket_probe_codes")
+
+# the LM serve path (phases 2b, 4b, 5b): phi4-mini's attention shapes
+SERVE_ARCH = "phi4_mini_3_8b"
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 2048, 512
+HKV, GROUP, D_HEAD = 8, 3, 128
+CACHE_LENS = [1, 777, 2048, 2560]
+# Phase 2b's limits, (rtol, atol) of kernel against plain version.  f32:
+# the same arithmetic in another order.  bf16: kernel and plain version
+# each round an f32 result once, so they may part by one bf16 ulp, at
+# most 2^-7 |want|; the limit is two ulps (rtol 2^-6), plus an atol of
+# 1e-4 for outputs near zero, 100x the f32 sums' own error (the f32
+# rows' max |err| is ~1e-6).  A bf16 kernel must also be as close to the
+# f32 result (the plain version on the upcast inputs) as the plain bf16
+# version is: its max |err| from it at most BF16_GOLD_FACTOR times that.
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -6, 1e-4)}
+BF16_GOLD_FACTOR = 1.5
+# full width: the kernel path's distance from an f32 run may be at most
+# this multiple of the plain bf16 path's distance from it
+FULL_WIDTH_FACTOR = 1.25
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 3) -> dict:
@@ -85,24 +124,18 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> dict:
             else "events"}
 
 
-def profile_steps(torch, family, ds, make_problem, init, lgd_step,
-                  steps: int = 50) -> dict:
-    """Trace ``steps`` steady LGD steps (multiprobe 0) with torch.profiler:
-    wall ms per step, device kernel ms per step, the device's idle share
-    and the kernels that take the most device time."""
+def trace_steps(torch, step, steps: int) -> dict:
+    """Trace ``steps`` calls of ``step`` with torch.profiler: wall ms per
+    step, device kernel ms per step, the device's idle share and the
+    kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    g = torch.Generator(device="cuda").manual_seed(3)
-    problem, opt = make_problem(family, 0, "sgd")
-    state, xt, yt, xa = init(g, problem, ds.x_train, ds.y_train, opt)
-    for _ in range(10):
-        state, _ = lgd_step(g, state, xt, yt, xa, problem, opt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = lgd_step(g, state, xt, yt, xa, problem, opt)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = []
@@ -123,6 +156,22 @@ def profile_steps(torch, family, ds, make_problem, init, lgd_step,
         "device_ops_per_step": len(kernels) / steps,
         "top_device_us_per_step": {name[:60]: us / steps for name, us in top},
     }
+
+
+def profile_steps(torch, family, ds, make_problem, init, lgd_step,
+                  steps: int = 50) -> dict:
+    """Trace ``steps`` steady LGD steps (multiprobe 0)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    problem, opt = make_problem(family, 0, "sgd")
+    state, xt, yt, xa = init(g, problem, ds.x_train, ds.y_train, opt)
+    for _ in range(10):
+        state, _ = lgd_step(g, state, xt, yt, xa, problem, opt)
+
+    def step():
+        nonlocal state
+        state, _ = lgd_step(g, state, xt, yt, xa, problem, opt)
+
+    return trace_steps(torch, step, steps)
 
 
 def main() -> int:
@@ -150,6 +199,11 @@ def main() -> int:
         from repro_torch.kernels.simhash import (
             simhash_codes_cuda, simhash_codes_ref)
         from repro_torch.quickstart import make_problem
+        from repro_torch import configs, serve
+        from repro_torch.kernels.flash_attention import (
+            attention_ref, decode_ref, flash_attention_cuda,
+            flash_decode_cuda)
+        from repro_torch.models import LM
     except ImportError as e:
         fail(f"the repro_torch package is not beside this script: {e}")
 
@@ -194,8 +248,8 @@ def main() -> int:
             out["timed_by"] = tm["timed_by"]
         return out
 
-    def bound(nbytes: float, flops: float):
-        t_bytes, t_ops = nbytes / HBM_RATE, flops / FP32_PEAK
+    def bound(nbytes: float, flops: float, peak: float = FP32_PEAK):
+        t_bytes, t_ops = nbytes / HBM_RATE, flops / peak
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
 
@@ -344,6 +398,101 @@ def main() -> int:
                 bound_by=row["bound_by"], library_ms=row["library_ms"])
     del idx_lin, idx_q, sc, w
 
+    # -- 2b. flash kernels against their plain versions, serve shapes -------
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    ga = torch.Generator(device=dev).manual_seed(5)
+    b_, hq, s_cache = SERVE_B, HKV * GROUP, CACHE_LENS[-1]
+    lens = torch.tensor(CACHE_LENS, dtype=torch.int32, device=dev)
+    valid = torch.arange(s_cache, device=dev)[None, :] < lens[:, None]
+    report["flash_rows"] = []
+
+    def hold(name, tname, got, want, gold):
+        """Readings of ``got`` against its plain version ``want`` and, in
+        bf16, the f32 result ``gold``; fails past the limits above."""
+        rtol, atol = TOL[tname]
+        got, want = got.float(), want.float()
+        out = {"max_abs_err": float((got - want).abs().max()),
+               "max_rel_err": float(((got - want).abs()
+                                     / want.abs().clamp_min(atol)).max()),
+               "rtol": rtol, "atol": atol}
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            fail(f"{name} ({tname}) disagrees with its plain version: max "
+                 f"|err| {out['max_abs_err']:.3g} at rtol {rtol}, atol {atol}")
+        if gold is not None:
+            out["err_vs_f32"] = float((got - gold).abs().max())
+            out["plain_err_vs_f32"] = float((want - gold).abs().max())
+            if not (out["err_vs_f32"]
+                    <= BF16_GOLD_FACTOR * out["plain_err_vs_f32"]):
+                fail(f"{name} ({tname}) is {out['err_vs_f32']:.3g} from the "
+                     f"f32 result, more than {BF16_GOLD_FACTOR} x the plain "
+                     f"version's {out['plain_err_vs_f32']:.3g}")
+        return out
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[1]
+        bf16 = dtype == torch.bfloat16
+        esize = torch.finfo(dtype).bits // 8
+        peak = BF16_PEAK if bf16 else FP32_PEAK
+
+        def randn(*shape):
+            return torch.randn(shape, generator=ga, device=dev).to(dtype)
+
+        fq = randn(b_, HKV, GROUP, SERVE_PROMPT, D_HEAD)
+        fk = randn(b_, HKV, SERVE_PROMPT, D_HEAD)
+        fv = randn(b_, HKV, SERVE_PROMPT, D_HEAD)
+        got = flash_attention_cuda(fq, fk, fv, causal=True)
+        want = attention_ref(fq, fk, fv, causal=True)
+        gold = (attention_ref(fq.float(), fk.float(), fv.float(),
+                              causal=True) if bf16 else None)
+        readings = hold("flash_attention", tname, got, want, gold)
+        flops = 4.0 * b_ * hq * SERVE_PROMPT ** 2 * D_HEAD / 2   # causal half
+        nbytes = (2 * fq.numel() + fk.numel() + fv.numel()) * esize
+        nb, fl = bound(nbytes, flops, peak)
+        qh = fq.reshape(b_, hq, SERVE_PROMPT, D_HEAD)
+        row = dict(name="flash_attention", dtype=tname, **readings,
+                   bound_ms=nb, bound_by=fl, **timings(
+                       lambda: flash_attention_cuda(fq, fk, fv, causal=True),
+                       lambda: attention_ref(fq, fk, fv, causal=True),
+                       lambda: sdpa(qh, fk, fv, is_causal=True,
+                                    enable_gqa=True), 5))
+        report["flash_rows"].append(row)
+        del fq, fk, fv, qh, got, want, gold
+
+        fq = randn(b_, HKV, GROUP, D_HEAD)
+        fk = randn(b_, HKV, s_cache, D_HEAD)
+        fv = randn(b_, HKV, s_cache, D_HEAD)
+        got = flash_decode_cuda(fq, fk, fv, lens)
+        want = decode_ref(fq, fk, fv, lens)
+        gold = (decode_ref(fq.float(), fk.float(), fv.float(), lens)
+                if bf16 else None)
+        readings = hold("flash_decode", tname, got, want, gold)
+        keys = sum(CACHE_LENS)             # the cache rows the data need
+        flops = 4.0 * hq * D_HEAD * keys
+        nbytes = (2 * keys * HKV * D_HEAD + 2 * fq.numel()) * esize
+        nb, fl = bound(nbytes, flops, peak)
+        qh = fq.reshape(b_, hq, 1, D_HEAD)
+        mask = valid[:, None, None, :]
+        row = dict(name="flash_decode", dtype=tname, **readings,
+                   bound_ms=nb, bound_by=fl, **timings(
+                       lambda: flash_decode_cuda(fq, fk, fv, lens),
+                       lambda: decode_ref(fq, fk, fv, lens),
+                       lambda: sdpa(qh, fk, fv, attn_mask=mask,
+                                    enable_gqa=True), 50))
+        report["flash_rows"].append(row)
+        del fq, fk, fv, qh, got, want, gold
+    for row in report["flash_rows"]:
+        print("flash " + json.dumps(row), flush=True)
+        if row["dtype"] == "bfloat16":          # the serve path's type
+            report["kernels"][row["name"]] = dict(
+                row, route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces={"flash_attention":
+                          "src/repro/kernels/flash_attention/kernel.py:92",
+                          "flash_decode":
+                          "src/repro/kernels/flash_attention/kernel.py:184",
+                          }[row["name"]])
+
     # -- 3. small input: the card against the CPU's plain path --------------
     gcpu = torch.Generator().manual_seed(1)
     small = make_regression(gcpu, n_train=2000, n_test=10, d=90,
@@ -404,6 +553,42 @@ def main() -> int:
         print(f"small-input check {family} mp{mp}: {flips} near-zero code "
               f"flips, theta after 20 steps max |diff| "
               f"{float((th_g - th_c).abs().max()):.3g}", flush=True)
+
+    # -- 3b. small input: the serve model on the card against the CPU ------
+    # f32 logits of a 2-layer model whose attention, matmuls and softmax
+    # sum in another order on the card: rtol = atol = 1e-4
+    cfg_s = configs.get_smoke(SERVE_ARCH).with_(attn_impl="pallas")
+    lm_c = LM.init(cfg_s, seed=0, device="cpu")
+    lm_g = LM(cfg_s, device=dev)
+    lm_g.load_state_dict(lm_c.state_dict())
+    toks = torch.randint(0, cfg_s.vocab, (2, 264),
+                         generator=torch.Generator().manual_seed(3))
+    small = {}
+    before = dict(kernels.launches)
+    with torch.inference_mode():
+        for where, lm in (("cpu", lm_c), ("cuda", lm_g)):
+            cache = lm.init_cache(2, 264)
+            h, cache = lm.prefill({"tokens": toks[:, :256].to(lm.device)},
+                                  cache)
+            out = [lm.embed_group.lm_logits(h[:, -1:])[:, 0]]
+            for i in range(8):
+                lg, cache = lm.decode_step(
+                    {"tokens": toks[:, 256 + i:257 + i].to(lm.device),
+                     "positions": torch.full((2, 1), 256 + i,
+                                             device=lm.device)}, cache)
+                out.append(lg[:, 0])
+            small[where] = torch.stack(out).cpu()
+    ran = {kk: kernels.launches[kk] - before[kk]
+           for kk in ("flash_attention", "flash_decode")}
+    if ran != {"flash_attention": 2, "flash_decode": 16}:
+        fail(f"the SMOKE model on the card did not run the kernels: {ran}")
+    err = float((small["cuda"] - small["cpu"]).abs().max())
+    if not torch.allclose(small["cuda"], small["cpu"], rtol=1e-4, atol=1e-4):
+        fail(f"phi4-mini SMOKE logits on the card differ from the CPU's: "
+             f"max |diff| {err:.3g}")
+    print(f"small-input check {cfg_s.name}: prefill 2x256 + 8 decode "
+          f"steps, logits max |diff| card vs CPU {err:.3g}", flush=True)
+    del lm_c, lm_g
 
     # -- 4. the main path ---------------------------------------------------
     expect = {0: ("simhash", "bucket_probe"), 2: ("simhash",
@@ -466,10 +651,102 @@ def main() -> int:
                     fail(f"{key}: kernel {kname} was never launched")
             del state, s_lgd, s_sgd, xt, yt, xa
     counts = dict(kernels.launches)
-    for kname, n_launch in counts.items():
-        if n_launch <= 0:
+    for kname in LGD_KERNELS:
+        if counts[kname] <= 0:
             fail(f"kernel {kname} was not launched on the main path")
-        report["kernels"][kname]["launches"] = n_launch
+        report["kernels"][kname]["launches"] = counts[kname]
+
+    # -- 4b. the serve path at full width -----------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg_f, lm_f = serve.load_model(SERVE_ARCH, "full", device=dev, seed=0)
+    prompts = serve.make_prompts(cfg_f, SERVE_B, SERVE_PROMPT, dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen_out = serve.generate(lm_f, prompts, SERVE_NEW)
+    wall_s = time.perf_counter() - t0
+    served = dict(kernels.launches)
+    want = {"flash_attention": cfg_f.n_layers,
+            "flash_decode": cfg_f.n_layers * SERVE_NEW}
+    for kname, n_launch in want.items():
+        if served[kname] != n_launch:
+            fail(f"serve path launched {kname} {served[kname]} times, "
+                 f"expected {n_launch}")
+        report["kernels"][kname]["launches"] = served[kname]
+    if not gen_out["finite"]:
+        fail("serve path: non-finite logits")
+    p10, p50 = serve.percentiles(gen_out["step_ms"])
+    decode_s = sum(gen_out["step_ms"]) / 1e3
+    report["serve"] = dict(
+        arch=cfg_f.name, batch=SERVE_B, prompt=SERVE_PROMPT,
+        new_tokens=SERVE_NEW, params=sum(p.numel() for p in
+                                         lm_f.parameters()),
+        init_s=init_s, prefill_s=gen_out["prefill_s"],
+        decode_ms_p10=p10, decode_ms_p50=p50,
+        first_step_ms=gen_out["step_ms"][0], decode_s=decode_s,
+        tokens_per_s=SERVE_B * SERVE_NEW / decode_s, wall_s=wall_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches={kk: served[kk] for kk in want},
+        sample_row=gen_out["tokens"][0, :12].tolist())
+    print("serve " + json.dumps(report["serve"]), flush=True)
+
+    # the kernel path against the plain path, same card, same weights.  The
+    # prompt and the first decode step (fed the kernel path's first token)
+    # run again with attn_impl="ref" in bf16, and once more in f32 (the
+    # same bf16 weights, upcast exactly) as the gold.  In bf16 the two
+    # paths part wherever an f32 attention output sits near a bf16
+    # rounding boundary, and 32 random residual layers amplify that (the
+    # first call measured 3.5% relative L2 between them), so no fixed
+    # kernel-vs-ref tolerance is justified.  The kernel path must instead
+    # be about as accurate as the plain path: its relative L2 distance
+    # from the gold at most FULL_WIDTH_FACTOR times the plain path's.  A
+    # wrong mask or a dropped tile moves the hidden state by O(1).
+    def plain_run(dtype):
+        lm_p = LM(cfg_f.with_(attn_impl="ref",
+                              dtype=str(dtype).split(".")[1]), device="meta")
+        sd = lm_f.state_dict()        # bf16 weights, f32 norm scales
+        if dtype == torch.float32:
+            sd = {kk: tt.float() for kk, tt in sd.items()}
+        lm_p.load_state_dict(sd, assign=True)
+        with torch.inference_mode():
+            cache = lm_p.init_cache(SERVE_B, SERVE_PROMPT + 1)
+            h_p, cache = lm_p.prefill({"tokens": prompts}, cache)
+            lg_p, _ = lm_p.decode_step(
+                {"tokens": gen_out["tokens"][:, :1],
+                 "positions": torch.full((SERVE_B, 1), SERVE_PROMPT,
+                                         device=dev)}, cache)
+        return {"last_hidden": h_p[:, -1].float(),
+                "first_logits": lg_p[:, 0].float()}
+
+    runs = {"ref": plain_run(torch.bfloat16), "gold": plain_run(torch.float32)}
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    check = {}
+    for key in ("last_hidden", "first_logits"):
+        got_t = gen_out[key].float()
+        ref_t, gold_t = runs["ref"][key], runs["gold"][key]
+        check[key] = dict(
+            kernel_vs_ref=rel(got_t, ref_t),
+            kernel_vs_gold=rel(got_t, gold_t),
+            ref_vs_gold=rel(ref_t, gold_t),
+            max_abs_kernel_vs_ref=float((got_t - ref_t).abs().max()),
+            ref_max_abs=float(ref_t.abs().max()),
+            argmax_agree=float((got_t.argmax(-1) == ref_t.argmax(-1))
+                               .float().mean()))
+        c = check[key]
+        if not c["kernel_vs_gold"] <= FULL_WIDTH_FACTOR * c["ref_vs_gold"]:
+            fail(f"full width: {key} of the kernel path is "
+                 f"{c['kernel_vs_gold']:.3g} from the f32 run, more than "
+                 f"{FULL_WIDTH_FACTOR} x the plain path's "
+                 f"{c['ref_vs_gold']:.3g}")
+    report["serve_check"] = check
+    print("serve-check " + json.dumps(check), flush=True)
+    del runs, gen_out
 
     # -- 5. where an LGD step's time goes (after the counts are read) -------
     for family in FAMILIES:
@@ -478,12 +755,34 @@ def main() -> int:
         print(f"profile {family}/mp0 " + json.dumps(report["profile"][family]),
               flush=True)
 
+    # -- 5b. where a full-width decode step's time goes ---------------------
+    with torch.inference_mode():
+        cache = lm_f.init_cache(SERVE_B, SERVE_PROMPT + 30)
+        h, cache = lm_f.prefill({"tokens": prompts}, cache)
+        tok = lm_f.embed_group.lm_logits(h[:, -1:]).argmax(-1)
+        pos = [SERVE_PROMPT]
+
+        def decode():
+            nonlocal tok
+            step = {"tokens": tok, "positions": torch.full(
+                (SERVE_B, 1), pos[0], dtype=torch.int32, device=dev)}
+            logits, _ = lm_f.decode_step(step, cache)
+            tok = logits[:, -1:].argmax(-1)
+            pos[0] += 1
+
+        for _ in range(5):
+            decode()
+        report["profile"]["serve_decode"] = trace_steps(torch, decode, 20)
+    print("profile serve/decode " + json.dumps(
+        report["profile"]["serve_decode"]), flush=True)
+    del cache, h, lm_f
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {kk: report["kernels"][kname][kk] for kk in keys}
-        for kname in ("simhash", "bucket_probe", "bucket_probe_multi",
-                      "bucket_probe_codes")]}), flush=True)
+        for kname in LGD_KERNELS + ("flash_attention", "flash_decode")]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,6 +5,13 @@ arrays (anything ``np.asarray`` accepts, JAX arrays included).  With it
 both packages compute on identical state — the parity tests build an
 index or a training state in one and continue it in the other.
 
+LM parameters: ``lm_params_from_numpy`` maps the reference's pytree
+(``embed_group`` plus ``blocks[j]`` stacked over repeats) into the port's
+``LM``, layer ``r * len(block_pattern) + j`` from slice ``r``;
+``lm_params_to_numpy`` maps back.  bf16 arrays (``ml_dtypes.bfloat16``)
+cross bit for bit; numpy has no bf16 of its own, so they come back as
+f32, which holds every bf16 value exactly.
+
 Packed codes are uint32 in the reference and int64 in [0, 2^32) in the
 port; ``order`` is int32 there and int64 here.  Optimiser states map by
 class name (``SGDState``, ``AdaGradState``, ``AdamState``) field by
@@ -18,6 +25,7 @@ import torch
 
 from repro_torch.core.lgd import LGDState
 from repro_torch.core.tables import LSHIndex
+from repro_torch.models import LM, ModelConfig
 from repro_torch.optim import AdaGradState, AdamState, SGDState
 
 _OPT_STATES = {cls.__name__: cls for cls in (SGDState, AdaGradState,
@@ -89,3 +97,102 @@ def lgd_state_to_numpy(state: LGDState) -> dict:
             "opt_state": opt_state_to_numpy(state.opt_state),
             "index": index_to_numpy(state.index),
             "step": state.step.detach().cpu().numpy()}
+
+
+# LM leaves by dotted name: the same path in the port's modules and in
+# the reference's dicts
+_ATTN = ("norm.scale", "wq", "wk", "wv", "wo")
+_FFN = ("norm.scale", "w_up", "w_down", "w_gate")
+_EMBED = ("embed", "lm_head", "final_norm.scale")
+
+
+def _leaf(tree, dotted: str):
+    """``tree``'s leaf at a dotted path: attributes of a module, keys of a
+    reference dict."""
+    for key in dotted.split("."):
+        tree = (getattr(tree, key) if isinstance(tree, torch.nn.Module)
+                else tree[key])
+    return tree
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+@torch.no_grad()
+def _assign(param: torch.Tensor, a, name: str) -> None:
+    t = _to_tensor(a)
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(f"{name}: reference shape {tuple(t.shape)} != "
+                         f"port shape {tuple(param.shape)}")
+    param.copy_(t)
+
+
+def _groups(lm: LM):
+    """(port module, leaf names, where) for the embedding group (where
+    None) and each layer's attn and ffn (where (j, r, "attn" | "ffn"):
+    pattern position j, repeat r)."""
+    n_pat = len(lm.cfg.block_pattern)
+    yield lm.embed_group, _EMBED, None
+    for i, blk in enumerate(lm.blocks):
+        r, j = divmod(i, n_pat)
+        yield blk.attn, _ATTN, (j, r, "attn")
+        if blk.ffn is not None:
+            yield blk.ffn, _FFN, (j, r, "ffn")
+
+
+def lm_params_from_numpy(params, cfg: ModelConfig, device) -> LM:
+    """The reference's ``init_params`` pytree -> the port's ``LM`` on
+    ``device`` (no default: the caller names the device)."""
+    lm = LM(cfg, device=device)
+    for module, names, where in _groups(lm):
+        for name in names:
+            param = _leaf(module, name)
+            if param is None:
+                continue
+            if where is None:
+                _assign(param, _leaf(params["embed_group"], name),
+                        f"embed_group.{name}")
+            else:
+                j, r, kind = where
+                _assign(param, _leaf(params["blocks"][j][kind], name)[r],
+                        f"blocks[{j}].{kind}.{name}[{r}]")
+    return lm
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _set(tree: dict, dotted: str, value) -> None:
+    *path, last = dotted.split(".")
+    for key in path:
+        tree = tree.setdefault(key, {})
+    tree[last] = value
+
+
+def lm_params_to_numpy(lm: LM) -> dict:
+    """The port's ``LM`` -> the reference's pytree layout (stacked over
+    repeats), as numpy; bf16 leaves come back as f32."""
+    out = {"embed_group": {},
+           "blocks": [{} for _ in lm.cfg.block_pattern]}
+    stacks: dict = {}       # (j, dotted name) -> the repeats, in order
+    for module, names, where in _groups(lm):
+        for name in names:
+            param = _leaf(module, name)
+            if param is None:
+                continue
+            if where is None:
+                _set(out["embed_group"], name, _to_numpy(param))
+            else:
+                j, _, kind = where
+                stacks.setdefault((j, f"{kind}.{name}"), []).append(
+                    _to_numpy(param))
+    for (j, dotted), arrs in stacks.items():
+        _set(out["blocks"][j], dotted, np.stack(arrs))
+    return out

@@ -41,7 +41,7 @@ def get_family(name: str) -> LSHFamily:
         if name in NOT_PORTED:
             raise ValueError(
                 f"LSH family {name!r} is not ported to PyTorch yet; it is "
-                "the next item of ROADMAP.md queue 1 (banded family)"
+                "ROADMAP.md queue 1, item 2 (banded family)"
             ) from None
         raise ValueError(
             f"unknown LSH family {name!r}; registered: "

@@ -1,0 +1,154 @@
+"""ctypes wrappers of the CUDA flash-attention kernels (``csrc/flash_attention.cu``).
+
+Replace the TPU kernels ``flash_attention_pallas`` and
+``flash_decode_pallas`` (src/repro/kernels/flash_attention/kernel.py:92
+and :184), with their contracts: causal (or full) GQA attention over
+q (B, Hkv, G, S, D) and k/v (B, Hkv, S, D), and one query per head
+against a KV cache masked by ``kv_len``.  f32 or bf16 in, f32 inside, the
+input type out.  Prefill is bound by operations, decode by the bytes of
+the cache (the reasoning is at the top of the CUDA source).
+
+The wrappers take strided views: every tensor needs its last dimension
+contiguous, its other strides a multiple of 16 bytes and a 16-byte
+aligned base, so the model's (B, S, H, D) activations and its
+(B, S_max, Hkv, D) cache go in as permuted views without a copy.  An
+``out`` view, when given, is written in place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import launches
+from ..build import library
+
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_GROUP_WIDTH = 2048   # decode: G * D per block
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _fn(name: str):
+    fn = getattr(library("flash_attention"), name)
+    fn.argtypes = {
+        "flash_attention_launch":
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "flash_decode_launch":
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    }[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_view(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """A CUDA tensor of ``dtype`` and ``shape`` on ``device``, D contiguous,
+    16-byte aligned base and row strides (the kernels' 16-byte loads)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    vec = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:-1]):
+        raise ValueError(f"{name} needs a contiguous last dimension and "
+                         f"16-byte row strides, got strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _bf16_flag(q: torch.Tensor, d: int) -> int:
+    """1 for bf16, 0 for f32 (the kernels' two types); checks D."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim D={d} must be one of {HEAD_DIMS}")
+    return int(q.dtype == torch.bfloat16)
+
+
+def _strides(*ts) -> ctypes.Array:
+    flat = [st for t in ts for st in t.stride()[:-1]]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, scale: float | None = None,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, Hkv, G, S, D) attention of q (B, Hkv, G, S, D) over k/v
+    (B, Hkv, S, D); written into ``out`` when given."""
+    if q.dim() != 5:
+        raise ValueError(f"q must be (B, Hkv, G, S, D), got {tuple(q.shape)}")
+    b, hkv, g, s, d = q.shape
+    is_bf16 = _bf16_flag(q, d)
+    _check_view(q, "q", q.dtype, (b, hkv, g, s, d), q.device)
+    _check_view(k, "k", q.dtype, (b, hkv, s, d), q.device)
+    _check_view(v, "v", q.dtype, (b, hkv, s, d), q.device)
+    if out is None:
+        out = torch.empty((b, hkv, g, s, d), dtype=q.dtype, device=q.device)
+    _check_view(out, "out", q.dtype, (b, hkv, g, s, d), q.device)
+    if q.numel() == 0:
+        return out
+    scale = d ** -0.5 if scale is None else scale
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _fn("flash_attention_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _strides(q, k, v, out), b, hkv, g, s, d, is_bf16, scale, int(causal),
+        stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: CUDA error {err}")
+    launches["flash_attention"] += 1
+    return out
+
+
+def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                      scale: float | None = None,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, Hkv, G, D) attention of one query per head over the first
+    ``kv_len[b]`` positions of the cache (B, Hkv, S, D); kv_len (B,)
+    int32 on the same card."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, Hkv, G, D), got {tuple(q.shape)}")
+    b, hkv, g, d = q.shape
+    is_bf16 = _bf16_flag(q, d)
+    if k_cache.dim() != 4:
+        raise ValueError(f"k_cache must be (B, Hkv, S, D), got "
+                         f"{tuple(k_cache.shape)}")
+    s = k_cache.shape[2]
+    if s == 0:
+        raise ValueError("flash_decode needs a non-empty cache")
+    if g * d > MAX_GROUP_WIDTH:
+        raise ValueError(f"G*D={g * d} exceeds {MAX_GROUP_WIDTH}")
+    _check_view(q, "q", q.dtype, (b, hkv, g, d), q.device)
+    _check_view(k_cache, "k_cache", q.dtype, (b, hkv, s, d), q.device)
+    _check_view(v_cache, "v_cache", q.dtype, (b, hkv, s, d), q.device)
+    if not kv_len.is_cuda or kv_len.device != q.device:
+        raise ValueError(f"kv_len must be on {q.device}, got {kv_len.device}")
+    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (b,):
+        raise ValueError(f"kv_len must be ({b},) int32, got "
+                         f"{tuple(kv_len.shape)} {kv_len.dtype}")
+    kv_len = kv_len.contiguous()
+    if out is None:
+        out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
+    _check_view(out, "out", q.dtype, (b, hkv, g, d), q.device)
+    if q.numel() == 0:
+        return out
+    scale = d ** -0.5 if scale is None else scale
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _fn("flash_decode_launch")(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(),
+        _strides(q, k_cache, v_cache, out), b, hkv, g, s, d, is_bf16, scale,
+        stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_decode kernel launch failed: CUDA error {err}")
+    launches["flash_decode"] += 1
+    return out
