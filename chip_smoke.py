@@ -36,6 +36,28 @@ The LM serving slice adds, each after the phase it extends:
       and the first decode step again with attn_impl="ref" on the card;
   5b. a torch.profiler trace of 20 steady decode steps at full width.
 
+The LM training slice adds:
+  2c. the gather_weight kernel against its plain version, bitwise (rows
+      and weights), at the train path's shape (N = 2,048, S+1 = 513,
+      m = 8) and a large one (N = 463,715, m = 512), with duplicate ids
+      and probabilities below p_floor; timed beside the plain version
+      and ``index_select``;
+  3c. a small-input check: phi4-mini SMOKE (f32) with the same weights
+      on the card (kernels) and the CPU (plain versions): the LGD index
+      build, then 5 ``next_batch`` + trainer steps with the same injected
+      draws and queries;
+  4c. the train path at full width: phi4-mini FULL in bf16, batch 8 x
+      512 tokens from a 2,048-example corpus, Adam, 20 LGD steps with a
+      synchronous refresh at step 10, through the functions ``python -m
+      repro_torch.launch.train --arch phi4_mini_3_8b --full --lgd``
+      calls, with the launch counts set to 0 just before and read just
+      after (gather_weight 20, bucket_probe >= 20, simhash 2); then the
+      probe and simhash kernels against their plain versions at the
+      train path's shapes (d 3,072, K 7, L 10, N 2,048), timed;
+  5c. a torch.profiler trace of 5 steady training steps.
+4c and 5c run last, after the serve model of 4b/5b is freed: the train
+state (bf16 weights and grads, f32 Adam moments) takes ~53 GB.
+
 Imports torch, numpy and repro_torch only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
 result.  The last line is the JSON result; the lines before it carry
@@ -71,6 +93,15 @@ HBM_RATE = 3.35e12
 LGD_KERNELS = ("simhash", "bucket_probe", "bucket_probe_multi",
                "bucket_probe_codes")
 
+# the LM train path (phases 2c, 3c, 4c, 5c): the reference launcher's
+# defaults with 512-token rows
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CORPUS, TRAIN_STEPS = 8, 512, 2048, 20
+TRAIN_REFRESH = 10
+# 3c: losses of the f32 SMOKE model, card vs CPU, on bitwise-equal
+# tokens and weights within 1e-6: sums in another order, compounded
+# over 5 Adam steps
+SMOKE_TRAIN_RTOL = 1e-4
+
 # the LM serve path (phases 2b, 4b, 5b): phi4-mini's attention shapes
 SERVE_ARCH = "phi4_mini_3_8b"
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 2048, 512
@@ -89,6 +120,17 @@ BF16_GOLD_FACTOR = 1.5
 # full width: the kernel path's distance from an f32 run may be at most
 # this multiple of the plain bf16 path's distance from it
 FULL_WIDTH_FACTOR = 1.25
+
+
+# device-time classes of a trace, by substrings of the kernel's name
+KERNEL_KINDS = (
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+    ("hand-written", ("simhash_kernel", "probe", "flash_", "gather_weight")),
+    ("copy", ("Memcpy", "Memset", "copy_kernel")),
+    ("reduce", ("reduce_kernel", "logsumexp", "softmax", "norm_kernel")),
+    ("index", ("index", "gather", "scatter", "embedding")),
+    ("elementwise", ("elementwise", "where", "fill")),
+)
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 3) -> dict:
@@ -138,15 +180,25 @@ def trace_steps(torch, step, steps: int) -> dict:
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = []
+    kernels, spans = [], []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels.append((e.name, e.time_range.elapsed_us()))
-    device_us = sum(us for _, us in kernels)
+            spans.append((e.time_range.start, e.time_range.end))
+    # busy time: the union of the activities' intervals, since the sum of
+    # their durations can exceed the wall time where activities overlap
+    device_us, last = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        device_us += max(0.0, end - max(start, last))
+        last = max(last, end)
     by_name: dict = {}
+    by_kind: dict = {}
     for name, us in kernels:
         by_name[name] = by_name.get(name, 0.0) + us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        kind = next((kk for kk, marks in KERNEL_KINDS
+                     if any(mk in name for mk in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     if device_us == 0:
         return {"wall_ms_per_step": wall_ms, "device": "not measured"}
     return {
@@ -154,7 +206,11 @@ def trace_steps(torch, step, steps: int) -> dict:
         "device_ms_per_step": device_us / 1e3 / steps,
         "device_idle_share": 1.0 - device_us / 1e3 / steps / wall_ms,
         "device_ops_per_step": len(kernels) / steps,
-        "top_device_us_per_step": {name[:60]: us / steps for name, us in top},
+        "device_summed_ms_per_step": sum(by_kind.values()) / 1e3 / steps,
+        "device_summed_ms_per_step_by_kind": {kk: us / 1e3 / steps
+                                              for kk, us in by_kind.items()},
+        "top_device_us_per_step": [[name[:90], us / steps]
+                                   for name, us in top],
     }
 
 
@@ -204,6 +260,15 @@ def main() -> int:
             attention_ref, decode_ref, flash_attention_cuda,
             flash_decode_cuda)
         from repro_torch.models import LM
+        from repro_torch.core import LSHIndex, SampleDraws
+        from repro_torch.data import (
+            LSHPipelineConfig, LSHSampledPipeline, lm_head_query_fn,
+            make_token_corpus, mean_pool_feature_fn)
+        from repro_torch.kernels.gather_weight import (
+            gather_weight_cuda, gather_weight_ref)
+        from repro_torch.launch import train as launch_train
+        from repro_torch.optim import Adam, schedules
+        from repro_torch.train import Trainer
     except ImportError as e:
         fail(f"the repro_torch package is not beside this script: {e}")
 
@@ -493,6 +558,46 @@ def main() -> int:
                           "src/repro/kernels/flash_attention/kernel.py:184",
                           }[row["name"]])
 
+    # -- 2c. gather_weight against its plain version, train shapes ---------
+    report["gather_rows"] = []
+    gg = torch.Generator(device=dev).manual_seed(7)
+    for n_rows, m in ((TRAIN_CORPUS, TRAIN_BATCH), (N_TRAIN, 512)):
+        width = TRAIN_SEQ + 1
+        store = torch.randint(0, 200_064, (n_rows, width), generator=gg,
+                              device=dev, dtype=torch.int32)
+        gidx = torch.randint(0, n_rows, (m,), generator=gg, device=dev)
+        gidx[: m // 4] = gidx[0]                        # duplicate ids
+        gp = torch.rand((m,), generator=gg, device=dev) * 0.01
+        gp[-2:] = torch.tensor([0.0, 1e-9])             # below p_floor
+        rows, gw = gather_weight_cuda(store, gidx, gp, p_floor=1e-8)
+        want_rows, want_w = gather_weight_ref(store, gidx, gp, p_floor=1e-8)
+        if not (torch.equal(rows, want_rows) and torch.equal(
+                gw.view(torch.int32), want_w.view(torch.int32))):
+            fail(f"gather_weight (N={n_rows}, m={m}) is not bitwise equal to "
+                 f"its plain version")
+        uniq = int(torch.unique(gidx).numel())
+        nb, fl = bound(uniq * width * 4 + m * width * 4 + m * (8 + 4 + 4),
+                       2.0 * m)
+        row = dict(name="gather_weight", N=n_rows, W=width, m=m,
+                   unique_ids=uniq, max_abs_err=0, bound_ms=nb, bound_by=fl,
+                   **timings(
+                       lambda: gather_weight_cuda(store, gidx, gp,
+                                                  p_floor=1e-8),
+                       lambda: gather_weight_ref(store, gidx, gp,
+                                                 p_floor=1e-8),
+                       lambda: store.index_select(0, gidx), 100))
+        report["gather_rows"].append(row)
+        print("gather " + json.dumps(row), flush=True)
+        del store, rows, want_rows
+    main_gather = report["gather_rows"][0]
+    report["kernels"]["gather_weight"] = dict(
+        name="gather_weight", route="cuda",
+        source="src/repro_torch/csrc/gather_weight.cu",
+        replaces="src/repro/kernels/gather_weight/kernel.py:56",
+        **{kk: main_gather[kk] for kk in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")})
+
     # -- 3. small input: the card against the CPU's plain path --------------
     gcpu = torch.Generator().manual_seed(1)
     small = make_regression(gcpu, n_train=2000, n_test=10, d=90,
@@ -589,6 +694,86 @@ def main() -> int:
     print(f"small-input check {cfg_s.name}: prefill 2x256 + 8 decode "
           f"steps, logits max |diff| card vs CPU {err:.3g}", flush=True)
     del lm_c, lm_g
+
+    # -- 3c. small input: LGD training on the card against the CPU ---------
+    cfg_t = configs.get_smoke(SERVE_ARCH)                 # f32
+    lm_c = LM.init(cfg_t, seed=0, device="cpu")
+    lm_g = LM(cfg_t, device=dev)
+    lm_g.load_state_dict(lm_c.state_dict())
+    toks = make_token_corpus(0, 256, 64, cfg_t.vocab).tokens
+    pcfg = LSHPipelineConfig(minibatch=TRAIN_BATCH)
+    kernels.reset_launch_counts()
+    pipes = {"cpu": LSHSampledPipeline(
+        2, toks, mean_pool_feature_fn(cfg_t), lm_head_query_fn(), pcfg,
+        params=lm_c, device="cpu")}
+    pipes["cuda"] = LSHSampledPipeline(
+        2, toks, mean_pool_feature_fn(cfg_t), lm_head_query_fn(), pcfg,
+        params=lm_g, device=dev,
+        projections=pipes["cpu"].index.projections.to(dev))
+    if kernels.launches["simhash"] != 1:
+        fail("the SMOKE LGD index on the card was not hashed by the kernel")
+    fc, fg = pipes["cpu"].features, pipes["cuda"].features.cpu()
+    feat_err = float((fg - fc).abs().max())
+    if not torch.allclose(fg, fc, rtol=1e-4, atol=1e-6):
+        fail(f"SMOKE LGD features on the card differ from the CPU's: max "
+             f"|diff| {feat_err:.3g}")
+    proj_t = pipes["cpu"].index.projections
+    lsh_t = pipes["cpu"].lsh
+    near = ((fc @ proj_t).abs() < 1e-4).reshape(-1, lsh_t.l, lsh_t.k).any(-1).T
+    codes = [hash_points(fc, proj_t, lsh_t),
+             hash_points(pipes["cuda"].features, proj_t.to(dev), lsh_t).cpu()]
+    if not torch.equal(codes[0][~near], codes[1][~near]):
+        fail("SMOKE LGD codes hashed on the card differ from the CPU's")
+    flips = int((codes[0] != codes[1]).sum())
+    ic, ig = pipes["cpu"].index, pipes["cuda"].index
+    if flips == 0 and not (torch.equal(ig.sorted_codes.cpu(), ic.sorted_codes)
+                           and torch.equal(ig.order.cpu(), ic.order)):
+        fail("SMOKE LGD index built on the card differs from the CPU's")
+    # from here both sample the CPU's index with the same draws and the
+    # CPU model's query, so tokens must agree bitwise; the probabilities
+    # (and so the weights) are computed on each device, in another order
+    pipes["cuda"].features = fc.to(dev)
+    pipes["cuda"].index = LSHIndex(*(x.to(dev) for x in ic))
+    trainers = {where: Trainer(
+        cfg_t, lm, Adam(lr=schedules.warmup_cosine(1e-3, 2, 5)),
+        sampler=pipes[where]) for where, lm in (("cpu", lm_c),
+                                                ("cuda", lm_g))}
+    gd = torch.Generator().manual_seed(4)
+    lsm = {"cpu": [], "cuda": []}
+    kernels.reset_launch_counts()
+    w_err = 0.0
+    for _ in range(5):
+        dr = draw_samples(gd, (TRAIN_BATCH,), max(2 * lsh_t.l, 8), lsh_t.l,
+                          toks.shape[0], "cpu")
+        q = pipes["cpu"].family.augment_query(lm_c.lm_head_query().detach())
+        bt = {"cpu": pipes["cpu"].next_batch(query=q, draws=dr),
+              "cuda": pipes["cuda"].next_batch(
+                  query=q.to(dev), draws=SampleDraws(*(x.to(dev)
+                                                       for x in dr)))}
+        for kk in ("tokens", "targets", "example_ids"):
+            if not torch.equal(bt["cuda"][kk].cpu(), bt["cpu"][kk]):
+                fail(f"SMOKE LGD batch {kk} on the card differ from the CPU's")
+        wc, wg = bt["cpu"]["loss_weights"], bt["cuda"]["loss_weights"].cpu()
+        w_err = max(w_err, float(((wg - wc).abs() / wc).max()))
+        if not torch.allclose(wg, wc, rtol=1e-5, atol=0):
+            fail(f"SMOKE LGD weights on the card differ from the CPU's: "
+                 f"{w_err:.3g} relative")
+        for where in ("cpu", "cuda"):
+            lsm[where].append(float(trainers[where].train_step(bt[where])[0]))
+    ran = {kk: kernels.launches[kk] for kk in ("bucket_probe",
+                                               "gather_weight")}
+    if ran != {"bucket_probe": 5, "gather_weight": 5}:
+        fail(f"the SMOKE LGD path on the card did not run the kernels: {ran}")
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(lsm["cuda"], lsm["cpu"]))
+    if l_err > SMOKE_TRAIN_RTOL:
+        fail(f"SMOKE LGD losses on the card differ from the CPU's: {lsm}")
+    report["smoke_train"] = dict(
+        feature_max_abs_diff=feat_err, code_flips=flips,
+        weight_max_rel_diff=w_err, loss_max_rel_diff=l_err,
+        losses_cpu=lsm["cpu"], losses_cuda=lsm["cuda"], launches=ran)
+    print("small-input check train " + json.dumps(report["smoke_train"]),
+          flush=True)
+    del lm_c, lm_g, pipes, trainers
 
     # -- 4. the main path ---------------------------------------------------
     expect = {0: ("simhash", "bucket_probe"), 2: ("simhash",
@@ -777,11 +962,136 @@ def main() -> int:
         report["profile"]["serve_decode"]), flush=True)
     del cache, h, lm_f
 
+    # -- 4c. the train path at full width -----------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg_f, model = launch_train.load_model(SERVE_ARCH, True, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler, _ = launch_train.make_batches(
+        cfg_f, model, lgd=True, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        corpus=TRAIN_CORPUS, device=dev, refresh_every=TRAIN_REFRESH)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    # instruments: the refresh timed with syncs around it, and each
+    # batch's mean weight kept on the device
+    refresh_s, w_means = [], []
+    refresh, next_batch = sampler.refresh, sampler.next_batch
+
+    def timed_refresh(full=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ok = refresh(full)
+        torch.cuda.synchronize()
+        refresh_s.append(time.perf_counter() - t)
+        return ok
+
+    def kept_batch(*a, **kw):
+        b = next_batch(*a, **kw)
+        w_means.append(b["loss_weights"].mean())
+        return b
+
+    sampler.refresh, sampler.next_batch = timed_refresh, kept_batch
+    tr = launch_train.make_trainer(cfg_f, model, steps=TRAIN_STEPS, lr=1e-3,
+                                   sampler=sampler, log_every=1)
+    t0 = time.perf_counter()
+    out = tr.run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    trained = dict(kernels.launches)
+    if trained["gather_weight"] != TRAIN_STEPS or \
+            trained["bucket_probe"] < TRAIN_STEPS or trained["simhash"] != 2:
+        fail(f"train path launches {trained}: expected gather_weight "
+             f"{TRAIN_STEPS}, bucket_probe >= {TRAIN_STEPS}, simhash 2")
+    report["kernels"]["gather_weight"]["launches"] = trained["gather_weight"]
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"train path losses {losses}")
+    w_means = torch.stack(w_means).cpu()
+    if not torch.allclose(w_means, torch.ones_like(w_means), rtol=0,
+                          atol=1e-5):
+        fail(f"train path weights' batch means are not 1: {w_means}")
+    dts = [m_["dt"] * 1e3 for m_ in tr.metrics_history]
+    steady = dts[:TRAIN_REFRESH - 1] + dts[TRAIN_REFRESH:]
+    report["train"] = dict(
+        arch=cfg_f.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        corpus=TRAIN_CORPUS, steps=TRAIN_STEPS,
+        params=sum(p.numel() for p in model.parameters()),
+        feature_batch=sampler.feature_batch, init_s=init_s,
+        index_build_s=index_s, refresh_s=refresh_s, run_s=run_s,
+        step_ms_p10=float(np.percentile(steady, 10)),
+        step_ms_p50=float(np.percentile(steady, 50)),
+        step_ms_all=dts, sampler_overhead=tr.sampler_overhead,
+        data_s=tr.data_seconds,
+        fallback_rate=sampler.sampler_stats()["fallback_rate"],
+        weight_mean_max_dev=float((w_means - 1).abs().max()),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        first_loss=losses[0], last_loss=losses[-1], losses=losses,
+        skipped_steps=tr.skipped_steps, launches=trained)
+    print("train " + json.dumps(report["train"]), flush=True)
+
+    # the train path's own shapes of its LGD kernels (d 3,072, K 7, L 10,
+    # N 2,048): the query probe of every step, the hash of every build
+    # and refresh; held against the plain versions and timed (after the
+    # counts were read)
+    w_t, sc_t, x_t = (sampler.index.projections, sampler.index.sorted_codes,
+                      sampler.features)
+    k_t, l_t = sampler.lsh.k, sampler.lsh.l
+    (n_t, d_t), lk_t = x_t.shape, sampler.lsh.k * sampler.lsh.l
+    q_t = sampler.family.augment_query(
+        model.lm_head_query().detach())[None].contiguous()
+    near_q = ((q_t @ w_t).abs() < 1e-4).reshape(1, l_t, k_t).any(-1)
+    got = bucket_probe_cuda(q_t, w_t, sc_t, k=k_t, l=l_t)
+    want = bucket_probe_ref(q_t, w_t, sc_t, k=k_t, l=l_t)
+    e_probe = max(int((a - b).abs()[~near_q].max())
+                  for a, b in zip(got, want))
+    near_x = ((x_t @ w_t).abs() < 1e-4).reshape(n_t, l_t, k_t).any(-1).T
+    got = simhash_codes_cuda(x_t, w_t, k=k_t, l=l_t)
+    want = simhash_codes_ref(x_t, w_t, k=k_t, l=l_t).T
+    e_hash = int((got - want).abs()[~near_x].max())
+    if e_probe or e_hash:
+        fail("a kernel disagrees with its plain version at the train shapes")
+    qc_t = compute_codes(q_t, w_t, k=k_t, l=l_t).T.contiguous()
+    levels_t = math.floor(math.log2(n_t))
+    shape = f"d {d_t}, K {k_t}, L {l_t}, N {n_t}"
+    nb, fl = bound(l_t * (2 * levels_t * 8 + 2 * 4) + d_t * 4
+                   + d_t * lk_t * 4, 2.0 * d_t * lk_t)
+    report["train_kernels"] = [dict(
+        name="bucket_probe", shape="B 1, " + shape, max_abs_err=e_probe,
+        bound_ms=nb, bound_by=fl, **timings(
+            lambda: bucket_probe_cuda(q_t, w_t, sc_t, k=k_t, l=l_t),
+            lambda: bucket_probe_ref(q_t, w_t, sc_t, k=k_t, l=l_t),
+            lambda: two_searches(qc_t, sc_t), 100))]
+    nb, fl = bound(n_t * d_t * 4 + d_t * lk_t * 4 + n_t * l_t * 8,
+                   2.0 * n_t * d_t * lk_t)
+    report["train_kernels"].append(dict(
+        name="simhash", shape=shape, max_abs_err=e_hash, bound_ms=nb,
+        bound_by=fl, **timings(
+            lambda: simhash_codes_cuda(x_t, w_t, k=k_t, l=l_t),
+            lambda: simhash_codes_ref(x_t, w_t, k=k_t, l=l_t), None, 10)))
+    for row in report["train_kernels"]:
+        print("train-kernel " + json.dumps(row), flush=True)
+    del got, want, near_x
+
+    # -- 5c. where a full-width training step's time goes -------------------
+    sampler.refresh, sampler.next_batch = refresh, next_batch
+    sampler.cfg.refresh_every = 0          # steady steps: no refresh
+    tr.batches = iter(sampler.next_batch, None)
+    report["profile"]["train_step"] = trace_steps(torch, lambda: tr.run(1), 5)
+    print("profile train/step " + json.dumps(
+        report["profile"]["train_step"]), flush=True)
+    del tr, sampler, model
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {kk: report["kernels"][kname][kk] for kk in keys}
-        for kname in LGD_KERNELS + ("flash_attention", "flash_decode")]}),
+        for kname in LGD_KERNELS + ("flash_attention", "flash_decode",
+                                    "gather_weight")]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

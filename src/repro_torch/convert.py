@@ -13,9 +13,11 @@ cross bit for bit; numpy has no bf16 of its own, so they come back as
 f32, which holds every bf16 value exactly.
 
 Packed codes are uint32 in the reference and int64 in [0, 2^32) in the
-port; ``order`` is int32 there and int64 here.  Optimiser states map by
-class name (``SGDState``, ``AdaGradState``, ``AdamState``) field by
-field.
+port; ``order`` is int32 there and int64 here.  Optimiser states of a
+single tensor map by class name (``SGDState``, ``AdaGradState``,
+``AdamState``) field by field.  An LM's Adam state — moments shaped
+like the parameter pytree there, dicts keyed by the port's parameter
+names here — maps with ``adam_state_{from,to}_numpy``.
 """
 
 from __future__ import annotations
@@ -99,22 +101,6 @@ def lgd_state_to_numpy(state: LGDState) -> dict:
             "step": state.step.detach().cpu().numpy()}
 
 
-# LM leaves by dotted name: the same path in the port's modules and in
-# the reference's dicts
-_ATTN = ("norm.scale", "wq", "wk", "wv", "wo")
-_FFN = ("norm.scale", "w_up", "w_down", "w_gate")
-_EMBED = ("embed", "lm_head", "final_norm.scale")
-
-
-def _leaf(tree, dotted: str):
-    """``tree``'s leaf at a dotted path: attributes of a module, keys of a
-    reference dict."""
-    for key in dotted.split("."):
-        tree = (getattr(tree, key) if isinstance(tree, torch.nn.Module)
-                else tree[key])
-    return tree
-
-
 def _to_tensor(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
@@ -123,45 +109,35 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-@torch.no_grad()
-def _assign(param: torch.Tensor, a, name: str) -> None:
-    t = _to_tensor(a)
-    if tuple(t.shape) != tuple(param.shape):
-        raise ValueError(f"{name}: reference shape {tuple(t.shape)} != "
-                         f"port shape {tuple(param.shape)}")
-    param.copy_(t)
+def _where(name: str, cfg: ModelConfig):
+    """Where the reference keeps the port's parameter ``name``:
+    ``(None, dotted)`` in ``embed_group``, or ``(j, r, dotted)`` in slice
+    r of ``blocks[j]`` — port layer i is pattern position j, repeat r,
+    with ``r, j = divmod(i, len(block_pattern))``."""
+    head, rest = name.split(".", 1)
+    if head == "embed_group":
+        return None, rest
+    i, dotted = rest.split(".", 1)
+    r, j = divmod(int(i), len(cfg.block_pattern))
+    return j, r, dotted
 
 
-def _groups(lm: LM):
-    """(port module, leaf names, where) for the embedding group (where
-    None) and each layer's attn and ffn (where (j, r, "attn" | "ffn"):
-    pattern position j, repeat r)."""
-    n_pat = len(lm.cfg.block_pattern)
-    yield lm.embed_group, _EMBED, None
-    for i, blk in enumerate(lm.blocks):
-        r, j = divmod(i, n_pat)
-        yield blk.attn, _ATTN, (j, r, "attn")
-        if blk.ffn is not None:
-            yield blk.ffn, _FFN, (j, r, "ffn")
+def _leaf(tree: dict, dotted: str):
+    for key in dotted.split("."):
+        tree = tree[key]
+    return tree
 
 
-def lm_params_from_numpy(params, cfg: ModelConfig, device) -> LM:
-    """The reference's ``init_params`` pytree -> the port's ``LM`` on
-    ``device`` (no default: the caller names the device)."""
-    lm = LM(cfg, device=device)
-    for module, names, where in _groups(lm):
-        for name in names:
-            param = _leaf(module, name)
-            if param is None:
-                continue
-            if where is None:
-                _assign(param, _leaf(params["embed_group"], name),
-                        f"embed_group.{name}")
-            else:
-                j, r, kind = where
-                _assign(param, _leaf(params["blocks"][j][kind], name)[r],
-                        f"blocks[{j}].{kind}.{name}[{r}]")
-    return lm
+def lm_tree_from_numpy(tree, lm: LM) -> dict:
+    """A pytree shaped like the reference's LM params (the params, or
+    Adam's moments) -> {``lm``'s parameter name: tensor on its device}."""
+    out = {}
+    for name, _ in lm.named_parameters():
+        where = _where(name, lm.cfg)
+        a = (_leaf(tree["embed_group"], where[1]) if where[0] is None
+             else _leaf(tree["blocks"][where[0]], where[2])[where[1]])
+        out[name] = _to_tensor(a).to(lm.device)
+    return out
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -176,23 +152,53 @@ def _set(tree: dict, dotted: str, value) -> None:
     tree[last] = value
 
 
-def lm_params_to_numpy(lm: LM) -> dict:
-    """The port's ``LM`` -> the reference's pytree layout (stacked over
-    repeats), as numpy; bf16 leaves come back as f32."""
-    out = {"embed_group": {},
-           "blocks": [{} for _ in lm.cfg.block_pattern]}
+def lm_tree_to_numpy(named: dict, cfg: ModelConfig) -> dict:
+    """{port parameter name: tensor} -> the reference's pytree layout
+    (stacked over repeats), as numpy; bf16 leaves come back as f32."""
+    out = {"embed_group": {}, "blocks": [{} for _ in cfg.block_pattern]}
     stacks: dict = {}       # (j, dotted name) -> the repeats, in order
-    for module, names, where in _groups(lm):
-        for name in names:
-            param = _leaf(module, name)
-            if param is None:
-                continue
-            if where is None:
-                _set(out["embed_group"], name, _to_numpy(param))
-            else:
-                j, _, kind = where
-                stacks.setdefault((j, f"{kind}.{name}"), []).append(
-                    _to_numpy(param))
+    for name, t in named.items():
+        where = _where(name, cfg)
+        if where[0] is None:
+            _set(out["embed_group"], where[1], _to_numpy(t))
+        else:
+            stacks.setdefault((where[0], where[2]), []).append(_to_numpy(t))
     for (j, dotted), arrs in stacks.items():
         _set(out["blocks"][j], dotted, np.stack(arrs))
     return out
+
+
+@torch.no_grad()
+def lm_params_from_numpy(params, cfg: ModelConfig, device) -> LM:
+    """The reference's ``init_params`` pytree -> the port's ``LM`` on
+    ``device`` (no default: the caller names the device)."""
+    lm = LM(cfg, device=device)
+    own = dict(lm.named_parameters())
+    for name, t in lm_tree_from_numpy(params, lm).items():
+        if tuple(t.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name}: reference shape {tuple(t.shape)} != "
+                             f"port shape {tuple(own[name].shape)}")
+        own[name].copy_(t)
+    return lm
+
+
+def lm_params_to_numpy(lm: LM) -> dict:
+    """The port's ``LM`` -> the reference's pytree layout (stacked over
+    repeats), as numpy; bf16 leaves come back as f32."""
+    return lm_tree_to_numpy(dict(lm.named_parameters()), lm.cfg)
+
+
+def adam_state_from_numpy(state, lm: LM) -> AdamState:
+    """The reference's ``AdamState`` over LM params -> the port's, with
+    dicts of f32 moments keyed by ``lm``'s parameter names."""
+    return AdamState(tensor_from_numpy(state.step, lm.device),
+                     lm_tree_from_numpy(state.m, lm),
+                     lm_tree_from_numpy(state.v, lm))
+
+
+def adam_state_to_numpy(state: AdamState, cfg: ModelConfig) -> dict:
+    """The port's dict ``AdamState`` -> {"step", "m", "v"} in the
+    reference's layout, as numpy."""
+    return {"step": state.step.detach().cpu().numpy(),
+            "m": lm_tree_to_numpy(state.m, cfg),
+            "v": lm_tree_to_numpy(state.v, cfg)}

@@ -34,12 +34,15 @@ from .tables import (  # noqa: F401
     query_codes,
 )
 from .sampler import (  # noqa: F401
+    GatherBatch,
     SampleDraws,
     SampleResult,
     draw_samples,
     sample,
     sample_batched,
     sample_drain,
+    sample_gather,
+    sample_gather_batched,
 )
 from .estimator import (  # noqa: F401
     VarianceReport,

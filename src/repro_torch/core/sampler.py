@@ -1,7 +1,7 @@
 """Algorithm 1 of the paper: LSH sampling with exact sampling probability.
 
 PyTorch port of ``repro.core.sampler`` (``sample``, ``sample_batched``,
-``sample_drain``; the gather variants come with the LM slice).
+``sample_drain``, ``sample_gather``, ``sample_gather_batched``).
 
 * ``sample`` — m independent repetitions of the paper's single-sample
   Algorithm 1: each repetition draws tables with replacement until a
@@ -12,6 +12,10 @@ PyTorch port of ``repro.core.sampler`` (``sample``, ``sample_batched``,
   kernel launch hashes all B queries and finds all B·J·L buckets.
 * ``sample_drain`` (Appendix B.2) — the whole minibatch from the first
   non-empty bucket.
+* ``sample_gather`` / ``sample_gather_batched`` — the LM training step's
+  batch draw: Algorithm 1, then the token rows and their 1/(p·N)
+  weights from the device-resident store in one ``gather_weight``
+  kernel launch.
 
 ``max_probes`` caps the table draws; if every probed bucket is empty
 the sample falls back to a uniform draw with p = 1/N (flagged), which
@@ -39,6 +43,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.gather_weight import gather_weight
+
 from .families import get_family
 from .simhash import LSHParams, probe_masks
 from .tables import LSHIndex, bucket_bounds_batched, bucket_bounds_multi
@@ -52,6 +58,20 @@ class SampleResult(NamedTuple):
     fallback: torch.Tensor      # (..., m) bool  — uniform fallback used
     probe_code: torch.Tensor    # (..., m) int32 — winning probe index
     #                             (0 = exact bucket, -1 = uniform fallback)
+
+
+class GatherBatch(NamedTuple):
+    """One assembled device-resident LGD batch (all fields (m, ...))."""
+
+    tokens: torch.Tensor        # (m, S) int32 — input token rows
+    targets: torch.Tensor       # (m, S) int32 — next-token targets
+    loss_weights: torch.Tensor  # (m,) f32 — 1/(p·N), optionally mean-1
+    example_ids: torch.Tensor   # (m,) int64 — global ids (offset applied)
+    indices: torch.Tensor       # (m,) int64 — store-local sampled row ids
+    probs: torch.Tensor         # (m,) f32 — raw Algorithm-1 probabilities
+    fallback: torch.Tensor      # (m,) bool — uniform-fallback flags
+    probe_code: torch.Tensor    # (m,) int32 — winning probe index
+    #                             (0 = exact bucket, -1 = fallback)
 
 
 class SampleDraws(NamedTuple):
@@ -292,3 +312,105 @@ def sample_drain(
         fallback=torch.broadcast_to(~found, (m,)),
         probe_code=full(torch.where(found, 0, -1)),
     )
+
+
+def _assemble(res: SampleResult, store: torch.Tensor, example_offset: int,
+              p_floor: float, normalize: bool,
+              row_width: Optional[int]) -> GatherBatch:
+    """Gather token rows + compute 1/(p·N) weights for one draw (m,)."""
+    rows, w = gather_weight(store, res.indices, res.probs, p_floor=p_floor)
+    if normalize:
+        w = w / torch.clamp(w.mean(), min=1e-30)
+    # row_width: the logical S+1 of the rows (the whole store row unless
+    # a caller says otherwise)
+    sw = store.shape[1] if row_width is None else row_width
+    return GatherBatch(
+        tokens=rows[:, :sw - 1],
+        targets=rows[:, 1:sw],
+        loss_weights=w,
+        example_ids=res.indices + example_offset,
+        indices=res.indices,
+        probs=res.probs,
+        fallback=res.fallback,
+        probe_code=res.probe_code,
+    )
+
+
+def _no_streaming(n_live) -> None:
+    if n_live is not None:
+        raise NotImplementedError(
+            "n_live (a streaming store's live-row count) comes with the "
+            "streaming slice (ROADMAP.md queue 1)")
+
+
+def sample_gather(
+    generator: Optional[torch.Generator],
+    index: LSHIndex,
+    x_aug: torch.Tensor,
+    query: torch.Tensor,
+    store: torch.Tensor,            # (N, S+1) int32 device-resident rows
+    params: LSHParams,
+    m: int = 1,
+    example_offset: int = 0,
+    max_probes: Optional[int] = None,
+    multiprobe: int = 0,
+    p_floor: float = 1e-8,
+    normalize: bool = True,
+    row_width: Optional[int] = None,
+    n_live=None,
+    draws: Optional[SampleDraws] = None,
+) -> GatherBatch:
+    """The device-resident LGD batch draw: Algorithm 1 + gather + weights.
+
+    Args as in ``sample``, plus:
+      store: (N, S+1) int32 token rows on the index's device.
+      example_offset: lifts store-local row ids to global example ids.
+      p_floor: probability floor inside the weight computation.
+      normalize: rescale weights to mean 1 over the batch.
+      row_width: logical S+1 when it is narrower than the store rows.
+      n_live: not ported (streaming); must be None.
+
+    Returns a ``GatherBatch`` with every field shaped (m, ...).  Nothing
+    syncs with the host.
+    """
+    _no_streaming(n_live)
+    res = sample(generator, index, x_aug, query, params, m=m,
+                 max_probes=max_probes, multiprobe=multiprobe, draws=draws)
+    return _assemble(res, store, example_offset, p_floor, normalize,
+                     row_width)
+
+
+def sample_gather_batched(
+    generator: Optional[torch.Generator],
+    index: LSHIndex,
+    x_aug: torch.Tensor,
+    queries: torch.Tensor,          # (C, d)
+    store: torch.Tensor,            # (N, S+1) int32
+    params: LSHParams,
+    m: int = 1,
+    example_offset: int = 0,
+    max_probes: Optional[int] = None,
+    multiprobe: int = 0,
+    p_floor: float = 1e-8,
+    normalize: bool = True,
+    row_width: Optional[int] = None,
+    n_live=None,
+    draws: Optional[SampleDraws] = None,
+) -> GatherBatch:
+    """``sample_gather`` for C queries at once; every field comes back
+    (C, m, ...).  The C·m rows go through ONE gather+weight launch, and
+    weight normalisation is per chain.  ``draws`` fields are shaped
+    (C, m, ...)."""
+    _no_streaming(n_live)
+    c = queries.shape[0]
+    res = sample_batched(generator, index, x_aug, queries, params, m=m,
+                         max_probes=max_probes, multiprobe=multiprobe,
+                         draws=draws)                  # fields (C, m)
+    flat = SampleResult(*(f.reshape((-1,) + f.shape[2:]) for f in res))
+    batch = _assemble(flat, store, example_offset, p_floor, False, row_width)
+    unflat = GatherBatch(*(f.reshape((c, m) + f.shape[1:]) for f in batch))
+    if normalize:
+        w = unflat.loss_weights
+        w = w / torch.clamp(w.mean(dim=1, keepdim=True), min=1e-30)
+        unflat = unflat._replace(loss_weights=w)
+    return unflat

@@ -7,12 +7,18 @@ Data are drawn on the device from an explicit ``torch.Generator`` (which
 must live on that device), so a full-size training set never crosses
 the host.  Torch's stream is not JAX's: the same seed gives the same
 distribution as the reference, not the same rows.
+
+The LM token corpus (``make_token_corpus``, ``uniform_batches``) is
+numpy from a seed in the reference too, so the port gives the SAME
+tokens and batches bitwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Iterator
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import resolve_device
@@ -77,3 +83,54 @@ def make_classification(
     return RegressionDataset(
         "synthetic-logistic", x[:n_train], y[:n_train], x[n_train:],
         y[n_train:])
+
+
+# ---------------------------------------------------------------------------
+# LM token corpus
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TokenCorpus:
+    """Fixed corpus of examples (n_examples, seq_len+1) with difficulty
+    structure: a minority of 'hard' examples drawn from a shifted unigram
+    distribution (their loss stays high longer -> larger gradients)."""
+
+    tokens: np.ndarray       # (N, S+1) int32
+    hard_mask: np.ndarray    # (N,) bool — ground truth for diagnostics
+
+
+def make_token_corpus(
+    seed: int, n_examples: int, seq_len: int, vocab: int,
+    hard_frac: float = 0.1,
+) -> TokenCorpus:
+    """The reference's corpus, draw for draw (numpy from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks ** 1.1
+    probs /= probs.sum()
+    easy = rng.choice(vocab, size=(n_examples, seq_len + 1), p=probs)
+    # hard examples: the same zipf structure over a permuted vocabulary —
+    # learnable, but rare, so they stay underfit for longer and carry
+    # larger gradients (the signal adaptive sampling exploits).
+    perm = rng.permutation(vocab)
+    hard = perm[rng.choice(vocab, size=(n_examples, seq_len + 1), p=probs)]
+    mask = rng.random(n_examples) < hard_frac
+    tokens = np.where(mask[:, None], hard, easy).astype(np.int32)
+    return TokenCorpus(tokens, mask)
+
+
+def uniform_batches(corpus: TokenCorpus, batch: int, seed: int = 0,
+                    device="cuda") -> Iterator[Dict[str, torch.Tensor]]:
+    """Uniformly drawn batches (the non-LGD baseline), the reference's
+    index stream from ``seed``; int32 token rows on ``device``."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    n = corpus.tokens.shape[0]
+    while True:
+        idx = rng.integers(0, n, size=batch)
+        chunk = torch.from_numpy(corpus.tokens[idx]).to(device)
+        yield {
+            "tokens": chunk[:, :-1],
+            "targets": chunk[:, 1:],
+            "example_ids": torch.from_numpy(idx).to(device),
+        }

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels and their dispatch.
 
-Each kernel package (``simhash``, ``bucket_probe``, ``flash_attention``)
-is a triple:
+Each kernel package (``simhash``, ``bucket_probe``, ``flash_attention``,
+``gather_weight``) is a triple:
 
   * ``kernel.py`` — the ctypes wrapper around the CUDA C++ entry point in
     ``repro_torch/csrc/``: checks device, dtype, shape and contiguity,
@@ -30,6 +30,7 @@ launches = {
     "bucket_probe_codes": 0,
     "flash_attention": 0,
     "flash_decode": 0,
+    "gather_weight": 0,
 }
 
 

@@ -4,10 +4,11 @@
 ``attn_impl``: ``"pallas"`` is the hand-written kernel for a CUDA tensor
 and its plain version for a CPU tensor (dispatch by device, as every
 kernel of the port); ``"ref"`` the plain version everywhere;
-``"chunked"`` the plain q-blocked attention of ``attention_xla``.  The
-JAX execution knobs (``seq_shard``, ``remat``, ``scan_layers``) are kept
-so configs compare equal, and ignored: the port loops over layers in
-Python and has no mesh.
+``"chunked"`` the plain q-blocked attention of ``attention_xla``.
+``remat`` is honoured in training: with grad enabled each block runs
+under ``torch.utils.checkpoint``.  The other JAX execution knobs
+(``seq_shard``, ``scan_layers``) are kept so configs compare equal, and
+ignored: the port loops over layers in Python and has no mesh.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ class ModelConfig:
     attn_impl: str = "chunked"        # chunked | ref | pallas
     attn_block_q: int = 512           # q-block of the chunked attention
     seq_shard: bool = True            # JAX only: ignored
-    remat: bool = True                # JAX only: ignored
+    remat: bool = True                # checkpoint each block in training
     loss_chunk: int = 1024
     scan_layers: bool = True          # JAX only: ignored
 

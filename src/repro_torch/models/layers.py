@@ -1,5 +1,5 @@
 """Shared layers: RMSNorm, RoPE, GQA self-attention with a KV cache, the
-dense FFN, the embedding and the LM head.
+dense FFN, the embedding, the LM head and the chunked LM loss.
 
 The port of src/repro/models/layers.py, as ``nn.Module``s.  Parameters
 keep the reference's names, shapes and dtypes (``wq`` (d, Hq, Dh),
@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import gqa_attention, gqa_decode
 from .attention_xla import chunked_gqa_attention
@@ -236,3 +237,41 @@ class EmbedGroup(nn.Module):
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
         return self.final_norm(h) @ self.lm_head
+
+
+def _chunk_xent(hx: torch.Tensor, tx: torch.Tensor, head: torch.Tensor,
+                w: torch.Tensor | None) -> torch.Tensor:
+    """Summed next-token xent of one (B, c) chunk, f32 logits."""
+    logits = (hx @ head).float()                           # (B, c, V)
+    gold = logits.gather(-1, tx.long()[..., None])[..., 0]
+    xent = torch.logsumexp(logits, dim=-1) - gold          # (B, c)
+    if w is not None:
+        xent = xent * w[:, None]                           # LGD weights
+    return xent.sum()
+
+
+def chunked_cross_entropy(embed_group: EmbedGroup, cfg: ModelConfig,
+                          h: torch.Tensor, targets: torch.Tensor,
+                          weights: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """Mean next-token xent without materialising (B, S, V) logits.
+
+    The reference's ``layers.chunked_cross_entropy``: the final norm,
+    then per ``loss_chunk`` positions the lm_head product, f32 logits,
+    logsumexp minus the gold logit, times the per-example ``weights``
+    (B,).  Each chunk runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint``), so backward keeps one chunk's
+    logits at a time.  The sum is divided by B·S.
+    """
+    b, s, _ = h.shape
+    h = embed_group.final_norm(h)
+    c = min(cfg.loss_chunk, s)
+    if s % c != 0:
+        c = s
+    w = None if weights is None else weights.to(torch.float32)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, c):
+        args = (h[:, i:i + c], targets[:, i:i + c], embed_group.lm_head, w)
+        total = total + (checkpoint(_chunk_xent, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else _chunk_xent(*args))
+    return total / (b * s)

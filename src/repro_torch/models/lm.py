@@ -8,20 +8,27 @@ Layer ``r * len(block_pattern) + j`` of the port is slice ``r`` of the
 reference's ``params["blocks"][j]`` (``repro_torch.convert``).
 
 Entry points, as methods, with the reference's batch dicts
-(``tokens`` (B, S) int64, and ``positions`` (B, 1) for a decode step):
+(``tokens`` (B, S) int32 or int64, ``targets`` and ``loss_weights`` (B,)
+for the loss, ``positions`` (B, 1) for a decode step):
   forward(batch)             -> final hidden states (B, S, d)
   logits(batch)              -> (B, S, V)
+  loss(batch)                -> scalar LM loss (chunked, LGD-weighted)
+  pooled_features(batch)     -> (B, d) f32 per-example LGD features
+  lm_head_query()            -> (d,) f32 LGD query
   prefill(batch, cache)      -> (hidden, cache)
   decode_hidden(batch, cache)-> (hidden (B, 1, d), cache)
   decode_step(batch, cache)  -> (logits (B, 1, V), cache)
-Prefill and decode run without autograd and update the cache in place
-(``models.layers``).
+With grad enabled and ``cfg.remat`` each block runs under
+``torch.utils.checkpoint`` (the reference's remat'd scan body), so
+training keeps one block's activations at a time.  Prefill and decode
+run without autograd and update the cache in place (``models.layers``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import resolve_device
 from .config import ModelConfig
@@ -29,6 +36,7 @@ from .layers import (
     MLP,
     Attention,
     EmbedGroup,
+    chunked_cross_entropy,
     init_attention_cache,
     rope_tables,
 )
@@ -108,8 +116,13 @@ class LM(nn.Module):
     def _run(self, x, positions, cache):
         rope_cs = rope_tables(positions, self.cfg.d_head, self.cfg.rope_theta)
         new_cache = None if cache is None else []
+        remat = cache is None and self.cfg.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x, c = blk(x, rope_cs, None if cache is None else cache[i])
+            if remat:
+                x, c = checkpoint(blk, x, rope_cs, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, c = blk(x, rope_cs, None if cache is None else cache[i])
             if cache is not None:
                 new_cache.append(c)
         return x, new_cache
@@ -127,6 +140,25 @@ class LM(nn.Module):
 
     def logits(self, batch) -> torch.Tensor:
         return self.embed_group.lm_logits(self.forward(batch))
+
+    def loss(self, batch) -> torch.Tensor:
+        """Mean next-token xent of ``batch["targets"]``, each example
+        weighted by ``batch["loss_weights"]`` when given."""
+        return chunked_cross_entropy(
+            self.embed_group, self.cfg, self.forward(batch),
+            batch["targets"], weights=batch.get("loss_weights"))
+
+    # -- LGD feature hooks (paper Sec. 3.2: the BERT recipe) ---------------
+
+    def pooled_features(self, batch) -> torch.Tensor:
+        """Per-example feature vector: the mean-pooled final hidden state
+        (f32) that the LSH index hashes."""
+        return self.forward(batch).float().mean(dim=1)
+
+    def lm_head_query(self) -> torch.Tensor:
+        """LGD query from the output layer: the mean lm_head column (f32),
+        in feature space."""
+        return self.embed_group.lm_head.float().mean(dim=1)
 
     def init_cache(self, batch: int, max_len: int) -> list:
         """One ``{"k", "v", "len"}`` cache per layer."""

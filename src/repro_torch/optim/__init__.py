@@ -7,5 +7,6 @@ from .optimizers import (  # noqa: F401
     SGDState,
     apply_updates,
     make_optimizer,
+    update_in_place,
 )
 from . import schedules  # noqa: F401

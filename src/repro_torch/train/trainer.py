@@ -1,0 +1,275 @@
+"""Training loop: LGD-sampled or uniform batches, gradient clipping, the
+non-finite guard and metrics (PyTorch port of ``repro.train.trainer``).
+
+One step: loss -> backward -> global gradient norm -> clip to
+``grad_clip`` -> the non-finite guard -> the optimiser, applied leaf by
+leaf in place on the model's parameters (``optim.update_in_place``).
+Parameters are the model's ``named_parameters()``, under the names
+``repro_torch.convert`` maps to the reference's pytree.
+
+THE GUARD.  With ``skip_nonfinite`` a step whose loss or gradient norm
+is not finite applies NO update: the finiteness flag is read on the
+host before the optimiser runs, and a False flag skips it, so params
+and state stay bitwise unchanged.  (The reference selects the old
+buffers inside its jitted step instead; eagerly, a branch saves the
+three extra passes over every parameter and moment that a select
+costs.)  The batch is still consumed and ``step`` still advances,
+keeping the data stream aligned with the step counter.  Counted in
+``skipped_steps``.
+
+ADAPTIVE OPTIMIZERS under LGD: the importance weights 1/(p_i N) enter
+the LOSS (``models.layers.chunked_cross_entropy``), so the gradient any
+optimiser receives is the unbiased estimate of the full-batch gradient,
+and Adam's moments are running statistics of that estimate.
+
+LGD sampler hook: pass ``sampler=`` (an ``LSHSampledPipeline``) instead
+of ``batches``.  The trainer draws ``sampler.next_batch`` (device
+tensors, no host-side assembly), pushes the live model through
+``sampler.set_params`` after every step, and reads ``sampler_stats`` at
+log cadence.  ``data_seconds`` accumulates the host time spent drawing
+batches and ``sampler_overhead`` is its share of the loop's wall time.
+
+Host syncs per step are the reference's: the finiteness flag and the
+loss are read once each (``bool``, ``float``).
+
+Not ported yet (ROADMAP.md queue 1 item 5): checkpoints (``ckpt_dir``,
+``resume``) and with them rollback, gradient compression and the
+``step_hook``; setting one raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, Iterator, Optional
+
+import torch
+
+from repro_torch.optim import update_in_place
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """The reference's config, field for field.  ``ckpt_every``,
+    ``keep_ckpts``, ``rollback_after`` and ``max_rollbacks`` act only
+    with checkpoints, and ``donate`` is a JAX buffer knob (the port
+    updates in place): kept so configs compare equal, and inert."""
+
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 100
+    keep_ckpts: int = 3
+    log_every: int = 10
+    straggler_factor: float = 3.0
+    grad_clip: Optional[float] = 1.0
+    donate: bool = True
+    # split each batch into N equal slices along dim 0 and accumulate
+    # their gradients in f32
+    grad_accum: int = 1
+    grad_compress: bool = False
+    skip_nonfinite: bool = True
+    rollback_after: int = 5
+    max_rollbacks: int = 3
+    step_hook: Optional[Callable] = None
+
+    def __post_init__(self):
+        later = {"ckpt_dir": self.ckpt_dir is not None,
+                 "grad_compress": self.grad_compress,
+                 "step_hook": self.step_hook is not None}
+        for what, asked in later.items():
+            if asked:
+                raise NotImplementedError(
+                    f"TrainerConfig.{what} is not ported to PyTorch yet; it "
+                    "comes with checkpointing (ROADMAP.md queue 1 item 5)")
+
+
+def _micro(x, accum: int, i: int):
+    """Slice ``i`` of ``accum`` equal slices along dim 0."""
+    if not isinstance(x, torch.Tensor) or x.dim() == 0:
+        return x
+    mb = x.shape[0] // accum
+    return x[i * mb:(i + 1) * mb]
+
+
+class Trainer:
+    """Training loop with the LGD-sampler hook and metrics.
+
+    Args:
+      cfg: model config.
+      params: the model (an ``LM``); its parameters are updated in place.
+      optimizer: any ``repro_torch.optim`` optimiser.
+      batches: iterator of batch dicts (uniform mode); exclusive with
+        ``sampler``.
+      tcfg: loop policy knobs.
+      loss_fn: optional ``loss_fn(params, batch)``; default
+        ``params.loss(batch)``.
+      sampler: an ``LSHSampledPipeline`` (LGD mode).
+    """
+
+    def __init__(
+        self,
+        cfg,
+        params,
+        optimizer,
+        batches: Optional[Iterator[Dict[str, torch.Tensor]]] = None,
+        tcfg: TrainerConfig = TrainerConfig(),
+        loss_fn: Optional[Callable] = None,
+        sampler=None,
+    ):
+        if (batches is None) == (sampler is None):
+            raise ValueError("pass exactly one of batches= or sampler=")
+        self._sampler = sampler
+        if sampler is not None:
+            sampler.set_params(params)
+            batches = iter(sampler.next_batch, None)
+        self.cfg = cfg
+        self.optimizer = optimizer
+        self.batches = batches
+        self.tcfg = tcfg
+        self.params = params
+        self.named_params = dict(params.named_parameters())
+        self.opt_state = optimizer.init(
+            {k: p.detach() for k, p in self.named_params.items()})
+        self.loss_fn = loss_fn or (lambda p, b: p.loss(b))
+        self.step = 0
+        self.metrics_history = []
+        self._ewma_dt = None
+        self.straggler_steps = 0
+        self.skipped_steps = 0      # non-finite steps (no update applied)
+        self.data_seconds = 0.0     # host-blocking batch-draw time (total)
+        self.loop_seconds = 0.0     # total run() wall time
+        self._last_draw_dt = 0.0    # host-blocking time of the last draw
+
+    # -- one step -------------------------------------------------------------
+
+    def _grads_of(self, batch):
+        """(loss, {name: gradient}) of one batch, over ``grad_accum``
+        micro-batches (gradients summed in f32, then averaged)."""
+        accum = max(self.tcfg.grad_accum, 1)
+        if accum == 1:
+            loss = self.loss_fn(self.params, batch)
+            loss.backward()
+            return loss.detach(), {k: p.grad
+                                   for k, p in self.named_params.items()}
+        total, acc = None, None
+        for i in range(accum):
+            mb = {k: _micro(v, accum, i) for k, v in batch.items()}
+            loss = self.loss_fn(self.params, mb)
+            loss.backward()
+            total = loss.detach() if total is None else total + loss.detach()
+            if acc is None:
+                acc = {k: p.grad.float() for k, p in self.named_params.items()}
+            else:
+                for k, p in self.named_params.items():
+                    acc[k] += p.grad
+            for p in self.named_params.values():
+                p.grad = None
+        scale = 1.0 / accum
+        return total * scale, {k: g * scale for k, g in acc.items()}
+
+    def train_step(self, batch):
+        """One optimiser step on ``batch``; returns (loss, grad_norm) as
+        device tensors and ``ok``, whether the update was applied (a
+        bool; None without the guard)."""
+        loss, grads = self._grads_of(batch)
+        clip, guard = self.tcfg.grad_clip, self.tcfg.skip_nonfinite
+        with torch.no_grad():
+            if clip is not None or guard:
+                # one NaN/Inf anywhere propagates into the norm, so its
+                # finiteness checks the whole gradient
+                gnorm = torch.sqrt(sum(g.float().square().sum()
+                                       for g in grads.values()))
+            else:
+                gnorm = torch.zeros((), device=loss.device)
+            ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm)) \
+                if guard else None
+            if ok is not False:
+                if clip is not None:
+                    scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9),
+                                        max=1.0)
+                    for g in grads.values():   # in place, in their dtype
+                        g.copy_(g.float().mul_(scale))
+                self.opt_state = update_in_place(
+                    self.optimizer, self.named_params, grads, self.opt_state)
+        for p in self.named_params.values():
+            p.grad = None
+        return loss, gnorm, ok
+
+    # -- loop -----------------------------------------------------------------
+
+    @property
+    def sampler(self):
+        """The LGD sampler this trainer drives (None in batches mode)."""
+        return self._sampler
+
+    @property
+    def sampler_overhead(self) -> float:
+        """Fraction of loop wall time spent blocked on batch draws."""
+        return self.data_seconds / max(self.loop_seconds, 1e-12)
+
+    def finalize(self):
+        if self._sampler is not None:
+            self._sampler.finalize()
+
+    def _draw(self):
+        t0 = time.time()
+        try:
+            return next(self.batches)
+        finally:
+            self._last_draw_dt = time.time() - t0
+            self.data_seconds += self._last_draw_dt
+
+    def run(self, n_steps: int) -> Dict[str, list]:
+        """Train ``n_steps`` steps; batch k trains step k (the next batch
+        is drawn while step k runs, and only if step k+1 will run)."""
+        losses = []
+        if n_steps <= 0:
+            return {"losses": losses}
+        target = self.step + n_steps
+        t_loop = time.time()
+        try:
+            next_batch = self._draw()
+        except StopIteration:
+            self.loop_seconds += time.time() - t_loop
+            return {"losses": losses}
+        while self.step < target:
+            t0 = time.time()
+            loss, gnorm, ok = self.train_step(next_batch)
+            if ok is False:
+                self.skipped_steps += 1
+            if self._sampler is not None:
+                # the next draw's query reads the post-step model; sync
+                # on the loss first, so data_seconds measures the draw
+                self._sampler.set_params(self.params)
+                loss = float(loss)
+            if self.step + 1 < target:
+                try:
+                    next_batch = self._draw()
+                except StopIteration:
+                    next_batch = None
+            else:
+                next_batch = None
+            loss = float(loss)
+            dt = time.time() - t0
+            self._ewma_dt = dt if self._ewma_dt is None else \
+                0.9 * self._ewma_dt + 0.1 * dt
+            if dt > self.tcfg.straggler_factor * self._ewma_dt:
+                self.straggler_steps += 1
+            self.step += 1
+            losses.append(loss)
+            if self.step % self.tcfg.log_every == 0:
+                entry = {
+                    "step": self.step, "loss": loss,
+                    "grad_norm": float(gnorm), "dt": dt,
+                    "data_dt": self._last_draw_dt,
+                    "stragglers": self.straggler_steps,
+                    "skipped_steps": self.skipped_steps,
+                }
+                if self._sampler is not None:
+                    st = self._sampler.sampler_stats()   # syncs
+                    entry["fallback_rate"] = st["fallback_rate"]
+                    entry["primary_miss_rate"] = st["primary_miss_rate"]
+                self.metrics_history.append(entry)
+            if next_batch is None:
+                break
+        self.loop_seconds += time.time() - t_loop
+        return {"losses": losses}

@@ -7,8 +7,13 @@ also runs on a machine that has only PyTorch:
 
 Codes must be equal except where a projection is within 1e-4 of zero
 (kernel and plain version sum in different orders); lo/hi bitwise
-outside the tables whose query code is exempt that way.
+outside the tables whose query code is exempt that way; gathered rows
+and weights bitwise.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -26,7 +31,12 @@ from repro_torch.kernels.bucket_probe import (
     bucket_probe_multi_ref,
     bucket_probe_ref,
 )
+from repro_torch.kernels.gather_weight import (
+    gather_weight_cuda,
+    gather_weight_ref,
+)
 from repro_torch.kernels.simhash import simhash_codes_cuda, simhash_codes_ref
+from repro_torch.launch import train as launch_train
 from repro_torch.optim import make_optimizer
 
 pytestmark = pytest.mark.cuda
@@ -149,3 +159,86 @@ def test_index_and_step_match_cpu(card):
                        prob, opt, draws=type(dr)(*(t.to(card) for t in dr)))
     torch.testing.assert_close(st_g.theta.cpu(), st_c.theta, rtol=1e-4,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("n,w,m", [
+    (2048, 513, 8),       # the LM slice: ragged width, 4-byte copies
+    (50_000, 513, 512),   # many rows in flight
+    (300, 36, 17),        # W % 4 == 0: 16-byte copies
+    (64, 128, 5),
+    (10, 1, 3),           # one-column rows
+])
+def test_gather_weight(card, n, w, m):
+    g = torch.Generator(device=card).manual_seed(n + w)
+    store = torch.randint(0, 200_064, (n, w), generator=g, device=card,
+                          dtype=torch.int32)
+    idx = torch.randint(0, n, (m,), generator=g, device=card)
+    idx[: (m + 1) // 2] = idx[0]                  # duplicate ids
+    probs = torch.rand((m,), generator=g, device=card) * 0.2
+    probs[-1] = 0.0                               # below the floor
+    if m > 2:
+        probs[1] = float("nan")
+    before = launches["gather_weight"]
+    rows, wt = gather_weight_cuda(store, idx, probs, p_floor=1e-8)
+    assert launches["gather_weight"] == before + 1
+    want_rows, want_w = gather_weight_ref(store, idx, probs, p_floor=1e-8)
+    np.testing.assert_array_equal(rows.cpu().numpy(), want_rows.cpu().numpy())
+    # equal floats (NaN where p is NaN): bitwise up to the NaN payload
+    np.testing.assert_array_equal(wt.cpu().numpy(), want_w.cpu().numpy())
+    # and the plain version on the CPU agrees with the card's
+    cpu_rows, cpu_w = gather_weight_ref(store.cpu(), idx.cpu(), probs.cpu(),
+                                        p_floor=1e-8)
+    np.testing.assert_array_equal(wt.cpu().numpy(), cpu_w.numpy())
+    np.testing.assert_array_equal(rows.cpu().numpy(), cpu_rows.numpy())
+
+
+def test_gather_weight_checks_inputs(card):
+    store = torch.zeros((8, 5), dtype=torch.int32, device=card)
+    idx = torch.zeros((2,), dtype=torch.int64, device=card)
+    probs = torch.ones((2,), device=card)
+    with pytest.raises(TypeError):
+        gather_weight_cuda(store.long(), idx, probs, p_floor=1e-8)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_weight_cuda(store.T.contiguous().T, idx, probs, p_floor=1e-8)
+    with pytest.raises(ValueError, match="differ"):
+        gather_weight_cuda(store, idx, probs[:1], p_floor=1e-8)
+
+
+def test_gather_weight_id_out_of_range_stops_the_kernel(card):
+    """An id outside [0, N) trips the device-side assert (in a child
+    process: the assert leaves that process's CUDA context unusable)."""
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.gather_weight import gather_weight_cuda\n"
+        "s = torch.zeros((16, 9), dtype=torch.int32, device='cuda')\n"
+        "i = torch.tensor([3, 16], device='cuda')\n"
+        "p = torch.ones(2, device='cuda')\n"
+        "gather_weight_cuda(s, i, p, p_floor=1e-8)\n"
+        "torch.cuda.synchronize()\n")
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "assert" in (out.stdout + out.stderr).lower()
+
+
+def test_lgd_training_runs_the_kernels(card):
+    """A SMOKE LGD training run on the card launches gather_weight once
+    per step, the probe at least once per step and simhash at the build
+    and at the refresh."""
+    cfg, model = launch_train.load_model("phi4_mini_3_8b", False, card)
+    for k in launches:
+        launches[k] = 0
+    sampler, _ = launch_train.make_batches(
+        cfg, model, lgd=True, batch=8, seq=32, corpus=256, device=card,
+        refresh_every=4)
+    tr = launch_train.make_trainer(cfg, model, steps=6, lr=1e-3,
+                                   sampler=sampler)
+    losses = tr.run(6)["losses"]
+    assert all(np.isfinite(losses)) and len(losses) == 6
+    assert launches["gather_weight"] == 6
+    assert launches["bucket_probe"] >= 6
+    assert launches["simhash"] == 2
