@@ -24,7 +24,10 @@ The LM serving slice adds, each after the phase it extends:
       versions at the phi4-mini serve shapes (B = 4, Hkv = 8, G = 3,
       D = 128; prompt S = 2,048, cache S = 2,560 with kv_len
       [1, 777, 2048, 2560]), in f32 and bf16, timed beside the plain
-      version and torch's scaled_dot_product_attention;
+      version and torch's scaled_dot_product_attention, with each row's
+      TFLOP/s and share of its bound; then the registers, spills and
+      shared memory of the bf16 (tensor-core) prefill at D = 128 from
+      the build log, which must show no spill;
   3b. a small-input check: phi4-mini SMOKE (f32) with the same weights on
       the card (kernels) and the CPU (plain versions), prefill of 2 x 256
       tokens and 8 teacher-forced decode steps;
@@ -259,6 +262,8 @@ def main() -> int:
         from repro_torch.kernels.flash_attention import (
             attention_ref, decode_ref, flash_attention_cuda,
             flash_decode_cuda)
+        from repro_torch.kernels.flash_attention.kernel import (
+            prefill_bf16_smem_bytes)
         from repro_torch.models import LM
         from repro_torch.core import LSHIndex, SampleDraws
         from repro_torch.data import (
@@ -516,11 +521,18 @@ def main() -> int:
         nb, fl = bound(nbytes, flops, peak)
         qh = fq.reshape(b_, hq, SERVE_PROMPT, D_HEAD)
         row = dict(name="flash_attention", dtype=tname, **readings,
-                   bound_ms=nb, bound_by=fl, **timings(
+                   bound_ms=nb, bound_by=fl, flops=flops, **timings(
                        lambda: flash_attention_cuda(fq, fk, fv, causal=True),
                        lambda: attention_ref(fq, fk, fv, causal=True),
                        lambda: sdpa(qh, fk, fv, is_causal=True,
                                     enable_gqa=True), 5))
+        if bf16:
+            # the tensor cores' work: every visited 64 x 64 tile (the
+            # diagonal ones whole), Q.K^T once and P.V twice (hi + lo)
+            nt = SERVE_PROMPT // 64
+            row["mma_flops"] = (b_ * hq * nt * (nt + 1) / 2
+                                * 3 * 2 * 64 * 64 * D_HEAD)
+            row["mma_tflops"] = row["mma_flops"] / row["ms"] / 1e9
         report["flash_rows"].append(row)
         del fq, fk, fv, qh, got, want, gold
 
@@ -539,7 +551,7 @@ def main() -> int:
         qh = fq.reshape(b_, hq, 1, D_HEAD)
         mask = valid[:, None, None, :]
         row = dict(name="flash_decode", dtype=tname, **readings,
-                   bound_ms=nb, bound_by=fl, **timings(
+                   bound_ms=nb, bound_by=fl, flops=flops, **timings(
                        lambda: flash_decode_cuda(fq, fk, fv, lens),
                        lambda: decode_ref(fq, fk, fv, lens),
                        lambda: sdpa(qh, fk, fv, attn_mask=mask,
@@ -547,6 +559,8 @@ def main() -> int:
         report["flash_rows"].append(row)
         del fq, fk, fv, qh, got, want, gold
     for row in report["flash_rows"]:
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         print("flash " + json.dumps(row), flush=True)
         if row["dtype"] == "bfloat16":          # the serve path's type
             report["kernels"][row["name"]] = dict(
@@ -557,6 +571,22 @@ def main() -> int:
                           "flash_decode":
                           "src/repro/kernels/flash_attention/kernel.py:184",
                           }[row["name"]])
+
+    # what ptxas gave the bf16 prefill at the serve head dim: it must not
+    # spill (dynamic shared memory is set at launch, so it comes from
+    # the source's own formula)
+    usage = [u for fn, u in build.ptxas_usage(
+        build.build_log("flash_attention")).items()
+        if f"flash_prefill_mma_kernelILi{D_HEAD}E" in fn]
+    if len(usage) != 1:
+        fail("the build log has no ptxas line of the bf16 prefill kernel")
+    report["prefill_ptxas"] = dict(
+        usage[0], kernel=f"flash_prefill_mma_kernel<{D_HEAD}>",
+        dynamic_smem=prefill_bf16_smem_bytes(D_HEAD))
+    print("flash_attention bf16 ptxas " + json.dumps(report["prefill_ptxas"]),
+          flush=True)
+    if usage[0]["spill_stores"] or usage[0]["spill_loads"]:
+        fail(f"the bf16 prefill kernel spills: {usage[0]}")
 
     # -- 2c. gather_weight against its plain version, train shapes ---------
     report["gather_rows"] = []

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -78,6 +79,32 @@ def build_log(name: str) -> str:
     """The compiler's output (registers, spills) of the last build."""
     path = _build_dir() / f"{name}.log"
     return path.read_text() if path.exists() else ""
+
+
+def ptxas_usage(log: str) -> dict:
+    """Per kernel, what ``nvcc -Xptxas -v`` reported in ``log``: mangled
+    name -> registers, spill_stores, spill_loads, stack and static smem
+    bytes (dynamic shared memory is set at launch and not in the log)."""
+    out: dict = {}
+    name = None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            name = hit.group(1)
+            out[name] = {"registers": None, "spill_stores": 0,
+                         "spill_loads": 0, "stack": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            hit = re.search(pat, line)
+            if hit:
+                out[name][key] = int(hit.group(1))
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -4,9 +4,11 @@ Replace the TPU kernels ``flash_attention_pallas`` and
 ``flash_decode_pallas`` (src/repro/kernels/flash_attention/kernel.py:92
 and :184), with their contracts: causal (or full) GQA attention over
 q (B, Hkv, G, S, D) and k/v (B, Hkv, S, D), and one query per head
-against a KV cache masked by ``kv_len``.  f32 or bf16 in, f32 inside, the
-input type out.  Prefill is bound by operations, decode by the bytes of
-the cache (the reasoning is at the top of the CUDA source).
+against a KV cache masked by ``kv_len``.  f32 or bf16 in, f32 sums
+inside, the input type out; the bf16 prefill runs on the tensor cores
+(mma.sync) and carries P as two bf16 parts.  Prefill is bound by
+operations, decode by the bytes of the cache (the reasoning is at the
+top of the CUDA source).
 
 The wrappers take strided views: every tensor needs its last dimension
 contiguous, its other strides a multiple of 16 bytes and a 16-byte
@@ -38,6 +40,7 @@ def _fn(name: str):
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "flash_decode_launch":
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        "flash_prefill_bf16_smem_bytes": [_I],
     }[name]
     fn.restype = ctypes.c_int
     return fn
@@ -45,7 +48,9 @@ def _fn(name: str):
 
 def _check_view(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     """A CUDA tensor of ``dtype`` and ``shape`` on ``device``, D contiguous,
-    16-byte aligned base and row strides (the kernels' 16-byte loads)."""
+    16-byte aligned base and row strides: the kernels' 16-byte loads and
+    the bf16 prefill's cp.async copies (a bf16 stride is a multiple of 8
+    elements).  Nothing falls back on a view that fails this."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.device != device:
@@ -105,6 +110,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention kernel launch failed: CUDA error {err}")
     launches["flash_attention"] += 1
     return out
+
+
+def prefill_bf16_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one bf16 (tensor-core) flash_attention
+    block at head dim ``d``, from the CUDA source."""
+    return _fn("flash_prefill_bf16_smem_bytes")(d)
 
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,

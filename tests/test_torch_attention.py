@@ -60,6 +60,39 @@ def _bf16(a):
     return jnp.asarray(a, jnp.bfloat16), t(a).to(torch.bfloat16)
 
 
+def _tile_loop_bf16(q, k, v, causal, split, bk=64):
+    """The arithmetic of the bf16 tensor-core prefill kernel
+    (csrc/flash_attention.cu) in plain PyTorch: 64-key tiles, the online
+    softmax in f32, P rounded to bf16 for P.V — as hi = bf16(P) plus
+    lo = bf16(P - hi) when ``split`` — V in bf16, products summed in f32.
+    Products of two bf16 values are exact in f32, as in the mma."""
+    s, d = q.shape[-2:]
+    scale = d ** -0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    l = torch.zeros(q.shape[:-1] + (1,))
+    acc = torch.zeros(q.shape)
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        x = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf[:, :, k0:k0 + bk]) * scale
+        if causal:
+            kpos = torch.arange(k0, min(k0 + bk, s))[None, :]
+            x = x.masked_fill(kpos > qpos, -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        p = torch.exp(x - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = torch.einsum("bhgqk,bhkd->bhgqd", hi, vf[:, :, k0:k0 + bk])
+        if split:
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = pv + torch.einsum("bhgqk,bhkd->bhgqd", lo,
+                                   vf[:, :, k0:k0 + bk])
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
 class TestFlashAttention:
     @pytest.mark.parametrize("b,hkv,g,s,d,bq,bk", [
         (1, 1, 1, 128, 64, 64, 64),
@@ -91,6 +124,36 @@ class TestFlashAttention:
                                       block_k=64, interpret=True)
         np.testing.assert_allclose(n(got.float()),
                                    np.asarray(want, np.float32), **BF16)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_bf16_tensor_core_arithmetic(self, causal):
+        """The bf16 CUDA prefill's arithmetic, emulated tile by tile, holds
+        chip_smoke.py's bf16 limits against the plain version: two bf16
+        ulps (rtol 2^-6, atol 1e-4), and at most 1.5x the plain bf16
+        version's max |err| from the f32 result.  The kernel rounds P to
+        bf16 for the tensor cores, so it splits P into hi + lo bf16 parts;
+        with P in one bf16 the causal rows' first positions break the
+        two-ulp limit (printed with -s, not asserted)."""
+        b, hkv, g, s, d = 1, 2, 3, 80, 64     # short causal rows, 2 tiles
+        q, k, v = _qkv(80, b, hkv, g, s, d)
+        tq, tk, tv = (t(a).to(torch.bfloat16) for a in (q, k, v))
+        want = attention_ref(tq, tk, tv, causal=causal).float()
+        gold = attention_ref(tq.float(), tk.float(), tv.float(),
+                             causal=causal)
+        plain_err = float((want - gold).abs().max())
+        for split in (True, False):
+            got = _tile_loop_bf16(tq, tk, tv, causal, split).float()
+            assert got.shape == want.shape
+            err = float((got - want).abs().max())
+            gold_err = float((got - gold).abs().max())
+            holds = torch.allclose(got, want, rtol=2 ** -6, atol=1e-4)
+            print(f"P {'hi + lo' if split else 'single'} bf16, causal "
+                  f"{causal}: max |err| {err:.6g}, two-ulp limit "
+                  f"{'holds' if holds else 'broken'}, from f32 "
+                  f"{gold_err:.6g} = {gold_err / plain_err:.4f} x plain")
+            if split:
+                assert holds, err
+                assert gold_err <= 1.5 * plain_err, (gold_err, plain_err)
 
     @pytest.mark.parametrize("causal", [True, False])
     def test_gqa_wrapper_model_layout(self, causal):

@@ -8,8 +8,11 @@ These need a card and skip without one.  The file imports no JAX:
 Tolerances: f32 rtol = atol = 1e-5 (same arithmetic, another summation
 order); bf16 two bf16 ulps, rtol = 2^-6, with atol = 1e-4 near zero
 (kernel and plain version each round an f32 result once, so they part
-by at most one ulp).  The model: 1e-4 on f32 logits, card (kernels)
-against CPU (plain versions) with the same weights.
+by at most one ulp).  A bf16 prefill must also be as close to the f32
+result (the plain version on the upcast inputs) as the plain bf16
+version is: its max |err| from it at most BF16_GOLD_FACTOR times that,
+as chip_smoke.py phase 2b holds it.  The model: 1e-4 on f32 logits,
+card (kernels) against CPU (plain versions) with the same weights.
 """
 
 import pytest
@@ -31,6 +34,7 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=2 ** -6, atol=1e-4)}
+BF16_GOLD_FACTOR = 1.5
 
 
 @pytest.fixture
@@ -46,8 +50,10 @@ def _randn(gen, shape, dtype, device):
 
 
 @pytest.mark.parametrize("b,hkv,g,s,d", [
+    (1, 8, 3, 2048, 128),  # phi4-mini's serve head shape, one batch row
     (2, 2, 3, 256, 128),   # G = 3 (phi4-mini), several q tiles
     (1, 2, 4, 128, 64),
+    (1, 2, 3, 1000, 64),   # ragged S, not a multiple of 64 or 16
     (2, 1, 2, 200, 32),    # ragged S: partial q and k tiles
     (1, 3, 1, 17, 16),     # one partial tile
 ])
@@ -65,6 +71,11 @@ def test_flash_attention(card, b, hkv, g, s, d, dtype, causal):
     want = attention_ref(q, k, v, causal=causal)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        gold = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+        err = float((got.float() - gold).abs().max())
+        plain_err = float((want.float() - gold).abs().max())
+        assert err <= BF16_GOLD_FACTOR * plain_err, (err, plain_err)
 
 
 @pytest.mark.parametrize("b,hkv,g,s,d", [
@@ -126,6 +137,16 @@ def test_wrappers_raise_on_bad_inputs(card):
     kv = torch.zeros((1, 1, 64, 64), device=card)[..., ::2]
     with pytest.raises(ValueError, match="contiguous last dimension"):
         flash_attention_cuda(q, kv, kv)
+    # bf16 rows 36 elements apart: not 16 bytes, so no cp.async
+    qb = torch.zeros((1, 1, 1, 64, 36), device=card,
+                     dtype=torch.bfloat16)[..., :32]
+    kvb = torch.zeros((1, 1, 64, 32), device=card, dtype=torch.bfloat16)
+    before = launches["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte row strides"):
+        flash_attention_cuda(qb, kvb, kvb)
+    with pytest.raises(ValueError, match="16-byte row strides"):
+        flash_attention_cuda(kvb[:, :, None], kvb, kvb, out=qb)
+    assert launches["flash_attention"] == before
     kv = torch.zeros((1, 1, 64, 32), device=card)
     with pytest.raises(ValueError, match="kv_len"):
         flash_decode_cuda(q[:, :, :, 0], kv, kv,

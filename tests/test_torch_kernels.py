@@ -17,7 +17,7 @@ import torch
 from _torch_parity import assert_codes_match, n, t
 from repro.kernels.bucket_probe import ops as jbp
 from repro.kernels.simhash import ops as jsh
-from repro_torch.kernels import launches, on_cuda, round_up
+from repro_torch.kernels import build, launches, on_cuda, round_up
 from repro_torch.kernels.bucket_probe import (
     bucket_probe,
     bucket_probe_codes,
@@ -159,3 +159,31 @@ class TestDispatch:
             bucket_probe_codes_cuda(torch.zeros(1, 2, dtype=torch.int64),
                                     torch.zeros(2, 5, dtype=torch.int64))
         assert launches == before
+
+
+class TestBuild:
+    def test_ptxas_usage_reads_each_kernel(self):
+        """The -Xptxas -v lines of a build log, per kernel (nvcc's format;
+        the log is made on a card's machine, so a sample stands in)."""
+        log = "\n".join([
+            "ptxas info    : 0 bytes gmem",
+            "ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'",
+            "ptxas info    : Function properties for _Z1aPf",
+            "    8 bytes stack frame, 4 bytes spill stores, "
+            "12 bytes spill loads",
+            "ptxas info    : Used 255 registers, used 1 barriers, "
+            "1024 bytes smem, 400 bytes cmem[0]",
+            "ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'",
+            "ptxas info    : Function properties for _Z1bPf",
+            "    0 bytes stack frame, 0 bytes spill stores, "
+            "0 bytes spill loads",
+            "ptxas info    : Used 168 registers, used 1 barriers, "
+            "400 bytes cmem[0]",
+        ])
+        assert build.ptxas_usage(log) == {
+            "_Z1aPf": dict(registers=255, spill_stores=4, spill_loads=12,
+                           stack=8, smem=1024),
+            "_Z1bPf": dict(registers=168, spill_stores=0, spill_loads=0,
+                           stack=0, smem=0),
+        }
+        assert build.ptxas_usage("") == {}
