@@ -25,9 +25,14 @@ The LM serving slice adds, each after the phase it extends:
       D = 128; prompt S = 2,048, cache S = 2,560 with kv_len
       [1, 777, 2048, 2560]), in f32 and bf16, timed beside the plain
       version and torch's scaled_dot_product_attention, with each row's
-      TFLOP/s and share of its bound; then the registers, spills and
-      shared memory of the bf16 (tensor-core) prefill at D = 128 from
-      the build log, which must show no spill;
+      TFLOP/s and share of its bound.  Decode is timed cold: kernel,
+      plain version and SDPA each cycle through L2_SETS distinct
+      (q, K, V) sets larger together than the L2, as the serve path's
+      32 layers' caches are; the same-tensor (L2-warm) times stand
+      beside them, with the split-KV plan (chunk, splits, blocks).  Then
+      the registers, spills and shared memory of the bf16 prefill
+      (tensor cores) and of the bf16 decode at D = 128 from the build
+      log, which must show no spill;
   3b. a small-input check: phi4-mini SMOKE (f32) with the same weights on
       the card (kernels) and the CPU (plain versions), prefill of 2 x 256
       tokens and 8 teacher-forced decode steps;
@@ -37,7 +42,8 @@ The LM serving slice adds, each after the phase it extends:
       calls, with the launch counts set to 0 just before and read just
       after (32 flash_attention, 16,384 flash_decode); then the prompt
       and the first decode step again with attn_impl="ref" on the card;
-  5b. a torch.profiler trace of 20 steady decode steps at full width.
+  5b. a torch.profiler trace of 20 steady decode steps at full width,
+      with flash_decode's device ms per step.
 
 The LM training slice adds:
   2c. the gather_weight kernel against its plain version, bitwise (rows
@@ -69,6 +75,8 @@ every measurement (probe rows, paths, profiles, the kernels table).
 
 from __future__ import annotations
 
+import functools
+import itertools
 import json
 import math
 import os
@@ -120,6 +128,9 @@ CACHE_LENS = [1, 777, 2048, 2560]
 # version is: its max |err| from it at most BF16_GOLD_FACTOR times that.
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -6, 1e-4)}
 BF16_GOLD_FACTOR = 1.5
+# phase 2b times decode over this many distinct (q, K, V) sets, cycled,
+# so that each call finds its cache in HBM and not in the 50 MB L2
+L2_SETS = 4
 # full width: the kernel path's distance from an f32 run may be at most
 # this multiple of the plain bf16 path's distance from it
 FULL_WIDTH_FACTOR = 1.25
@@ -167,6 +178,12 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> dict:
     return {"ms": device_us / 1e3 / reps if device_us else loop_ms,
             "loop_ms": loop_ms, "timed_by": "profiler" if device_us
             else "events"}
+
+
+def rotate(fns):
+    """One callable that calls ``fns`` in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
 
 
 def trace_steps(torch, step, steps: int) -> dict:
@@ -263,7 +280,8 @@ def main() -> int:
             attention_ref, decode_ref, flash_attention_cuda,
             flash_decode_cuda)
         from repro_torch.kernels.flash_attention.kernel import (
-            prefill_bf16_smem_bytes)
+            decode_chunk, decode_smem_bytes, prefill_bf16_smem_bytes,
+            sm_count)
         from repro_torch.models import LM
         from repro_torch.core import LSHIndex, SampleDraws
         from repro_torch.data import (
@@ -476,6 +494,9 @@ def main() -> int:
     lens = torch.tensor(CACHE_LENS, dtype=torch.int32, device=dev)
     valid = torch.arange(s_cache, device=dev)[None, :] < lens[:, None]
     report["flash_rows"] = []
+    # decode's split-KV plan at these shapes, from the wrapper's rule
+    dec_chunk = decode_chunk(s_cache, b_ * HKV, sm_count(dev.index or 0))
+    dec_split = -(-s_cache // dec_chunk)
 
     def hold(name, tname, got, want, gold):
         """Readings of ``got`` against its plain version ``want`` and, in
@@ -536,9 +557,18 @@ def main() -> int:
         report["flash_rows"].append(row)
         del fq, fk, fv, qh, got, want, gold
 
-        fq = randn(b_, HKV, GROUP, D_HEAD)
-        fk = randn(b_, HKV, s_cache, D_HEAD)
-        fv = randn(b_, HKV, s_cache, D_HEAD)
+        # decode: set 0 is checked; the kernel, the plain version and
+        # SDPA are timed cycling through L2_SETS sets larger together
+        # than the L2, as the serve path's 32 layers' caches are (cold),
+        # and on set 0 alone (L2-warm, as earlier calls timed it)
+        sets = [(randn(b_, HKV, GROUP, D_HEAD), randn(b_, HKV, s_cache, D_HEAD),
+                 randn(b_, HKV, s_cache, D_HEAD)) for _ in range(L2_SETS)]
+        set_bytes = sum(tt.numel() * esize for tt in sets[0])
+        l2_bytes = torch.cuda.get_device_properties(dev).L2_cache_size
+        if L2_SETS * set_bytes <= l2_bytes:
+            fail(f"decode timing sets ({L2_SETS} x {set_bytes} bytes) fit "
+                 f"in the {l2_bytes}-byte L2")
+        fq, fk, fv = sets[0]
         got = flash_decode_cuda(fq, fk, fv, lens)
         want = decode_ref(fq, fk, fv, lens)
         gold = (decode_ref(fq.float(), fk.float(), fv.float(), lens)
@@ -548,16 +578,29 @@ def main() -> int:
         flops = 4.0 * hq * D_HEAD * keys
         nbytes = (2 * keys * HKV * D_HEAD + 2 * fq.numel()) * esize
         nb, fl = bound(nbytes, flops, peak)
-        qh = fq.reshape(b_, hq, 1, D_HEAD)
         mask = valid[:, None, None, :]
+        fns = {"kernel": lambda qq, kk, vv: flash_decode_cuda(qq, kk, vv, lens),
+               "plain": lambda qq, kk, vv: decode_ref(qq, kk, vv, lens),
+               "library": lambda qq, kk, vv: sdpa(
+                   qq.reshape(b_, hq, 1, D_HEAD), kk, vv, attn_mask=mask,
+                   enable_gqa=True)}
+        cold = timings(*(rotate([functools.partial(fn, *st) for st in sets])
+                         for fn in fns.values()), 12 * L2_SETS)
+        warm = timings(*(functools.partial(fn, *sets[0])
+                         for fn in fns.values()), 48)
         row = dict(name="flash_decode", dtype=tname, **readings,
-                   bound_ms=nb, bound_by=fl, flops=flops, **timings(
-                       lambda: flash_decode_cuda(fq, fk, fv, lens),
-                       lambda: decode_ref(fq, fk, fv, lens),
-                       lambda: sdpa(qh, fk, fv, attn_mask=mask,
-                                    enable_gqa=True), 50))
+                   bound_ms=nb, bound_by=fl, flops=flops, **cold,
+                   ms_l2_warm=warm["ms"], plain_ms_l2_warm=warm["plain_ms"],
+                   library_ms_l2_warm=warm["library_ms"], l2_sets=L2_SETS,
+                   l2_set_bytes=set_bytes, l2_bytes=l2_bytes,
+                   chunk=dec_chunk, splits=dec_split,
+                   blocks=b_ * HKV * dec_split,
+                   blocks_with_keys=HKV * sum(
+                       -(-min(n, s_cache) // dec_chunk) if n > 0
+                       else dec_split for n in CACHE_LENS))
+        row["bound_share_l2_warm"] = nb / row["ms_l2_warm"]
         report["flash_rows"].append(row)
-        del fq, fk, fv, qh, got, want, gold
+        del fq, fk, fv, sets, got, want, gold
     for row in report["flash_rows"]:
         row["tflops"] = row["flops"] / row["ms"] / 1e9
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -587,6 +630,20 @@ def main() -> int:
           flush=True)
     if usage[0]["spill_stores"] or usage[0]["spill_loads"]:
         fail(f"the bf16 prefill kernel spills: {usage[0]}")
+    # and the bf16 (tensor-core) decode at D = 128: its one instance
+    # (G <= 16 heads in one 16-row mma tile) must not spill either
+    dec = [u for fn, u in build.ptxas_usage(
+        build.build_log("flash_attention")).items()
+        if f"flash_decode_mma_kernelILi{D_HEAD}ELi1E" in fn]
+    if len(dec) != 1:
+        fail("the build log has no ptxas line of the bf16 decode kernel")
+    report["decode_ptxas"] = dict(
+        dec[0], kernel=f"flash_decode_mma_kernel<{D_HEAD}, 1>",
+        dynamic_smem=decode_smem_bytes(GROUP, D_HEAD, True))
+    print("flash_decode bf16 ptxas " + json.dumps(report["decode_ptxas"]),
+          flush=True)
+    if dec[0]["spill_stores"] or dec[0]["spill_loads"]:
+        fail(f"the bf16 decode kernel spills: {dec[0]}")
 
     # -- 2c. gather_weight against its plain version, train shapes ---------
     report["gather_rows"] = []
@@ -987,7 +1044,11 @@ def main() -> int:
 
         for _ in range(5):
             decode()
-        report["profile"]["serve_decode"] = trace_steps(torch, decode, 20)
+        prof = trace_steps(torch, decode, 20)
+        prof["flash_decode_ms_per_step"] = sum(
+            us for name, us in prof.get("top_device_us_per_step", [])
+            if "flash_decode" in name) / 1e3
+        report["profile"]["serve_decode"] = prof
     print("profile serve/decode " + json.dumps(
         report["profile"]["serve_decode"]), flush=True)
     del cache, h, lm_f

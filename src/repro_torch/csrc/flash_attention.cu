@@ -56,12 +56,42 @@
 //
 // Decode, cache S=2560: one query row per (b, h, g), so the work is
 // reading the cache: ~4*Hq*D FLOPs per key against 4*Hkv*D bytes of K and
-// V (bf16), bound by bytes.  One block per (b, hkv) reads each K/V tile
-// once for all G heads of the group (the TPU kernel's GQA tile), 128 keys
-// per tile, 16-byte loads, and stops at kv_len: the blocks past it add
-// exactly 0, so unlike the TPU kernel it never reads them.  B*Hkv = 32
-// blocks on 132 SMs leaves most SMs idle; split-KV is later work.
-//
+// V (bf16), ~3 FLOP a byte, bound by bytes: the keys that kv_len makes
+// valid, over 3.35 TB/s (22.1 MB, 6.6 us at B=4 Hkv=8 G=3 D=128 with
+// kv_len [1, 777, 2048, 2560]).  FlashDecoding's split-KV, in one launch:
+//   * grid (B*Hkv, ceil(S / chunk)): each row's cache is cut into chunks
+//     of whole 32-key tiles, sized by the wrapper from S and the SM count,
+//     so the rows spread over all 132 SMs; a block whose chunk starts at
+//     or past the row's end (kv_len, or all S when kv_len is 0) exits at
+//     once.  kv_len is read on the card only;
+//   * a block (4 warps) streams its chunk through a ring of four 32-key
+//     K and V stages, filled by 16-byte cp.async in the input type, and
+//     reads each K/V row once for all G heads (the TPU kernel's GQA tile);
+//   * bf16 (`flash_decode_mma_kernel`) runs both products on the tensor
+//     cores: at ~3 FLOP a byte they are not needed for the rate, but on
+//     CUDA cores a key cost ~90 instructions a warp (dot products,
+//     butterflies, unpacking, exps), which kept the first design at a
+//     quarter of the bound.  Every warp computes S = Q.K^T for the whole
+//     tile (G heads padded to 16-row mma tiles) and the same online
+//     softmax, so m and l agree across warps; each warp then adds P.V
+//     for its quarter of D, with P split into bf16 hi + lo as in the
+//     prefill.  f32 (`flash_decode_kernel`, the tests' and the f32 rows'
+//     type) stays on CUDA cores: lanes of 16 bytes across D, the heads in
+//     register slots, a butterfly per key, warps merged through shared
+//     memory;
+//   * with one split holding keys a block writes the output.  Otherwise
+//     it writes its partial (m, l, acc[G][D]) in f32 to scratch and counts
+//     it with one acq_rel atomic; the block that counts the row's last
+//     partial merges them online (m* = max m_i, l* = sum e^(m_i - m*)
+//     l_i, acc likewise) and sets the count back to 0, so the counts need
+//     no fill per call and a call is one launch.
+//   Only splits that ran keys are merged, and m starts at -1e30, never
+//   -inf, so no exp(-inf + inf) arises; with kv_len 0 every logit is
+//   -1e30 and the merge gives the reference's average of V over all S.
+//   What is left between the kernel and its bound is latency more than
+//   bytes: ~1 us to launch, ~2 us from the kv_len read to the first tile,
+//   ~2 us for the count and the merge (PERF.md, section 6).
+
 // Layout.  Every tensor is passed by pointer plus element strides, with
 // the head dimension D contiguous, so the model's (B, S, H, D)
 // activations and its (B, S_max, Hkv, D) KV cache are read in place as
@@ -83,6 +113,8 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // masked logit, as the TPU kernel
 constexpr float kLFloor = 1e-30f;  // normaliser floor, as the TPU kernel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T>
 __device__ __forceinline__ float to_f(T v);
@@ -567,13 +599,16 @@ flash_prefill_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// decode
+// decode: split-KV over the SMs, the splits merged in the same launch
 // ---------------------------------------------------------------------------
 
-constexpr int kDecBK = 128;       // keys per tile
-constexpr int kDecThreads = 256;  // 8 warps
-constexpr int kMaxGD = 2048;      // G * D per block: <= 8 outputs a thread
-constexpr int kDecAcc = kMaxGD / kDecThreads;
+constexpr int kDecThreads = 128;  // 4 warps
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecTile = 32;      // keys per cp.async stage
+constexpr int kDecStages = 4;     // stages in the ring
+constexpr int kDecPer = kDecTile / kDecWarps;  // a warp's keys of a tile
+constexpr int kMaxGD = 2048;      // G * D of one (b, hkv) group
+constexpr int kMaxSplits = 64;    // splits of one row
 
 struct DecodeStrides {
   int64_t q[3];  // (b, h, g)
@@ -582,137 +617,581 @@ struct DecodeStrides {
   int64_t o[3];  // (b, h, g)
 };
 
-template <int D>
-size_t decode_smem_floats(int g) {
-  return static_cast<size_t>(g) * D + kDecBK * (D + 1) + kDecBK * D +
-         static_cast<size_t>(g) * kDecBK + 3 * g;
+// A decode block's place: its row's end, its chunk of keys, and how many
+// of the row's splits hold keys.
+struct DecodeRow {
+  int bh, split, hi, bi, end, c0, c1, n_valid, n_tiles;
+  bool none;  // kv_len <= 0: every logit is -1e30, v averaged over S
+  __device__ DecodeRow(const int* kv_len, int hkv, int s, int chunk) {
+    bh = blockIdx.x;
+    split = blockIdx.y;
+    hi = bh % hkv;
+    bi = bh / hkv;
+    const int len = kv_len[bi];
+    // positions >= len add exactly 0 once one position is valid, so stop
+    // there; with none valid the reference averages v over all S
+    // positions, and so do the splits and their merge
+    end = len > 0 ? min(len, s) : s;
+    none = len <= 0;
+    c0 = split * chunk;
+    c1 = min(c0 + chunk, end);
+    n_valid = (end + chunk - 1) / chunk;  // the splits that hold keys
+    n_tiles = (c1 - c0 + kDecTile - 1) / kDecTile;
+  }
+};
+
+// Scratch of a row's splits: acc[G][D] of every (bh, split), then (m, l)
+// of every (bh, split, head).
+__device__ __forceinline__ float* part_acc_of(float* part, int bh, int gd) {
+  return part + static_cast<int64_t>(bh) * gridDim.y * gd;
+}
+__device__ __forceinline__ float* part_ml_of(float* part, int bh, int g,
+                                             int gd) {
+  return part + static_cast<int64_t>(gridDim.x) * gridDim.y * gd +
+         static_cast<int64_t>(bh) * gridDim.y * g * 2;
 }
 
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+// After a block has written its split's partial: count it, and in
+// the block that counts the row's last partial merge the n_valid partials
+// and set the count back to 0 (so the counts need no fill per call).  A
+// thread merges four elements of one head online over the splits (m* =
+// max m_i, l* = sum e^(m_i - m*) l_i, acc likewise), its loads issued
+// together.  m is never -inf (a split that ran keys has m >= -1e30), so
+// no exp(-inf + inf) arises.
 template <typename T, int D>
-__global__ void __launch_bounds__(kDecThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_len,
-                    T* __restrict__ o, DecodeStrides st, int hkv, int g,
-                    int s, float scale) {
-  extern __shared__ float smem[];
-  constexpr int kLdk = D + 1;
-  constexpr int kWarps = kDecThreads / 32;
-  float* qs = smem;                 // g x D
-  float* ks = qs + g * D;           // kDecBK x (D + 1)
-  float* vs = ks + kDecBK * kLdk;   // kDecBK x D
-  float* ps = vs + kDecBK * D;      // g x kDecBK: logits, then p
-  float* ms = ps + g * kDecBK;      // running max per head
-  float* ls = ms + g;               // normaliser per head
-  float* as = ls + g;               // this tile's rescale per head
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int hi = blockIdx.x % hkv;
-  const int bi = blockIdx.x / hkv;
-  const T* kp = k + bi * st.k[0] + hi * st.k[1];
-  const T* vp = v + bi * st.v[0] + hi * st.v[1];
-
-  load_rows<T, D>(qs, D, q + bi * st.q[0] + hi * st.q[1], st.q[2], g, g, tid,
-                  kDecThreads);
-  for (int i = tid; i < g; i += kDecThreads) {
-    ms[i] = kNegInf;
-    ls[i] = 0.f;
+__device__ void decode_merge_splits(const DecodeRow& row, T* op, int64_t o_g,
+                                    float* part, int* arrived, int g,
+                                    int* last) {
+  const int tid = threadIdx.x, gd = g * D;
+  __syncthreads();  // the block's partial is written
+  if (tid == 0) {
+    // release: the block's partial before its count; acquire: the other
+    // blocks' partials after theirs (bar.sync carries both to the block)
+    const int before = atomic_add_acq_rel(arrived + row.bh, 1);
+    *last = before == row.n_valid - 1;
+    if (*last) atomicExch(arrived + row.bh, 0);
   }
-  const int len = kv_len[bi];
-  // positions >= len add exactly 0 once one position is valid, so stop
-  // there; with none valid the reference averages v over all S positions
-  // (every logit is -1e30), and so does this loop
-  const int end = len > 0 ? min(len, s) : s;
+  __syncthreads();
+  if (!*last) return;
+  const float4* acc4 =
+      reinterpret_cast<const float4*>(part_acc_of(part, row.bh, gd));
+  const float2* ml2 =
+      reinterpret_cast<const float2*>(part_ml_of(part, row.bh, g, gd));
+  for (int e4 = tid; e4 < gd / 4; e4 += kDecThreads) {
+    const int h = 4 * e4 / D, d = 4 * e4 % D;
+    float mm = kNegInf, ll = 0.f, aa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 16
+    for (int i = 0; i < row.n_valid; ++i) {
+      const float2 ml = __ldcg(ml2 + i * g + h);
+      const float4 a4 = __ldcg(acc4 + i * (gd / 4) + e4);
+      const float m_new = fmaxf(mm, ml.x);
+      const float s_old = expf(mm - m_new), s_new = expf(ml.x - m_new);
+      ll = fmaf(ml.y, s_new, ll * s_old);
+      aa[0] = fmaf(a4.x, s_new, aa[0] * s_old);
+      aa[1] = fmaf(a4.y, s_new, aa[1] * s_old);
+      aa[2] = fmaf(a4.z, s_new, aa[2] * s_old);
+      aa[3] = fmaf(a4.w, s_new, aa[3] * s_old);
+      mm = m_new;
+    }
+    const float den = fmaxf(ll, kLFloor);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) op[h * o_g + d + c] = from_f<T>(aa[c] / den);
+  }
+}
+
+// ---- decode, bf16: tensor cores ----------------------------------------
+
+template <int D>
+size_t decode_mma_smem_bytes(int g) {
+  // the Q rows (G padded to 16 MT) and the ring of K and V tiles, bf16
+  // rows padded to D + 8 (ldmatrix rows in distinct bank groups)
+  const int mt = (g + 15) / 16;
+  return (static_cast<size_t>(16) * mt +
+          static_cast<size_t>(kDecStages) * 2 * kDecTile) *
+         (D + 8) * sizeof(bf16_t);
+}
+
+// Grid (B * Hkv, n_split); block (bh, i) runs keys [i * chunk, (i + 1) *
+// chunk) of its row, cut at end = min(kv_len, S) (all S when kv_len is
+// 0).  The G heads are the rows of MT 16-row mma tiles.  For each 32-key
+// tile every warp computes S (16 x 32 per tile row) = Q . K^T by
+// m16n8k16 (four independent 8-key chains) and the same online softmax
+// on the accumulator fragments (head rows lane / 4 and lane / 4 + 8,
+// keys 2 (lane % 4) and + 1 of each 8), so m and l agree across the
+// warps; then each warp adds P . V for its quarter of D by m16n8k16,
+// two S tiles making P's A fragment, P split into bf16 hi + lo (the
+// reference keeps P in f32) and V fragments by ldmatrix.trans.
+template <int D, int MT>
+__global__ void __launch_bounds__(kDecThreads)
+flash_decode_mma_kernel(const bf16_t* __restrict__ q,
+                        const bf16_t* __restrict__ k,
+                        const bf16_t* __restrict__ v,
+                        const int* __restrict__ kv_len,
+                        bf16_t* __restrict__ o, float* __restrict__ part,
+                        int* __restrict__ arrived, DecodeStrides st, int hkv,
+                        int g, int s, int chunk, float scale) {
+  static_assert(D % 16 == 0, "D is a multiple of the mma's k = 16");
+  constexpr int kLd = D + 8;        // shared row, in bf16 elements
+  constexpr int kKD = D / 16;       // k-steps of Q.K^T
+  constexpr int kND = D / 8;        // 8-column tiles of the output
+  constexpr int kNK = kDecTile / 8; // 8-key tiles of S
+  // a warp's 8-column tiles of the output (D = 16: warps 2 and 3 none)
+  constexpr int kWD = kND >= kDecWarps ? kND / kDecWarps : 1;
+  constexpr int kChunks = D / 8;    // 16-byte chunks a row
+  constexpr int kCopies = (2 * kDecTile * kChunks) / kDecThreads;
+  constexpr int kStage = 2 * kDecTile * kLd;
+  static_assert(kCopies >= 1 && (2 * kDecTile * kChunks) % kDecThreads == 0,
+                "whole copies a thread");
+  extern __shared__ uint4 dec_smem[];
+  __shared__ int last;
+  bf16_t* qs = reinterpret_cast<bf16_t*>(dec_smem);  // 16 MT x kLd
+  bf16_t* ring = qs + 16 * MT * kLd;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // the Q rows, zero past G, are in flight while kv_len is read; they go
+  // with the first tile's group
+  {
+    const bf16_t* qp = q + (blockIdx.x / hkv) * st.q[0] +
+                       (blockIdx.x % hkv) * st.q[1];
+    for (int e = tid; e < 16 * MT * kChunks; e += kDecThreads) {
+      const int r = e / kChunks, c = (e % kChunks) * 8;
+      const bool ok = r < g;
+      cp_async16(smem_addr(qs + r * kLd + c),
+                 qp + (ok ? r : 0) * st.q[2] + c, ok);
+    }
+  }
+  const DecodeRow row(kv_len, hkv, s, chunk);
+  if (row.c0 >= row.end) {
+    cp_async_commit();   // no copy outlives its block
+    cp_async_wait<0>();
+    return;              // this split holds no key of the row
+  }
+  const float scale2 = scale * kLog2e;
+  const int quad = lane % 4;        // fragment columns 2 quad, 2 quad + 1
+  const int mat = lane / 8, mrow = lane % 8;  // ldmatrix.x4 addresses
+  const int n0 = warp * kWD;        // this warp's first output tile
+  const bool has_d = n0 < kND;
+
+  // this thread's copies of each tile: (K or V row r, 16-byte chunk c),
+  // the source at key c0 and its step per key; rows at or past c1 are
+  // zero-filled, never read from memory
+  const bf16_t* src[kCopies];
+  int64_t step[kCopies];
+  int crow[kCopies];
+  uint32_t cdst[kCopies];
+#pragma unroll
+  for (int i = 0; i < kCopies; ++i) {
+    const int e = tid + i * kDecThreads;
+    const int half = e / (kDecTile * kChunks);  // 0: K, 1: V
+    const int r = (e / kChunks) % kDecTile, c = (e % kChunks) * 8;
+    step[i] = half ? st.v[2] : st.k[2];
+    src[i] = (half ? v + row.bi * st.v[0] + row.hi * st.v[1]
+                   : k + row.bi * st.k[0] + row.hi * st.k[1]) +
+             (row.c0 + r) * step[i] + c;
+    crow[i] = r;
+    cdst[i] = smem_addr(ring + half * kDecTile * kLd + r * kLd + c);
+  }
+  auto load_tile = [&](int t) {
+    const int rows = min(kDecTile, row.c1 - (row.c0 + t * kDecTile));
+    const uint32_t stage = (t % kDecStages) * kStage * sizeof(bf16_t);
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const bool ok = crow[i] < rows;
+      cp_async16(cdst[i] + stage,
+                 ok ? src[i] + static_cast<int64_t>(t) * kDecTile * step[i]
+                    : src[i],
+                 ok);
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < kDecStages - 1; ++t) {
+    if (t < row.n_tiles) load_tile(t);
+    cp_async_commit();
+  }
+
+  uint32_t qf[MT][kKD][4];
+  float acc[MT][kWD][4];
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < kWD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  for (int t = 0; t < row.n_tiles; ++t) {
+    cp_async_wait<kDecStages - 2>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t == 0) {
+      // A fragments: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < kKD; ++kk)
+          ldsm_x4(qf[mt][kk], smem_addr(qs + (mt * 16 + lane % 16) * kLd +
+                                        kk * 16 + (lane / 16) * 8));
+    }
+    const int rows = min(kDecTile, row.c1 - (row.c0 + t * kDecTile));
+    const bf16_t* kt = ring + (t % kDecStages) * kStage;
+    const bf16_t* vt = kt + kDecTile * kLd;
+
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      // S = Q . K^T: B fragments of key tile nt at k-steps kk, kk + 1:
+      // matrices (keys 0-7, d 16 kk + 0-7), (+ 8-15), (16 kk + 16-23), ...
+      // two accumulator sets (even and odd k-steps) halve the mma chain
+      float sc[kNK][4], sc2[kNK][4];
+#pragma unroll
+      for (int nt = 0; nt < kNK; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = sc2[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKD; kk += 2) {
+        const int k2 = min(kk + mat / 2, kKD - 1);  // D = 16: one k-step
+#pragma unroll
+        for (int nt = 0; nt < kNK; ++nt) {
+          uint32_t b[4];
+          ldsm_x4(b, smem_addr(kt + (nt * 8 + mrow) * kLd + k2 * 16 +
+                               (mat % 2) * 8));
+          mma_bf16(sc[nt], qf[mt][kk], b[0], b[1]);
+          if (kk + 1 < kKD) mma_bf16(sc2[nt], qf[mt][kk + 1], b[2], b[3]);
+        }
+      }
+      // online softmax in log2 units (scale * log2 e folded into the
+      // logits; m and l go out in natural units): element e of key tile
+      // nt is head row 16 mt + lane / 4 + 8 (e / 2), key 8 nt + 2 quad +
+      // e % 2; keys past the chunk are -inf, so p = 0 exactly (and their
+      // V rows are zero).  Rows 8-15 of a tile are all padding when G
+      // stops before them: their softmax is skipped (their P.V adds 0)
+#pragma unroll
+      for (int nt = 0; nt < kNK; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = nt * 8 + 2 * quad + (e & 1);
+          sc[nt][e] = key >= rows ? -INFINITY
+                                  : (row.none ? kNegInf
+                                              : (sc[nt][e] + sc2[nt][e]) *
+                                                    scale2);
+        }
+      const int n_rows = mt * 16 + 8 < g ? 2 : 1;  // the same for the warp
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (i >= n_rows) {
+#pragma unroll
+          for (int nt = 0; nt < kNK; ++nt)
+            sc[nt][2 * i] = sc[nt][2 * i + 1] = 0.f;
+          continue;
+        }
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < kNK; ++nt)
+          mx = fmaxf(mx, fmaxf(sc[nt][2 * i], sc[nt][2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[mt][i], mx);
+        if (m_new > m[mt][i]) {  // a new max: rescale what came before
+          const float a = exp2f(m[mt][i] - m_new);
+          l[mt][i] *= a;
+#pragma unroll
+          for (int n = 0; n < kWD; ++n) {
+            acc[mt][n][2 * i] *= a;
+            acc[mt][n][2 * i + 1] *= a;
+          }
+          m[mt][i] = m_new;
+        }
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kNK; ++nt) {
+          sc[nt][2 * i] = exp2f(sc[nt][2 * i] - m[mt][i]);
+          sc[nt][2 * i + 1] = exp2f(sc[nt][2 * i + 1] - m[mt][i]);
+          sum += sc[nt][2 * i] + sc[nt][2 * i + 1];
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[mt][i] += sum;
+      }
+      if (!has_d) continue;
+      // acc += P . V over this warp's output tiles: the S fragments of key
+      // tiles 2 kc and 2 kc + 1 are the A fragment of keys 16 kc .. + 15
+#pragma unroll
+      for (int kc = 0; kc < kNK / 2; ++kc) {
+        uint32_t ph[4], pl[4];
+        split_bf16x2(sc[2 * kc][0], sc[2 * kc][1], ph[0], pl[0]);
+        split_bf16x2(sc[2 * kc][2], sc[2 * kc][3], ph[1], pl[1]);
+        split_bf16x2(sc[2 * kc + 1][0], sc[2 * kc + 1][1], ph[2], pl[2]);
+        split_bf16x2(sc[2 * kc + 1][2], sc[2 * kc + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int n = 0; n < kWD; n += 2) {
+          // matrices (keys 0-7, tile n0 + n), (keys 8-15, same),
+          // (keys 0-7, tile n0 + n + 1), (keys 8-15, same), transposed
+          uint32_t b[4];
+          const int nn = n0 + min(n + mat / 2, kWD - 1);
+          ldsm_x4_trans(b, smem_addr(vt + (kc * 16 + mrow + (mat % 2) * 8) *
+                                              kLd + nn * 8));
+          mma_bf16(acc[mt][n], ph, b[0], b[1]);
+          mma_bf16(acc[mt][n], pl, b[0], b[1]);
+          if (n + 1 < kWD) {
+            mma_bf16(acc[mt][n + 1], ph, b[2], b[3]);
+            mma_bf16(acc[mt][n + 1], pl, b[2], b[3]);
+          }
+        }
+      }
+    }
+    if (t + kDecStages - 1 < row.n_tiles) load_tile(t + kDecStages - 1);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // this warp's columns of the block's partial, or of the output when one
+  // split holds the row's keys
   const int gd = g * D;
-
-  float acc[kDecAcc];
+  bf16_t* op = o + row.bi * st.o[0] + row.hi * st.o[1];
+  float* pacc = part_acc_of(part, row.bh, gd) + row.split * gd;
+  float* pml = part_ml_of(part, row.bh, g, gd) + row.split * g * 2;
 #pragma unroll
-  for (int a = 0; a < kDecAcc; ++a) acc[a] = 0.f;
-
-  for (int k0 = 0; k0 < end; k0 += kDecBK) {
-    const int kvalid = min(kDecBK, s - k0);
-    __syncthreads();
-    load_rows<T, D>(ks, kLdk, kp + k0 * st.k[2], st.k[2], kDecBK, kvalid, tid,
-                    kDecThreads);
-    load_rows<T, D>(vs, D, vp + k0 * st.v[2], st.v[2], kDecBK, kvalid, tid,
-                    kDecThreads);
-    __syncthreads();
-
-    for (int e = tid; e < g * kDecBK; e += kDecThreads) {
-      const int gi = e / kDecBK, c = e % kDecBK;
-      const float* qr = qs + gi * D;
-      const float* kr = ks + c * kLdk;
-      float x = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) x = fmaf(qr[d], kr[d], x);
-      x *= scale;
-      const int pos = k0 + c;
-      if (pos >= s) {
-        x = -INFINITY;
-      } else if (pos >= len) {
-        x = kNegInf;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int h = mt * 16 + lane / 4 + 8 * i;
+      if (h >= g) continue;
+      const float den = fmaxf(l[mt][i], kLFloor);
+      if (has_d) {
+#pragma unroll
+        for (int n = 0; n < kWD; ++n) {
+          const int d = (n0 + n) * 8 + 2 * quad;
+          if (row.n_valid == 1) {
+            *reinterpret_cast<__nv_bfloat162*>(op + h * st.o[2] + d) =
+                __floats2bfloat162_rn(acc[mt][n][2 * i] / den,
+                                      acc[mt][n][2 * i + 1] / den);
+          } else {
+            *reinterpret_cast<float2*>(pacc + h * D + d) =
+                make_float2(acc[mt][n][2 * i], acc[mt][n][2 * i + 1]);
+          }
+        }
       }
-      ps[e] = x;
+      if (row.n_valid > 1 && warp == 0 && quad == 0)
+        *reinterpret_cast<float2*>(pml + 2 * h) =
+            make_float2(m[mt][i] * kLn2, l[mt][i]);
     }
-    __syncthreads();
+  if (row.n_valid == 1) return;  // the only split wrote the output
+  decode_merge_splits<bf16_t, D>(row, op, st.o[2], part, arrived, g, &last);
+}
 
-    for (int gi = warp; gi < g; gi += kWarps) {
-      float* pr = ps + gi * kDecBK;
-      float x[kDecBK / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < kDecBK / 32; ++t) {
-        x[t] = pr[lane + 32 * t];
-        mx = fmaxf(mx, x[t]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = ms[gi];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < kDecBK / 32; ++t) {
-        const float p = expf(x[t] - m_new);
-        pr[lane + 32 * t] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        ls[gi] = alpha * ls[gi] + sum;
-        ms[gi] = m_new;
-        as[gi] = alpha;
+// ---- decode, f32: CUDA cores -------------------------------------------
+
+template <int D>
+size_t decode_f32_smem_bytes(int g) {
+  // the ring of K and V tiles; after the loop, each warp's (acc[G][D],
+  // m[G], l[G]) for the block's merge of its warps
+  const size_t ring =
+      static_cast<size_t>(kDecStages) * 2 * kDecTile * D * sizeof(float);
+  const size_t warps =
+      static_cast<size_t>(kDecWarps) * g * (D + 2) * sizeof(float);
+  return ring > warps ? ring : warps;
+}
+
+// The tests' and the f32 rows' type.  A lane holds 16 bytes (4 floats)
+// of a row: D / 4 lanes span one head, so a warp holds 128 / D query
+// heads at once, in registers, and NS such slots hold G.  Warp w takes
+// keys 8 w .. 8 w + 7 of each 32-key tile, kBatch at a time: a 16-byte K
+// load, a partial dot product per slot, a butterfly over the lanes of a
+// head; one rescale a batch; an f32 P.V into lane-owned accumulators.
+template <int D, int NS>
+__global__ void __launch_bounds__(kDecThreads)
+flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const int* __restrict__ kv_len, float* __restrict__ o,
+                    float* __restrict__ part, int* __restrict__ arrived,
+                    DecodeStrides st, int hkv, int g, int s, int chunk,
+                    float scale) {
+  constexpr int kVec = 4;
+  constexpr int kLanes = D / kVec;
+  constexpr int kHeads = 32 / kLanes;
+  constexpr int kStage = 2 * kDecTile * D;      // elements: K tile, V tile
+  // keys a warp takes at once: independent chains, one rescale a batch;
+  // fewer as the slots take more registers
+  constexpr int kBatch = NS <= 2 ? 8 : 16 / NS;
+  static_assert(kLanes >= 1 && kLanes <= 32, "16-byte lanes across D");
+  static_assert(kDecPer % kBatch == 0, "whole batches in a tile");
+  extern __shared__ uint4 dec_smem[];
+  __shared__ int last;
+  float* ring = reinterpret_cast<float*>(dec_smem);
+
+  const DecodeRow row(kv_len, hkv, s, chunk);
+  if (row.c0 >= row.end) return;  // this split holds no key of the row
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const float* kp = k + row.bi * st.k[0] + row.hi * st.k[1];
+  const float* vp = v + row.bi * st.v[0] + row.hi * st.v[1];
+
+  // tile t (keys c0 + 32 t ..) into ring stage t % kDecStages by 16-byte
+  // cp.async; rows at or past c1 are neither read nor written
+  auto load_tile = [&](int t) {
+    const int k0 = row.c0 + t * kDecTile;
+    const int rows = min(kDecTile, row.c1 - k0);
+    float* dst = ring + (t % kDecStages) * kStage;
+    for (int e = tid; e < 2 * kDecTile * kLanes; e += kDecThreads) {
+      const int half = e / (kDecTile * kLanes);  // 0: K, 1: V
+      const int r = (e / kLanes) % kDecTile;
+      const int c = (e % kLanes) * kVec;
+      if (r < rows) {
+        const float* src = half ? vp + (k0 + r) * st.v[2] : kp + (k0 + r) * st.k[2];
+        cp_async16(smem_addr(dst + half * kDecTile * D + r * D + c), src + c,
+                   true);
       }
     }
-    __syncthreads();
+  };
+
+  // slot j holds head j * kHeads + grp, elements d0 .. d0 + 3
+  const int grp = lane / kLanes;
+  const int d0 = (lane % kLanes) * kVec;
+  float qr[NS][kVec], acc[NS][kVec], m[NS], l[NS];
+  const float* qp = q + row.bi * st.q[0] + row.hi * st.q[1];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int h = j * kHeads + grp;
+    const float4 q4 = h < g
+        ? *reinterpret_cast<const float4*>(qp + h * st.q[2] + d0)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    qr[j][0] = q4.x;
+    qr[j][1] = q4.y;
+    qr[j][2] = q4.z;
+    qr[j][3] = q4.w;
+    m[j] = kNegInf;
+    l[j] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[j][e] = 0.f;
+  }
 
 #pragma unroll
-    for (int a = 0; a < kDecAcc; ++a) {
-      const int e = tid + a * kDecThreads;
-      if (e < gd) {
-        const int gi = e / D, d = e % D;
-        const float* pr = ps + gi * kDecBK;
-        float y = acc[a] * as[gi];
-#pragma unroll 8
-        for (int c = 0; c < kvalid; ++c) y = fmaf(pr[c], vs[c * D + d], y);
-        acc[a] = y;
+  for (int t = 0; t < kDecStages - 1; ++t) {
+    if (t < row.n_tiles) load_tile(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < row.n_tiles; ++t) {
+    cp_async_wait<kDecStages - 2>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + kDecStages - 1 < row.n_tiles) load_tile(t + kDecStages - 1);
+    cp_async_commit();
+    const float* kt = ring + (t % kDecStages) * kStage;
+    const float* vt = kt + kDecTile * D;
+    const int rows = min(kDecTile, row.c1 - (row.c0 + t * kDecTile));
+#pragma unroll 1
+    for (int j0 = 0; j0 < kDecPer; j0 += kBatch) {
+      const int r0 = warp * kDecPer + j0;
+      if (r0 >= rows) break;  // the same for the whole warp
+      float x[kBatch][NS];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const float4 k4 = r0 + i < rows
+            ? *reinterpret_cast<const float4*>(kt + (r0 + i) * D + d0)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          x[i][j] = fmaf(qr[j][3], k4.w,
+                         fmaf(qr[j][2], k4.z,
+                              fmaf(qr[j][1], k4.y, qr[j][0] * k4.x)));
+      }
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+            x[i][j] += __shfl_xor_sync(0xffffffffu, x[i][j], off);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float m_new = m[j];
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          x[i][j] = row.none ? kNegInf : x[i][j] * scale;
+          if (r0 + i < rows) m_new = fmaxf(m_new, x[i][j]);
+        }
+        if (m_new > m[j]) {  // a new max: rescale what came before
+          const float a = expf(m[j] - m_new);
+          l[j] *= a;
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[j][e] *= a;
+          m[j] = m_new;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (r0 + i >= rows) break;
+        const float4 v4 = *reinterpret_cast<const float4*>(vt + (r0 + i) * D + d0);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float p = expf(x[i][j] - m[j]);
+          l[j] += p;
+          acc[j][0] = fmaf(p, v4.x, acc[j][0]);
+          acc[j][1] = fmaf(p, v4.y, acc[j][1]);
+          acc[j][2] = fmaf(p, v4.z, acc[j][2]);
+          acc[j][3] = fmaf(p, v4.w, acc[j][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it takes the warps' partials
+
+  const int rec = g * (D + 2);
+  float* wsm = reinterpret_cast<float*>(dec_smem);
+  float* mine = wsm + warp * rec;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int h = j * kHeads + grp;
+    if (h < g) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) mine[h * D + d0 + e] = acc[j][e];
+      if (d0 == 0) {
+        mine[g * D + h] = m[j];
+        mine[g * D + g + h] = l[j];
       }
     }
   }
   __syncthreads();
-
-  T* op = o + bi * st.o[0] + hi * st.o[1];
+  // merge the warps: one that ran no key holds m = -1e30, l = 0 and adds
+  // exactly 0; then the output, or this split's partial
+  const int gd = g * D;
+  float* op = o + row.bi * st.o[0] + row.hi * st.o[1];
+  float* pacc = part_acc_of(part, row.bh, gd) + row.split * gd;
+  float* pml = part_ml_of(part, row.bh, g, gd) + row.split * g * 2;
+  for (int e = tid; e < gd; e += kDecThreads) {
+    const int h = e / D, d = e % D;
+    float mm = kNegInf;
 #pragma unroll
-  for (int a = 0; a < kDecAcc; ++a) {
-    const int e = tid + a * kDecThreads;
-    if (e < gd) {
-      const int gi = e / D, d = e % D;
-      op[gi * st.o[2] + d] = from_f<T>(acc[a] / fmaxf(ls[gi], kLFloor));
+    for (int w = 0; w < kDecWarps; ++w) mm = fmaxf(mm, wsm[w * rec + gd + h]);
+    float ll = 0.f, aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float a = expf(wsm[w * rec + gd + h] - mm);
+      ll = fmaf(a, wsm[w * rec + gd + g + h], ll);
+      aa = fmaf(a, wsm[w * rec + e], aa);
+    }
+    if (row.n_valid == 1) {
+      op[h * st.o[2] + d] = aa / fmaxf(ll, kLFloor);
+    } else {
+      pacc[e] = aa;
+      if (d == 0) {
+        pml[2 * h] = mm;
+        pml[2 * h + 1] = ll;
+      }
     }
   }
+  if (row.n_valid == 1) return;  // the only split wrote the output
+  decode_merge_splits<float, D>(row, op, st.o[2], part, arrived, g, &last);
 }
 
 template <typename T, int D>
@@ -751,22 +1230,78 @@ int launch_prefill_bf16(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_decode(const void* q, const void* k, const void* v,
-                  const int* kv_len, void* o, const DecodeStrides& st, int b,
-                  int hkv, int g, int s, float scale, cudaStream_t stream) {
-  const size_t smem = decode_smem_floats<D>(g) * sizeof(float);
-  auto kernel = flash_decode_kernel<T, D>;
+template <typename E, typename Kernel>
+int launch_decode_kernel(Kernel kernel, size_t smem, const void* q,
+                         const void* k, const void* v, const int* kv_len,
+                         void* o, float* part, int* arrived,
+                         const DecodeStrides& st, int b, int hkv, int g, int s,
+                         int chunk, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<b * hkv, kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_len, static_cast<T*>(o), st, hkv, g, s,
-      scale);
+  const dim3 grid(b * hkv, (s + chunk - 1) / chunk);
+  kernel<<<grid, kDecThreads, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), kv_len, static_cast<E*>(o), part, arrived, st,
+      hkv, g, s, chunk, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+#define DECODE_ARGS q, k, v, kv_len, o, part, arrived, st, b, hkv, g, s, chunk, scale, stream
+
+// bf16: the fewest 16-row mma tiles (MT) that hold G heads
+template <int D>
+int decode_bf16(const void* q, const void* k, const void* v,
+                const int* kv_len, void* o, float* part, int* arrived,
+                const DecodeStrides& st, int b, int hkv, int g, int s,
+                int chunk, float scale, cudaStream_t stream) {
+  const size_t smem = decode_mma_smem_bytes<D>(g);
+  const int mt = (g + 15) / 16;   // G * D <= 2048: mt <= 2048 / (16 D)
+  if (mt <= 1) return launch_decode_kernel<bf16_t>(flash_decode_mma_kernel<D, 1>, smem, DECODE_ARGS);
+  if constexpr (D <= 64) {
+    if (mt <= 2) return launch_decode_kernel<bf16_t>(flash_decode_mma_kernel<D, 2>, smem, DECODE_ARGS);
+  }
+  if constexpr (D <= 32) {
+    if (mt <= 4) return launch_decode_kernel<bf16_t>(flash_decode_mma_kernel<D, 4>, smem, DECODE_ARGS);
+  }
+  if constexpr (D <= 16) {
+    if (mt <= 8) return launch_decode_kernel<bf16_t>(flash_decode_mma_kernel<D, 8>, smem, DECODE_ARGS);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// f32: the fewest register slots (NS) that hold G heads
+template <int D>
+int decode_f32(const void* q, const void* k, const void* v,
+               const int* kv_len, void* o, float* part, int* arrived,
+               const DecodeStrides& st, int b, int hkv, int g, int s,
+               int chunk, float scale, cudaStream_t stream) {
+  const size_t smem = decode_f32_smem_bytes<D>(g);
+  constexpr int kHeads = 128 / D;
+  const int ns = (g + kHeads - 1) / kHeads;  // G * D <= 2048: ns <= 16
+  if (ns <= 1) return launch_decode_kernel<float>(flash_decode_kernel<D, 1>, smem, DECODE_ARGS);
+  if (ns <= 2) return launch_decode_kernel<float>(flash_decode_kernel<D, 2>, smem, DECODE_ARGS);
+  if (ns <= 4) return launch_decode_kernel<float>(flash_decode_kernel<D, 4>, smem, DECODE_ARGS);
+  if (ns <= 8) return launch_decode_kernel<float>(flash_decode_kernel<D, 8>, smem, DECODE_ARGS);
+  if (ns <= 16) return launch_decode_kernel<float>(flash_decode_kernel<D, 16>, smem, DECODE_ARGS);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int decode_by_d(int d, int is_bf16, const void* q, const void* k,
+                const void* v, const int* kv_len, void* o, float* part,
+                int* arrived, const DecodeStrides& st, int b, int hkv, int g,
+                int s, int chunk, float scale, cudaStream_t stream) {
+  switch (d) {
+    case 16: return is_bf16 ? decode_bf16<16>(DECODE_ARGS) : decode_f32<16>(DECODE_ARGS);
+    case 32: return is_bf16 ? decode_bf16<32>(DECODE_ARGS) : decode_f32<32>(DECODE_ARGS);
+    case 64: return is_bf16 ? decode_bf16<64>(DECODE_ARGS) : decode_f32<64>(DECODE_ARGS);
+    case 128: return is_bf16 ? decode_bf16<128>(DECODE_ARGS) : decode_f32<128>(DECODE_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#undef DECODE_ARGS
 
 template <typename T>
 int prefill_by_d(int d, const void* q, const void* k, const void* v, void* o,
@@ -789,19 +1324,6 @@ int prefill_bf16_by_d(int d, const void* q, const void* k, const void* v,
     case 32: return launch_prefill_bf16<32>(q, k, v, o, st, b, hkv, g, s, scale, causal, stream);
     case 64: return launch_prefill_bf16<64>(q, k, v, o, st, b, hkv, g, s, scale, causal, stream);
     case 128: return launch_prefill_bf16<128>(q, k, v, o, st, b, hkv, g, s, scale, causal, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T>
-int decode_by_d(int d, const void* q, const void* k, const void* v,
-                const int* kv_len, void* o, const DecodeStrides& st, int b,
-                int hkv, int g, int s, float scale, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_decode<T, 16>(q, k, v, kv_len, o, st, b, hkv, g, s, scale, stream);
-    case 32: return launch_decode<T, 32>(q, k, v, kv_len, o, st, b, hkv, g, s, scale, stream);
-    case 64: return launch_decode<T, 64>(q, k, v, kv_len, o, st, b, hkv, g, s, scale, stream);
-    case 128: return launch_decode<T, 128>(q, k, v, kv_len, o, st, b, hkv, g, s, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -845,13 +1367,21 @@ extern "C" int flash_prefill_bf16_smem_bytes(int d) {
 
 // q (B, Hkv, G, D), k/v cache (B, Hkv, S, D), kv_len (B,) int32 on the
 // card, o like q; strides = [q: b, h, g | k: b, h, s | v: b, h, s |
-// o: b, h, g], D contiguous.  Returns the cudaError_t of the launch.
+// o: b, h, g], D contiguous.  The cache is cut into ceil(S / chunk) <= 64
+// splits of `chunk` keys (a multiple of 32).  With more than one split,
+// part is f32 scratch of B * Hkv * n_split * G * (D + 2) elements and
+// arrived B * Hkv int32 counts that are 0 before the launch and 0 again
+// after it; with one split neither is touched (they may be null).
+// Returns the cudaError_t of the launch.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const int* kv_len, void* o,
+                                   float* part, int* arrived,
                                    const int64_t* strides, int b, int hkv,
                                    int g, int s, int d, int is_bf16,
-                                   float scale, void* stream) {
-  if (b < 1 || hkv < 1 || g < 1 || s < 1 || g * d > kMaxGD)
+                                   int chunk, float scale, void* stream) {
+  if (b < 1 || hkv < 1 || g < 1 || s < 1 || g * d > kMaxGD || chunk < 1 ||
+      chunk % kDecTile || (s + chunk - 1) / chunk > kMaxSplits ||
+      (chunk < s && (part == nullptr || arrived == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeStrides st;
   for (int i = 0; i < 3; ++i) st.q[i] = strides[i];
@@ -859,8 +1389,18 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   for (int i = 0; i < 3; ++i) st.v[i] = strides[6 + i];
   for (int i = 0; i < 3; ++i) st.o[i] = strides[9 + i];
   auto stream_ = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? decode_by_d<__nv_bfloat16>(d, q, k, v, kv_len, o, st, b,
-                                              hkv, g, s, scale, stream_)
-                 : decode_by_d<float>(d, q, k, v, kv_len, o, st, b, hkv, g,
-                                      s, scale, stream_);
+  return decode_by_d(d, is_bf16, q, k, v, kv_len, o, part, arrived, st, b,
+                     hkv, g, s, chunk, scale, stream_);
+}
+
+// Dynamic shared memory of one decode block for G heads at head dim d,
+// in bytes (0 for a d that has no instance).
+extern "C" int flash_decode_smem_bytes(int g, int d, int is_bf16) {
+  switch (d) {
+    case 16: return static_cast<int>(is_bf16 ? decode_mma_smem_bytes<16>(g) : decode_f32_smem_bytes<16>(g));
+    case 32: return static_cast<int>(is_bf16 ? decode_mma_smem_bytes<32>(g) : decode_f32_smem_bytes<32>(g));
+    case 64: return static_cast<int>(is_bf16 ? decode_mma_smem_bytes<64>(g) : decode_f32_smem_bytes<64>(g));
+    case 128: return static_cast<int>(is_bf16 ? decode_mma_smem_bytes<128>(g) : decode_f32_smem_bytes<128>(g));
+    default: return 0;
+  }
 }

@@ -39,6 +39,7 @@ from repro_torch.kernels.flash_attention import (
     gqa_attention,
     gqa_decode,
 )
+from repro_torch.kernels.flash_attention.kernel import DECODE_TILE, decode_chunk
 from repro_torch.models.attention_xla import chunked_gqa_attention
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -91,6 +92,85 @@ def _tile_loop_bf16(q, k, v, causal, split, bk=64):
         acc = acc * alpha + pv
         m = m_new
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _merge(parts):
+    """Online-softmax partials (m, l, acc) -> one, as the decode kernel
+    merges its warps and then its splits."""
+    m = torch.stack([pm for pm, _, _ in parts]).amax(0)
+    l = sum(torch.exp(pm - m) * pl for pm, pl, _ in parts)
+    acc = sum(torch.exp(pm - m) * pa for pm, _, pa in parts)
+    return m, l, acc
+
+
+def _decode_batches(c0, c1, g, d, bf16, warps=4, tile=32):
+    """The key batches of the CUDA decode's partials over keys [c0, c1),
+    each batch one rescale of an online softmax.  bf16 (tensor cores):
+    every warp computes the whole 32-key tile's softmax, so the block
+    holds one partial, a batch a tile.  f32 (CUDA cores): warp w takes
+    keys 8 w .. 8 w + 7 of each tile, the G heads in register slots
+    (4-float lanes across D, NS a tier of 1, 2, 4, 8, 16), 8 keys a batch
+    while the slots are few, fewer as they take more registers."""
+    tiles = range(c0, c1, tile)
+    if bf16:
+        return [[range(k0, min(k0 + tile, c1)) for k0 in tiles]]
+    ns = next(tier for tier in (1, 2, 4, 8, 16) if tier * (128 // d) >= g)
+    batch = 8 if ns <= 2 else 16 // ns
+    per = tile // warps
+    return [[range(f, min(f + batch, c1)) for k0 in tiles
+             for f in range(k0 + w * per, k0 + (w + 1) * per, batch)
+             if f < c1] for w in range(warps)]
+
+
+def _split_decode(q, k, v, kv_len, chunk):
+    """The arithmetic of the split-KV CUDA decode (csrc/flash_attention.cu)
+    in plain PyTorch.  Row b's cache is cut into ``chunk``-key splits up
+    to end = min(kv_len, S) (all S when kv_len is 0, every logit then
+    -1e30); each partial of a split (``_decode_batches``) runs an online
+    softmax from m = -1e30, one rescale a batch and only when the max
+    moves, with P.V in f32 -- in bf16 with P split into bf16 hi + lo, as
+    the tensor cores take it; the partials merge, then the splits that
+    hold keys.  Splits past the end never run."""
+    b, hkv, g, d = q.shape
+    s = k.shape[2]
+    scale = d ** -0.5
+    bf16 = q.dtype == torch.bfloat16
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty(q.shape)
+    for bi in range(b):
+        n = int(kv_len[bi])
+        end = min(n, s) if n > 0 else s
+        splits = []
+        for c0 in range(0, end, chunk):
+            parts = []
+            for batches in _decode_batches(c0, min(c0 + chunk, end), g, d,
+                                           bf16):
+                m = torch.full((hkv, g, 1), -1e30)
+                l = torch.zeros((hkv, g, 1))
+                acc = torch.zeros((hkv, g, d))
+                for keys in batches:
+                    x = torch.einsum("hgd,hkd->hgk", qf[bi],
+                                     kf[bi, :, keys]) * scale
+                    if n <= 0:
+                        x = torch.full_like(x, -1e30)
+                    m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+                    a = torch.where(m_new > m, torch.exp(m - m_new), 1.0)
+                    l, acc, m = l * a, acc * a, m_new
+                    p = torch.exp(x - m)
+                    l = l + p.sum(-1, keepdim=True)
+                    if bf16:
+                        hi = p.to(torch.bfloat16).float()
+                        p_parts = (hi, (p - hi).to(torch.bfloat16).float())
+                    else:
+                        p_parts = (p,)
+                    for pp in p_parts:
+                        acc = acc + torch.einsum("hgk,hkd->hgd", pp,
+                                                 vf[bi, :, keys])
+                parts.append((m, l, acc))
+            splits.append(_merge(parts))
+        _, l, acc = _merge(splits)
+        out[bi] = acc / l.clamp_min(1e-30)
+    return out.to(q.dtype)
 
 
 class TestFlashAttention:
@@ -212,6 +292,57 @@ class TestFlashDecode:
         np.testing.assert_allclose(
             n(f32)[0], np.broadcast_to(v[0].mean(1)[:, None], (hkv, g, d)),
             **F32)
+
+    @pytest.mark.parametrize("b,hkv,g,s,d,lens,sms,n_split,bk", [
+        # 4 splits; row 1 ends inside split 1, so splits 2-3 never run
+        (2, 2, 3, 256, 64, [256, 100], 8, 4, 128),
+        # kv_len 0 (v averaged over S), kv_len > S, a ragged last chunk
+        # (200 = 2 x 96 + 8), G 12 (starcoder2's group)
+        (3, 1, 12, 200, 32, [0, 250, 65], 4, 3, 200),
+        # one split of four holds the row's only key
+        (1, 2, 4, 128, 16, [1], 64, 4, 128),
+        # phi4-mini's group and head dim
+        (4, 2, 3, 320, 128, [1, 777, 200, 320], 16, 4, 64),
+    ])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_split_kv_arithmetic(self, b, hkv, g, s, d, lens, sms, n_split,
+                                 bk, dtype):
+        """The CUDA decode's split-KV schedule and arithmetic, emulated,
+        against the JAX kernel in interpret mode and the plain version:
+        f32 at (1e-5, 1e-5), bf16 at the reference's bf16 tolerance."""
+        chunk = decode_chunk(s, b * hkv, sms)
+        assert chunk % DECODE_TILE == 0 and -(-s // chunk) == n_split
+        rng = np.random.default_rng(s + g)
+        q = _normal(rng, (b, hkv, g, d))
+        k, v = _normal(rng, (b, hkv, s, d)), _normal(rng, (b, hkv, s, d))
+        kv_len = np.array(lens, np.int32)
+        if dtype == "bfloat16":
+            (jq, tq), (jk, tk), (jv, tv) = _bf16(q), _bf16(k), _bf16(v)
+            tol = BF16
+        else:
+            (jq, tq), (jk, tk), (jv, tv) = (q, t(q)), (k, t(k)), (v, t(v))
+            tol = F32
+        got = _split_decode(tq, tk, tv, t(kv_len), chunk)
+        assert got.shape == (b, hkv, g, d) and got.dtype == tq.dtype
+        want = flash_decode_pallas(jq, jk, jv, kv_len, block_k=bk,
+                                   interpret=True)
+        np.testing.assert_allclose(n(got.float()),
+                                   np.asarray(want, np.float32), **tol)
+        np.testing.assert_allclose(
+            n(got.float()), n(decode_ref(tq, tk, tv, t(kv_len)).float()),
+            **tol)
+
+    @pytest.mark.parametrize("s,rows,sms,chunk,n_split", [
+        (2560, 32, 132, 320, 8),    # the serve cache: 256 blocks
+        (64, 32, 132, 32, 2),       # never below one tile
+        (4096, 2, 132, 64, 64),     # few rows: at most 64 splits
+        (32768, 32, 132, 4000, 9),
+    ])
+    def test_split_schedule(self, s, rows, sms, chunk, n_split):
+        """Splits are whole 32-key tiles, about 2 blocks an SM when every
+        row is full and at most 64 a row, chosen from the shapes alone."""
+        assert decode_chunk(s, rows, sms) == chunk
+        assert -(-s // chunk) == n_split
 
     def test_gqa_decode_wrapper(self):
         b, s, hq, hkv, d = 2, 256, 12, 4, 32

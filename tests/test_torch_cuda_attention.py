@@ -28,6 +28,7 @@ from repro_torch.kernels.flash_attention import (
     gqa_attention,
     gqa_decode,
 )
+from repro_torch.kernels.flash_attention.kernel import decode_chunk, sm_count
 from repro_torch.models import LM
 
 pytestmark = pytest.mark.cuda
@@ -101,6 +102,61 @@ def test_flash_decode(card, b, hkv, g, s, d, dtype):
     torch.testing.assert_close(got.float(),
                                decode_ref(q, k, v, kv_len).float(),
                                **TOL[dtype])
+
+
+def _hold_decode(got, q, k, v, kv_len, dtype):
+    want = decode_ref(q, k, v, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        gold = decode_ref(q.float(), k.float(), v.float(), kv_len)
+        err = float((got.float() - gold).abs().max())
+        plain_err = float((want.float() - gold).abs().max())
+        assert err <= BF16_GOLD_FACTOR * plain_err, (err, plain_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_serve_cache(card, dtype):
+    """phi4-mini's decode shape (B 4, Hkv 8, G 3, D 128) through the
+    model's (B, S_max, Hkv, D) cache, rows Hkv * D elements apart, with
+    chip_smoke.py's kv_len [1, 777, 2048, 2560]: one launch, split over
+    the SMs, merged in the kernel."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    b, s, hkv, g, d = 4, 2560, 8, 3, 128
+    q = _randn(gen, (b, 1, hkv * g, d), dtype, card)
+    kc = _randn(gen, (b, s, hkv, d), dtype, card)
+    vc = _randn(gen, (b, s, hkv, d), dtype, card)
+    kv_len = torch.tensor([1, 777, 2048, 2560], dtype=torch.int32,
+                          device=card)
+    before = launches["flash_decode"]
+    got = gqa_decode(q, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    assert launches["flash_decode"] == before + 1
+    qg = q[:, 0].reshape(b, hkv, g, d)
+    _hold_decode(got.reshape(b, hkv, g, d), qg, kc.permute(0, 2, 1, 3),
+                 vc.permute(0, 2, 1, 3), kv_len, dtype)
+    # the arrival counts are back at 0: a second call agrees bitwise
+    again = gqa_decode(q, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_more_splits_than_keys(card, dtype):
+    """A long cache with short rows: 64 splits of 64 keys, of which the
+    rows hold 1, 16 and all 64 (kv_len 0: v averaged over all 4,096
+    positions)."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    b, hkv, g, s, d = 3, 1, 2, 4096, 64
+    assert decode_chunk(s, b * hkv, sm_count(card.index or 0)) == 64
+    q = _randn(gen, (b, hkv, g, d), dtype, card)
+    k = _randn(gen, (b, hkv, s, d), dtype, card)
+    v = _randn(gen, (b, hkv, s, d), dtype, card)
+    kv_len = torch.tensor([40, 1000, 0], dtype=torch.int32, device=card)
+    before = launches["flash_decode"]
+    got = flash_decode_cuda(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert launches["flash_decode"] == before + 1
+    _hold_decode(got, q, k, v, kv_len, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
