@@ -9,7 +9,11 @@ Phases (any failed check exits non-zero; no phase is skipped):
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes of the main path (N = 463,715 YearPredictionMSD-sized
      rows, d = 91, L = 100, K = 5; probes at B in {1, 16}, J in {1, 3}),
-     and time kernel, plain version and the PyTorch library call;
+     and time kernel, plain version and the PyTorch library call; each
+     probe row carries its kernel's registers and spill bytes from the
+     build log, and the B 1 multi row a J 1 launch with the masks'
+     2,116-byte parameter block against the same kernel built with a
+     64-byte one (-DPROBE_MASK_SLOTS=16), timed in turns;
   3. a small-input reference check: the same index build and 20 LGD
      steps, with the same draws, on the card and on the CPU's plain path;
   4. the main path: ``init`` + 300 ``lgd_step`` + 300 ``sgd_step`` at
@@ -101,6 +105,9 @@ CARD = "NVIDIA H100 80GB HBM3"
 FP32_PEAK = 67e12
 BF16_PEAK = 989e12      # dense bf16 tensor-core FLOP/s
 HBM_RATE = 3.35e12
+# the probe kernel built with 16 mask slots by value, a 64-byte block in
+# place of the default 2,116 (phase 2's J 1 parameter-block comparison)
+COMPACT_MASKS = ("-DPROBE_MASK_SLOTS=16",)
 LGD_KERNELS = ("simhash", "bucket_probe", "bucket_probe_multi",
                "bucket_probe_codes")
 
@@ -178,6 +185,39 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> dict:
     return {"ms": device_us / 1e3 / reps if device_us else loop_ms,
             "loop_ms": loop_ms, "timed_by": "profiler" if device_us
             else "events"}
+
+
+def time_param_blocks(torch, bp_kernel, call, pairs: int = 6) -> dict:
+    """A J 1 multi-probe launch, ``call``, with the masks' 2,116-byte
+    parameter block against the same kernel built with a 64-byte one
+    (COMPACT_MASKS), timed in turns compact, wide, wide, compact, ...:
+    device and loop ms per call, the means and each turn's device ms."""
+    def through(defines):
+        def run():
+            orig = bp_kernel._fn
+            bp_kernel._fn = functools.partial(orig, defines=defines)
+            try:
+                return call()
+            finally:
+                bp_kernel._fn = orig
+        return run
+
+    fns = {"compact": through(COMPACT_MASKS), "wide": through(())}
+    outs = {tag: fn() for tag, fn in fns.items()}
+    if not all(torch.equal(a, c) for a, c in zip(outs["compact"],
+                                                  outs["wide"])):
+        fail("the probe built with the compact parameter block disagrees")
+    seen = {"compact": [], "wide": []}
+    for i in range(pairs):
+        for tag in ("compact", "wide")[::1 if i % 2 == 0 else -1]:
+            seen[tag].append(time_ms(torch, fns[tag], 100))
+    out = {}
+    for tag, ts in seen.items():
+        out[f"{tag}_ms"] = sum(t["ms"] for t in ts) / len(ts)
+        out[f"{tag}_loop_ms"] = sum(t["loop_ms"] for t in ts) / len(ts)
+        out[f"{tag}_ms_turns"] = [t["ms"] for t in ts]
+    out.update(compact_bytes=4 * 16, wide_bytes=4 * bp_kernel.MAX_MASKS)
+    return out
 
 
 def rotate(fns):
@@ -272,6 +312,7 @@ def main() -> int:
             bucket_probe_codes_cuda, bucket_probe_codes_ref,
             bucket_probe_cuda, bucket_probe_multi_cuda,
             bucket_probe_multi_ref, bucket_probe_ref)
+        from repro_torch.kernels.bucket_probe import kernel as bp_kernel
         from repro_torch.kernels.simhash import (
             simhash_codes_cuda, simhash_codes_ref)
         from repro_torch.quickstart import make_problem
@@ -463,7 +504,30 @@ def main() -> int:
                            lambda: two_searches(pct, idx_q.sorted_codes),
                            100))
             report["probe_rows"].append(row)
+    # what ptxas gave the two probe kernels
+    probe_use = {}
+    for fn_name, u in build.ptxas_usage(build.build_log("bucket_probe")).items():
+        for kname in ("probe_hashed_kernel", "probe_codes_kernel"):
+            if kname in fn_name:
+                probe_use[kname] = u
+    if len(probe_use) != 2:
+        fail(f"the build log has no ptxas line of a probe kernel: {probe_use}")
+
+    def probe_regs(name):
+        u = probe_use["probe_codes_kernel" if name == "bucket_probe_codes"
+                      else "probe_hashed_kernel"]
+        return dict(regs=u["registers"],
+                    spill=u["spill_stores"] + u["spill_loads"])
+
+    b1 = next(r for r in report["probe_rows"]
+              if (r["name"], r["B"]) == ("bucket_probe_multi", 1))
+    q1 = regression_query(0.1 * torch.randn(
+        (1, d - 1), generator=gen, device=dev)).contiguous()
+    b1["j1_params"] = time_param_blocks(
+        torch, bp_kernel, lambda: bucket_probe_multi_cuda(
+            q1, w, sc, (0,), k=k, l=l))
     for row in report["probe_rows"]:
+        row.update(probe_regs(row["name"]))
         print("probe " + json.dumps(row), flush=True)
     # the main path probes ONE query per step: B = 1 rows go in the table
     main_shape = {"bucket_probe": (1, 1), "bucket_probe_multi": (1, 3),
@@ -1153,7 +1217,7 @@ def main() -> int:
                    + d_t * lk_t * 4, 2.0 * d_t * lk_t)
     report["train_kernels"] = [dict(
         name="bucket_probe", shape="B 1, " + shape, max_abs_err=e_probe,
-        bound_ms=nb, bound_by=fl, **timings(
+        bound_ms=nb, bound_by=fl, **probe_regs("bucket_probe"), **timings(
             lambda: bucket_probe_cuda(q_t, w_t, sc_t, k=k_t, l=l_t),
             lambda: bucket_probe_ref(q_t, w_t, sc_t, k=k_t, l=l_t),
             lambda: two_searches(qc_t, sc_t), 100))]

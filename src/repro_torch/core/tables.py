@@ -11,8 +11,9 @@ kernels on a card and plain PyTorch on the CPU:
   * build/refresh hashing: ``kernels.simhash`` (linear families; the
     quadratic family hashes with plain chunked quadratic forms, as the
     JAX package leaves it to XLA);
-  * query probing: ``kernels.bucket_probe`` — per-(query, probe, table)
-    binary searches over ``sorted_codes``.
+  * query probing: ``kernels.bucket_probe`` — per (query, probe, table)
+    the bucket's bounds in ``sorted_codes``: on a card a warp-wide
+    32-way search, on the CPU ``searchsorted``.
 
 Sorts are stable (``torch.sort(stable=True)``), as ``jnp.argsort`` is,
 so tie order — and with it ``order`` — matches the reference bitwise.
@@ -204,8 +205,10 @@ def bucket_bounds_batched(index: LSHIndex, queries: torch.Tensor,
 
     There is no cutover by N/B: the JAX package's
     ``COUNTING_PROBE_MAX_POINTS_PER_QUERY`` bounds the TPU kernel, which
-    streams all L*N codes per call.  The Hopper kernel binary-searches,
-    so its cost grows with log N and every CUDA tensor takes it.
+    streams all L*N codes per call.  The Hopper kernel searches, a warp
+    per (query, table) with 32 pivots a round, so its cost grows with
+    the rounds, log_33 N (4 at N 463,715), and every CUDA tensor takes
+    it.
     """
     if get_family(params.family).proj_kind == "quadratic":
         return bucket_probe_codes(query_codes(index, queries, params),

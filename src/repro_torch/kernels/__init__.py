@@ -18,6 +18,8 @@ package's ``default_use_pallas()`` backend check.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # Launch counts of the hand-written kernels, one per wrapper.  A wrapper
@@ -32,6 +34,31 @@ launches = {
     "flash_decode": 0,
     "gather_weight": 0,
 }
+
+
+# the last-block kernels' arrival counts per (device, stream): 0 between
+# launches
+_arrived: dict = {}
+
+
+def arrival_counts(device: torch.device, stream: int,
+                   rows: int) -> torch.Tensor:
+    """Zeroed int32 counts, kept per (device, stream), for a kernel whose
+    last block to arrive finishes the work: each launch leaves them at 0,
+    so one fill serves every later call on that stream, whichever kernel
+    made it (launches on one stream run one after another)."""
+    key = (device.index, stream)
+    buf = _arrived.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = torch.zeros(rows, dtype=torch.int32, device=device)
+        _arrived[key] = buf
+    return buf
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launch_counts() -> None:

@@ -6,7 +6,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 source, all started together — into ``build/kernels/<hash>/`` at the
 root of the checkout, where ``<hash>`` covers the sources and the
 flags, so an edited source builds anew and an unchanged one is reused.
-Nothing is built when the module is imported.
+A source built with extra ``-D`` flags (a compile-time variant, such as
+the probe's mask slots) goes into a directory of its own.  Nothing is
+built when the module is imported.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _build_dir(defines: tuple = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for path in sorted(CSRC.iterdir()):
         if path.suffix in (".cu", ".cuh", ".h"):
             h.update(path.name.encode())
@@ -47,19 +49,22 @@ def _build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all() -> dict:
-    """Compile every missing library in parallel; return name -> path."""
-    out = _build_dir()
+def build_all(names: tuple = SOURCES, defines: tuple = ()) -> dict:
+    """Compile every missing library of ``names`` in parallel, with the
+    extra ``-D`` flags ``defines`` (a build directory of their own);
+    return name -> path."""
+    out = _build_dir(defines)
     out.mkdir(parents=True, exist_ok=True)
-    paths = {name: out / f"lib{name}.so" for name in SOURCES}
-    todo = [n for n in SOURCES if not paths[n].exists()]
+    paths = {name: out / f"lib{name}.so" for name in names}
+    todo = [n for n in names if not paths[n].exists()]
     nvcc = _nvcc() if todo else None
     procs = {}
     for name in todo:
         tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
         log = open(out / f"{name}.log", "w")
         procs[name] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT), tmp, log)
     failed = []
     for name, (proc, tmp, log) in procs.items():
@@ -107,9 +112,12 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu`` (built on first use)."""
-    if name not in _libs:
-        path = build_all()[name]
-        _libs[name] = ctypes.CDLL(str(path))
-    return _libs[name]
+def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built on first use:
+    with every other source, or alone when built with ``defines`` (a
+    variant measured against the default)."""
+    key = (name, defines)
+    if key not in _libs:
+        path = build_all((name,) if defines else SOURCES, defines)[name]
+        _libs[key] = ctypes.CDLL(str(path))
+    return _libs[key]

@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from .. import launches
+from .. import arrival_counts, launches, sm_count
 from ..build import library
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -39,8 +39,6 @@ DECODE_TILE = 32         # decode: keys per cp.async stage (kDecTile)
 DECODE_MAX_SPLITS = 64   # decode: splits of one row (kMaxSplits)
 DECODE_BLOCKS_PER_SM = 2   # decode: blocks an SM when every row is full
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# decode's arrival counts per (device, stream): 0 between launches
-_arrived: dict = {}
 
 
 @functools.cache
@@ -141,28 +139,10 @@ def decode_chunk(s: int, rows: int, sms: int) -> int:
     return -(-per // DECODE_TILE) * DECODE_TILE
 
 
-@functools.cache
-def sm_count(index: int) -> int:
-    """The SM count of CUDA device ``index`` (read once)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def decode_smem_bytes(g: int, d: int, bf16: bool) -> int:
     """Dynamic shared memory of one flash_decode block, from the CUDA
     source."""
     return _fn("flash_decode_smem_bytes")(g, d, int(bf16))
-
-
-def _arrival_counts(device: torch.device, stream: int,
-                    rows: int) -> torch.Tensor:
-    """Zeroed int32 counts, kept per (device, stream): each launch leaves
-    them at 0, so one fill serves every later call on that stream."""
-    key = (device.index, stream)
-    buf = _arrived.get(key)
-    if buf is None or buf.numel() < rows:
-        buf = torch.zeros(rows, dtype=torch.int32, device=device)
-        _arrived[key] = buf
-    return buf
 
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -206,7 +186,7 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if n_split > 1:
         part = torch.empty(b * hkv * n_split * g * (d + 2),
                            dtype=torch.float32, device=q.device)
-        arrived = _arrival_counts(q.device, stream, b * hkv)
+        arrived = arrival_counts(q.device, stream, b * hkv)
     err = _fn("flash_decode_launch")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(),

@@ -22,7 +22,7 @@ import torch
 from repro_torch.core import (
     IndexMutation, LGDProblem, LSHParams, bucket_bounds, draw_samples, init,
     lgd_step, mutate_index, probe_masks, query_codes)
-from repro_torch.kernels import launches
+from repro_torch.kernels import arrival_counts, launches
 from repro_torch.kernels.bucket_probe import (
     bucket_probe_codes_cuda,
     bucket_probe_codes_ref,
@@ -100,6 +100,83 @@ def test_probes(card, b):
     for a, c in zip(bucket_probe_codes_cuda(qc, sc),
                     bucket_probe_codes_ref(qc, sc)):
         np.testing.assert_array_equal(a.cpu(), c.cpu())
+
+
+def _hold_probes(q, w, sc, k, l, masks):
+    """All three probe entries against their plain versions: lo/hi
+    bitwise outside near-zero projections, one launch a call, and a
+    second call bitwise equal to the first."""
+    b, j = q.shape[0], len(masks)
+    keep = ~_near(q, w, k)
+    keep_j = keep[:, None, :].expand(b, j, l)
+    before = dict(launches)
+    got = bucket_probe_cuda(q, w, sc, k=k, l=l)
+    for a, c in zip(got, bucket_probe_ref(q, w, sc, k=k, l=l)):
+        np.testing.assert_array_equal(a.cpu()[keep], c.cpu()[keep])
+    got_j = bucket_probe_multi_cuda(q, w, sc, masks, k=k, l=l)
+    for a, c in zip(got_j, bucket_probe_multi_ref(q, w, sc, masks, k=k, l=l)):
+        np.testing.assert_array_equal(a.cpu()[keep_j], c.cpu()[keep_j])
+    marr = torch.tensor(masks, dtype=torch.int64, device=q.device)
+    qc = (simhash_codes_ref(q, w, k=k, l=l)[:, None, :]
+          ^ marr[None, :, None]).reshape(b * j, l).contiguous()
+    got_c = bucket_probe_codes_cuda(qc, sc)
+    for a, c in zip(got_c, bucket_probe_codes_ref(qc, sc)):
+        np.testing.assert_array_equal(a.cpu(), c.cpu())
+    for name in ("bucket_probe", "bucket_probe_multi", "bucket_probe_codes"):
+        assert launches[name] == before[name] + 1
+    again = (bucket_probe_cuda(q, w, sc, k=k, l=l)
+             + bucket_probe_multi_cuda(q, w, sc, masks, k=k, l=l)
+             + bucket_probe_codes_cuda(qc, sc))
+    for a, c in zip(got + got_j + got_c, again):
+        assert torch.equal(a, c)
+
+
+# N at the k-ary search's round thresholds (32, 1,088, 35,936) and past them
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1_089, 1_090, 35_936, 35_938])
+@pytest.mark.parametrize("b", [1, 16])
+def test_probe_sizes(card, n, b):
+    _, w, sc, q = _inputs(card, n, n, 24, 16, 4, b)
+    _hold_probes(q, w, sc, 4, 16, probe_masks(4, 3))
+
+
+@pytest.mark.parametrize("j", [1, 3, 529])
+def test_probe_edge_tables(card, j):
+    """K 32: a table whose codes are all equal, duplicates that straddle
+    every pivot, 2^32 - 1 codes, and queries below the minimum, above the
+    maximum and equal to 2^32 - 1 (all projections positive)."""
+    n, d, l, k, b = 35_938, 40, 4, 32, 16
+    g = torch.Generator(device=card).manual_seed(j)
+    w = torch.randn((d, l * k), generator=g, device=card)
+    top = 2 ** 32 - 1
+    rows = [torch.full((n,), 7, dtype=torch.int64, device=card),
+            torch.arange(34, device=card).repeat_interleave(n // 34 + 1)[:n]
+            * (top // 40),
+            torch.randint(0, top, (n,), generator=g, device=card),
+            torch.randint(0, top, (n,), generator=g, device=card)]
+    rows[3][: n // 3] = top
+    sc = torch.sort(torch.stack(rows), dim=1).values.contiguous()
+    w[0] = w[0].abs() + 1.0
+    q = torch.randn((b, d), generator=g, device=card)
+    q[0] = 0.0
+    q[0, 0] = 1.0                       # projections w[0] > 0: code 2^32 - 1
+    assert int(simhash_codes_ref(q[:1], w, k=k, l=l).min()) == top
+    _hold_probes(q, w, sc, k, l, probe_masks(k, j))
+    qc = torch.tensor([[0, top, 6, top], [top, 0, top, 0]], device=card)
+    for a, c in zip(bucket_probe_codes_cuda(qc, sc),
+                    bucket_probe_codes_ref(qc, sc)):
+        np.testing.assert_array_equal(a.cpu(), c.cpu())
+
+
+@pytest.mark.parametrize("b", [1, 16])
+def test_probe_train_shape(card, b):
+    """The train path's query probe (d 3,072, K 7, L 10, N 2,048): the
+    hash split over blocks, the last block adding the parts' sums; the
+    arrival counts are 0 again after each call."""
+    _, w, sc, q = _inputs(card, 9, 2048, 3072, 10, 7, b)
+    _hold_probes(q, w, sc, 7, 10, probe_masks(7, 3))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    torch.cuda.synchronize()
+    assert int(arrival_counts(q.device, stream, 1).abs().sum()) == 0
 
 
 def test_bucket_bounds_launches_the_probe_kernel(card):

@@ -18,6 +18,7 @@ from _torch_parity import assert_codes_match, n, t
 from repro.kernels.bucket_probe import ops as jbp
 from repro.kernels.simhash import ops as jsh
 from repro_torch.kernels import build, launches, on_cuda, round_up
+from repro_torch.kernels.bucket_probe import kernel as bp_kernel
 from repro_torch.kernels.bucket_probe import (
     bucket_probe,
     bucket_probe_codes,
@@ -141,6 +142,44 @@ class TestBucketProbe:
         np.testing.assert_array_equal(n(hi)[:, 0], [3, 3])
 
 
+class TestProbePlan:
+    """The hashed probe's launch plan (``probe_plan``), which the CUDA
+    launcher checks: whole tables of at most 256 columns a block, the
+    fewest of 1, 2, 4, 8 that keeps the launch within 2 blocks an SM of
+    an H100 (132); one block sums all features up to 128 (the simhash
+    kernel's order), else parts of 64."""
+
+    @pytest.mark.parametrize("b,d,l,k,plan", [
+        (1, 91, 100, 5, (1, 1)),        # the LGD query: 100 blocks
+        (16, 91, 100, 5, (8, 1)),       # 208 blocks
+        (1, 3072, 10, 7, (2, 48)),      # the train path's query: 240
+        (16, 3072, 10, 7, (8, 48)),     # past the aim: the most tables
+        (4, 128, 100, 5, (2, 1)),
+        (1, 129, 10, 7, (1, 3)),
+        (16, 40, 4, 32, (1, 1)),        # K 32, 64 blocks
+        (200, 40, 4, 32, (4, 1)),       # L caps the group
+        (200, 40, 16, 32, (8, 1)),      # K 32: 256 columns cap it
+        (64, 40, 16, 32, (4, 1)),       # 256 blocks
+        (200, 5, 3, 1, (3, 1)),
+        (1, 0, 2, 3, (1, 1)),
+    ])
+    def test_plan(self, b, d, l, k, plan):
+        tables, parts = bp_kernel.probe_plan(b, d, l, k, 132)
+        assert (tables, parts) == plan
+        assert tables * k <= bp_kernel.THREADS
+        assert (parts - 1) * bp_kernel.FEAT_PART < d <= max(
+            parts * bp_kernel.FEAT_PART, bp_kernel.FEAT_ONE) or d == 0
+
+    def test_mask_tuples_are_built_once(self):
+        masks = probe_masks(5, 3)
+        assert bp_kernel._host_masks(masks) is bp_kernel._host_masks(
+            tuple(masks))
+        big = probe_masks(32, 529)
+        assert len(big) == bp_kernel.MAX_MASKS
+        np.testing.assert_array_equal(np.array(bp_kernel._host_masks(big)),
+                                      np.array(big, np.uint32))
+
+
 class TestDispatch:
     def test_round_up(self):
         assert [round_up(a, 8) for a in (0, 1, 8, 9)] == [0, 8, 8, 16]
@@ -187,3 +226,10 @@ class TestBuild:
                            stack=0, smem=0),
         }
         assert build.ptxas_usage("") == {}
+
+    def test_a_variant_builds_apart(self):
+        """A source built with extra -D flags gets a directory of its
+        own, so the default library is never replaced by a variant."""
+        compact = ("-DPROBE_MASK_SLOTS=16",)
+        assert build._build_dir(compact) != build._build_dir()
+        assert build._build_dir(compact) == build._build_dir(compact)
