@@ -13,7 +13,12 @@ Phases (any failed check exits non-zero; no phase is skipped):
      probe row carries its kernel's registers and spill bytes from the
      build log, and the B 1 multi row a J 1 launch with the masks'
      2,116-byte parameter block against the same kernel built with a
-     64-byte one (-DPROBE_MASK_SLOTS=16), timed in turns;
+     64-byte one (-DPROBE_MASK_SLOTS=16), timed in turns.  The simhash
+     row carries its launch plan, its instantiation's registers, spills
+     and shared memory (no simhash instantiation may spill), ``x @ w``
+     through torch.matmul timed as a yardstick, and two checks: a second
+     call gives the same bits, and 16 rows of x probed as queries find
+     their own codes in the index sorted from simhash's, bitwise;
   3. a small-input reference check: the same index build and 20 LGD
      steps, with the same draws, on the card and on the CPU's plain path;
   4. the main path: ``init`` + 300 ``lgd_step`` + 300 ``sgd_step`` at
@@ -66,7 +71,8 @@ The LM training slice adds:
       calls, with the launch counts set to 0 just before and read just
       after (gather_weight 20, bucket_probe >= 20, simhash 2); then the
       probe and simhash kernels against their plain versions at the
-      train path's shapes (d 3,072, K 7, L 10, N 2,048), timed;
+      train path's shapes (d 3,072, K 7, L 10, N 2,048), timed, the
+      simhash row with phase 2's plan, ptxas, yardstick and checks;
   5c. a torch.profiler trace of 5 steady training steps.
 4c and 5c run last, after the serve model of 4b/5b is freed: the train
 state (bf16 weights and grads, f32 Adam moments) takes ~53 GB.
@@ -84,6 +90,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -185,6 +192,47 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> dict:
     return {"ms": device_us / 1e3 / reps if device_us else loop_ms,
             "loop_ms": loop_ms, "timed_by": "profiler" if device_us
             else "events"}
+
+
+def bound(nbytes: float, flops: float, peak: float = FP32_PEAK):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` and do ``flops`` at ``peak`` operations per second."""
+    t_bytes, t_ops = nbytes / HBM_RATE, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# the simhash kernel's sum modes, the CUDA source's enum Mode in order
+SIMHASH_MODES = ("one", "reg_parts", "split_parts")
+
+
+def simhash_label(inst: dict) -> str:
+    """"<rows> rows, <mode>[, 16-byte x][, narrow]": a simhash kernel
+    instantiation (``simhash_instance``'s fields)."""
+    return (f"{inst['rows']} rows, {inst['mode']}"
+            + (", 16-byte x" if inst["x16"] else "")
+            + (", narrow" if inst["narrow"] else ""))
+
+
+def simhash_usage(build) -> dict:
+    """ptxas's registers, spill bytes and static shared memory (its shared
+    memory is dynamic: ``simhash_instance``) of each simhash kernel
+    instantiation in the build log, by ``simhash_label`` (the mangled
+    name where it has no template)."""
+    out = {}
+    for name, u in build.ptxas_usage(build.build_log("simhash")).items():
+        if "simhash_kernel" not in name:
+            continue
+        m = re.search(
+            r"simhash_kernelILi(\d+)E.*?ModeE(\d)ELb([01])ELb([01])E", name)
+        label = simhash_label(dict(
+            rows=(32 if m[4] == "1" else 16) * int(m[1]),
+            mode=SIMHASH_MODES[int(m[2])], x16=m[3] == "1",
+            narrow=m[4] == "1")) if m else name
+        out[label] = dict(regs=u["registers"],
+                          spill=u["spill_stores"] + u["spill_loads"],
+                          smem=u["smem"])
+    return out
 
 
 def time_param_blocks(torch, bp_kernel, call, pairs: int = 6) -> dict:
@@ -315,6 +363,7 @@ def main() -> int:
         from repro_torch.kernels.bucket_probe import kernel as bp_kernel
         from repro_torch.kernels.simhash import (
             simhash_codes_cuda, simhash_codes_ref)
+        from repro_torch.kernels.simhash import kernel as sh_kernel
         from repro_torch.quickstart import make_problem
         from repro_torch import configs, serve
         from repro_torch.kernels.flash_attention import (
@@ -377,10 +426,38 @@ def main() -> int:
             out["timed_by"] = tm["timed_by"]
         return out
 
-    def bound(nbytes: float, flops: float, peak: float = FP32_PEAK):
-        t_bytes, t_ops = nbytes / HBM_RATE, flops / peak
-        return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations")
+    sh_use = simhash_usage(build)
+    print("simhash ptxas " + json.dumps(sh_use), flush=True)
+    if not sh_use or any(u["spill"] or u["regs"] > 255
+                         for u in sh_use.values()):
+        fail(f"simhash kernel: no ptxas line, a spill or > 255 registers: "
+             f"{sh_use}")
+
+    def simhash_extras(x, w_, codes, l_, k_, reps):
+        """The simhash row's plan, its instantiation's registers, spills
+        and shared memory, ``x @ w`` through torch.matmul timed as a
+        yardstick (not the same function: no sign, no pack), and two
+        checks: a second call gives the same bits, and 16 rows of x probed
+        as queries against the index sorted from ``codes`` each find
+        their own code, bitwise (the probe sums in simhash's order)."""
+        if not torch.equal(simhash_codes_cuda(x, w_, k=k_, l=l_), codes):
+            fail("two simhash calls on the same inputs differ")
+        sc_ = torch.sort(codes, dim=1).values
+        g_ = torch.Generator(device=dev).manual_seed(17)
+        rows = torch.randperm(x.shape[0], generator=g_, device=dev)[:16]
+        lo, hi = bucket_probe_cuda(x[rows].contiguous(), w_, sc_, k=k_,
+                                   l=l_)
+        if not (bool((hi > lo).all()) and torch.equal(
+                torch.gather(sc_, 1, lo.T.long()), codes[:, rows])):
+            fail(f"the probe does not find simhash's codes of its points "
+                 f"(d {x.shape[1]})")
+        plan = sh_kernel.simhash_plan(*x.shape, l_, k_, sm_count(0))
+        inst = sh_kernel.simhash_instance(x, plan, l_, k_)
+        return dict(plan=plan._asdict(), instance=simhash_label(inst),
+                    **sh_use[simhash_label(inst)], dynamic_smem=inst["smem"],
+                    projection_matmul_ms=time_ms(torch, lambda: x @ w_,
+                                                 reps)["ms"],
+                    repeat_bitwise=True, probe_identity_rows=16)
 
     # -- 2. kernels against their plain versions, slice shapes --------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -413,8 +490,10 @@ def main() -> int:
         name="simhash", route="cuda", source="src/repro_torch/csrc/simhash.cu",
         replaces="src/repro/kernels/simhash/kernel.py:76",
         max_abs_err=err, bound_ms=nb, bound_by=fl, library_ms=None,
+        **simhash_extras(x_aug, w, got, l, k, 10),
         **timings(lambda: simhash_codes_cuda(x_aug, w, k=k, l=l),
                   lambda: simhash_codes_ref(x_aug, w, k=k, l=l), None, 10))
+    print("simhash " + json.dumps(report["kernels"]["simhash"]), flush=True)
     del got, ref, near, diff
 
     prob_q, _ = make_problem("quadratic", 0, "sgd")
@@ -1210,6 +1289,7 @@ def main() -> int:
     e_hash = int((got - want).abs()[~near_x].max())
     if e_probe or e_hash:
         fail("a kernel disagrees with its plain version at the train shapes")
+    hash_extras = simhash_extras(x_t, w_t, got, l_t, k_t, 100)
     qc_t = compute_codes(q_t, w_t, k=k_t, l=l_t).T.contiguous()
     levels_t = math.floor(math.log2(n_t))
     shape = f"d {d_t}, K {k_t}, L {l_t}, N {n_t}"
@@ -1225,9 +1305,9 @@ def main() -> int:
                    2.0 * n_t * d_t * lk_t)
     report["train_kernels"].append(dict(
         name="simhash", shape=shape, max_abs_err=e_hash, bound_ms=nb,
-        bound_by=fl, **timings(
+        bound_by=fl, **hash_extras, **timings(
             lambda: simhash_codes_cuda(x_t, w_t, k=k_t, l=l_t),
-            lambda: simhash_codes_ref(x_t, w_t, k=k_t, l=l_t), None, 10)))
+            lambda: simhash_codes_ref(x_t, w_t, k=k_t, l=l_t), None, 100)))
     for row in report["train_kernels"]:
         print("train-kernel " + json.dumps(row), flush=True)
     del got, want, near_x

@@ -36,17 +36,19 @@ launches = {
 }
 
 
-# the last-block kernels' arrival counts per (device, stream): 0 between
-# launches
+# the arrival counts of kernels whose blocks meet (the probe's and
+# flash_decode's last block, simhash's row tiles) per (device, stream): 0
+# between launches
 _arrived: dict = {}
 
 
 def arrival_counts(device: torch.device, stream: int,
                    rows: int) -> torch.Tensor:
     """Zeroed int32 counts, kept per (device, stream), for a kernel whose
-    last block to arrive finishes the work: each launch leaves them at 0,
-    so one fill serves every later call on that stream, whichever kernel
-    made it (launches on one stream run one after another)."""
+    blocks count their arrivals (the last one to arrive finishes the work,
+    or all wait for the count): each launch leaves them at 0, so one fill
+    serves every later call on that stream, whichever kernel made it
+    (launches on one stream run one after another)."""
     key = (device.index, stream)
     buf = _arrived.get(key)
     if buf is None or buf.numel() < rows:

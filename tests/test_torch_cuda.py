@@ -70,6 +70,8 @@ def _inputs(card, seed, n, d, l, k, b):
     (3000, 91, 100, 5),    # the slice's widths
     (777, 40, 7, 32),      # max K, ragged row tile
     (5, 3, 1, 1),          # degenerate
+    (1000, 129, 10, 7),    # past one part: parts across blocks
+    (2048, 3072, 10, 7),   # the train path's shape
 ])
 def test_simhash(card, n, d, l, k):
     x, w, _, _ = _inputs(card, 0, n, d, l, k, 1)
@@ -80,6 +82,116 @@ def test_simhash(card, n, d, l, k):
     keep = ~_near(x, w, k).T
     np.testing.assert_array_equal(
         got.cpu()[keep], simhash_codes_ref(x, w, k=k, l=l).T.cpu()[keep])
+    assert torch.equal(simhash_codes_cuda(x, w, k=k, l=l), got)
+
+
+def _cancelling(card, seed, n, d):
+    """Rows whose features cancel in pairs up to a remainder of ~1e-6: the
+    sign of their sum over an all-ones column is set by rounding, so by
+    the order of the sum."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    u = torch.exp(torch.rand((n, d // 2), generator=g, device=card) * 11 - 3)
+    x = torch.cat([u, -u, torch.zeros((n, d % 2), device=card)], 1)
+    x = x[:, torch.randperm(d, generator=g, device=card)]
+    return x + 1e-6 * torch.randn((n, d), generator=g, device=card)
+
+
+@pytest.mark.parametrize("n,d,l,k", [
+    (3000, 91, 100, 5),    # one sum
+    (2000, 129, 10, 7),    # parts across blocks, 32-row tiles
+    (2048, 3072, 10, 7),   # the train path's shape: across blocks
+    (20_000, 200, 10, 7),  # parts in registers
+])
+def test_simhash_probe_identity(card, n, d, l, k):
+    """A point hashed by the probe as a query gets bitwise the code simhash
+    gave it, near-zero projections included: 16 rows (8 of them rows
+    that cancel) probed against the index sorted from simhash's codes."""
+    x, w, _, _ = _inputs(card, 3, n, d, l, k, 1)
+    w[:, ::2] = 1.0
+    x[:8] = _cancelling(card, d, 8, d)
+    codes = simhash_codes_cuda(x, w, k=k, l=l)               # (L, N)
+    sc = torch.sort(codes, dim=1).values
+    rows = torch.cat([torch.arange(8, device=card),
+                      torch.randint(8, n, (8,), device=card)])
+    lo, hi = bucket_probe_cuda(x[rows].contiguous(), w, sc, k=k, l=l)
+    assert bool((hi > lo).all())
+    hit = torch.gather(sc, 1, lo.T.long())                    # (L, 16)
+    assert torch.equal(hit, codes[:, rows])
+
+
+@pytest.mark.parametrize("n,d,l,k", [(900, 40, 7, 32), (600, 3072, 10, 7)])
+def test_simhash_x_layouts_agree(card, n, d, l, k):
+    """x with 16-byte aligned rows (16-byte copies) and the same x 4 bytes
+    off that alignment (4-byte copies) give the same bits."""
+    x, w, _, _ = _inputs(card, 6, n, d, l, k, 1)
+    x[:8] = _cancelling(card, 6, 8, d)
+    w[:, ::2] = 1.0
+    buf = torch.empty(n * d + 1, device=card)
+    off = buf[1:].view(n, d)
+    off.copy_(x)
+    assert off.data_ptr() % 16 == 4 and x.data_ptr() % 16 == 0
+    assert torch.equal(simhash_codes_cuda(off, w, k=k, l=l),
+                       simhash_codes_cuda(x, w, k=k, l=l))
+
+
+def test_simhash_plans_agree(card, monkeypatch):
+    """Every launch plan sums in the same order: all give the same bits."""
+    from repro_torch.kernels.simhash import kernel as sk
+    plan_of = sk.simhash_plan
+    for n, d, l, k, plans in [
+            (700, 91, 100, 5, [(128, 1, False), (64, 1, False),
+                               (32, 1, False)]),
+            (700, 300, 10, 7, [(64, 1, False), (32, 1, False),
+                               (64, 2, False), (32, 4, False),
+                               (64, 4, False), (64, 2, True),
+                               (128, 4, True), (64, 4, True)])]:
+        x, w, _, _ = _inputs(card, 5, n, d, l, k, 1)
+        x[:8] = _cancelling(card, 5, 8, d)
+        w[:, ::2] = 1.0
+        base = plan_of(n, d, l, k, 132)
+        outs = []
+        # ranks > 1: the blocks of a row tile share their part sums in a
+        # cooperative launch; narrow: in the 72-column layout
+        for bm, ranks, narrow in plans:
+            forced = base._replace(bm=bm, ranks=ranks, tiles=-(-n // bm),
+                                   narrow=narrow)
+            monkeypatch.setattr(sk, "simhash_plan", lambda *a, p=forced: p)
+            outs.append(simhash_codes_cuda(x, w, k=k, l=l))
+        for o in outs[1:]:
+            assert torch.equal(o, outs[0])
+
+
+def test_simhash_instances(card):
+    """The instantiation each plan runs (as the CUDA launcher reports it)
+    was built with at most 128 registers and no spill, and two of its
+    blocks fit an SM (227 KB a block, 228 KB an SM less 1 KB a block); a
+    plan the kernel does not take is refused."""
+    import importlib.util
+    from repro_torch.kernels import build
+    from repro_torch.kernels.simhash import kernel as sk
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    simhash_codes_cuda(*_inputs(card, 0, 10, 8, 2, 3, 1)[:2], k=3, l=2)
+    use = cs.simhash_usage(build)
+    for n, d, l, k in [(463_715, 91, 100, 5), (2048, 3072, 10, 7),
+                       (777, 40, 7, 32), (100_000, 3072, 10, 7),
+                       (100_000, 128, 100, 5), (2048, 129, 10, 7),
+                       (600, 3072, 10, 7)]:
+        x = torch.empty((1, d), device=card)
+        plan = sk.simhash_plan(n, d, l, k, sms)
+        inst = sk.simhash_instance(x, plan, l, k)
+        assert inst["rows"] == plan.bm and inst["narrow"] == plan.narrow
+        u = use[cs.simhash_label(inst)]
+        assert u["regs"] <= 128 and u["spill"] == 0
+        assert 2 * (inst["smem"] + u["smem"] + 1024) <= 228 * 1024
+    x = torch.empty((1, 3072), device=card)
+    plan = sk.simhash_plan(2048, 3072, 10, 7, sms)
+    assert sk.simhash_instance(x, plan._replace(ranks=1), 10, 7) is None
+    assert sk.simhash_instance(x, plan._replace(bm=32), 10, 7) is None
 
 
 @pytest.mark.parametrize("b", [1, 16])

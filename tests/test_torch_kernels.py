@@ -31,6 +31,8 @@ from repro_torch.kernels.simhash import (
     simhash_codes_cuda,
     simhash_codes_ref,
 )
+from repro_torch.kernels.simhash import kernel as sh_kernel
+from repro_torch.kernels.simhash.ref import pack_bits
 from repro_torch.core.simhash import probe_masks
 
 
@@ -180,6 +182,247 @@ class TestProbePlan:
                                       np.array(big, np.uint32))
 
 
+class TestSimhashPlan:
+    """The SimHash launch plan (``simhash_plan``), which the CUDA launcher
+    checks: whole tables of at most 128 columns a block, one sum up to 128
+    features and parts of 64 above (at most 64 rows a block, or 128 in
+    the narrow layout), at least 2 blocks an SM of an H100 (132) where N
+    allows, a split over the blocks of a row tile only as wide as keeps
+    every block resident (2 an SM), in the narrow 72-column layout where
+    the group fits it, and part sums through scratch only within the
+    cap."""
+
+    SMS = 132
+
+    @pytest.mark.parametrize("n,d,l,k,plan,pad", [
+        # the LGD build: 4 groups of 25 tables, 14,492 blocks
+        (463_715, 91, 100, 5, (128, 25, 125, 4, 1, 1, 3623, False),
+         12 / 512),
+        # the train path: 16 row tiles x 16 blocks of 3 parts, narrow
+        (2048, 3072, 10, 7, (128, 10, 70, 1, 48, 16, 16, True), 2 / 72),
+        (2048, 128, 10, 7, (32, 10, 70, 1, 1, 1, 64, False), 58 / 128),
+        # past one part: 32-row tiles give twice the blocks of narrow's 64
+        (2048, 129, 10, 7, (32, 10, 70, 1, 3, 2, 64, False), 58 / 128),
+        (777, 40, 7, 32, (32, 4, 128, 2, 1, 1, 25, False), 32 / 256),  # K 32
+        (100_000, 91, 200, 1, (128, 128, 128, 2, 1, 1, 782, False),
+         56 / 256),
+        (1, 91, 100, 5, (32, 25, 125, 4, 1, 1, 1, False), 12 / 512),  # N 1
+        (1, 3072, 10, 7, (128, 10, 70, 1, 48, 16, 1, True), 2 / 72),
+        (1000, 91, 100, 5, (32, 25, 125, 4, 1, 1, 32, False),
+         12 / 512),  # ragged
+        (600, 3072, 10, 7, (64, 10, 70, 1, 48, 16, 10, True), 2 / 72),
+        (100_000, 3072, 10, 7, (64, 10, 70, 1, 48, 1, 1563, False),
+         58 / 128),
+        (700, 300, 10, 7, (32, 10, 70, 1, 5, 4, 22, False), 58 / 128),
+        (800, 3072, 2, 32, (64, 2, 64, 1, 48, 16, 13, True), 8 / 72),
+        # a split would take 645 MB of part sums: parts in registers
+        (4000, 20_000, 10, 7, (32, 10, 70, 1, 313, 1, 125, False),
+         58 / 128),
+    ])
+    def test_plan(self, n, d, l, k, plan, pad):
+        p = sh_kernel.simhash_plan(n, d, l, k, self.SMS)
+        assert tuple(p) == plan
+        # whole tables, the fewest groups
+        assert p.cols == p.tables * k <= sh_kernel.COLS
+        assert (p.groups - 1) * p.tables < l <= p.groups * p.tables
+        assert p.tables == min(l, sh_kernel.COLS // k)
+        assert p.parts == (1 if d <= 128 else -(-d // 64))
+        if p.narrow:
+            assert p.split and p.cols <= sh_kernel.NARROW_COLS
+            assert p.bm in sh_kernel.NARROW_ROWS
+        else:
+            assert p.bm in sh_kernel.ROWS and (p.parts == 1 or p.bm <= 64)
+        assert p.tiles == -(-n // p.bm) and (p.tiles - 1) * p.bm < n
+        # a split: a power of 2 of at most 16 blocks a tile, every block
+        # resident, each with its parts, the sums within the cap
+        assert p.ranks & (p.ranks - 1) == 0 and p.ranks <= min(16, p.parts)
+        assert p.split == (p.ranks > 1) == (p.scratch_floats > 0)
+        if p.split:   # (a last rank may get no part)
+            assert p.blocks <= 2 * self.SMS
+            assert p.pg == -(-p.parts // p.ranks)
+        assert p.scratch_floats * 4 <= sh_kernel.SCRATCH_CAP
+        # 2 blocks an SM where the row tiles allow it (the split cases
+        # fill the card as residency allows: the test below)
+        if -(-n // 32) * p.groups >= 2 * self.SMS:
+            assert p.blocks >= 2 * self.SMS
+        # the share of computed columns that are padding
+        width = sh_kernel.NARROW_COLS if p.narrow else sh_kernel.COLS
+        assert (p.groups * width - l * k) / (p.groups * width) == \
+            pytest.approx(pad)
+
+    def test_train_shape_fills_the_card_in_one_wave(self):
+        p = sh_kernel.simhash_plan(2048, 3072, 10, 7, self.SMS)
+        assert 1.9 * self.SMS <= p.blocks <= 2 * self.SMS
+
+    @pytest.mark.parametrize("l,k", [(100, 5), (10, 7), (7, 32), (3, 1),
+                                     (200, 1)])
+    def test_padded_projections(self, l, k):
+        """w laid out for 16-byte copies: group g's columns at g * 128."""
+        d = 6
+        w = torch.arange(d * l * k, dtype=torch.float32).reshape(d, l * k)
+        p = sh_kernel.simhash_plan(100, d, l, k, self.SMS)
+        wp = sh_kernel.padded_projections(w, p)
+        assert wp.shape == (d, p.groups * sh_kernel.COLS)
+        assert wp.is_contiguous()
+        for g in range(p.groups):
+            c = w[:, g * p.cols:(g + 1) * p.cols]
+            assert torch.equal(wp[:, g * 128:g * 128 + c.shape[1]], c)
+
+    def test_narrow_plan_reads_w_as_given(self):
+        """The narrow layout copies w 4 bytes at a time: no padded copy."""
+        w = torch.zeros((3072, 70))
+        p = sh_kernel.simhash_plan(2048, 3072, 10, 7, self.SMS)
+        assert p.narrow
+        assert sh_kernel.padded_projections(w, p) is w
+
+
+def _epilogue_codes(signs: np.ndarray, k: int, ntab: int) -> np.ndarray:
+    """The kernel's epilogue on a block's (rows, 128) signs: byte ct of a
+    row holds columns 8ct..8ct+7 (bit j is column 8ct + j); its 16 bytes
+    and a zero word are five little-endian 32-bit words; a table's K bits
+    are the 64 bits of words cb >> 5 and (cb >> 5) + 1 shifted right by
+    cb & 31, cb = table * K.  -> (ntab, rows) codes."""
+    rows = signs.shape[0]
+    sb = np.zeros((rows, 20), np.uint8)
+    for ct in range(16):
+        sb[:, ct] = (signs[:, 8 * ct:8 * ct + 8].astype(np.uint64)
+                     << np.arange(8, dtype=np.uint64)).sum(1)
+    words = sb.view("<u4").astype(np.uint64)                  # (rows, 5)
+    codes = np.zeros((ntab, rows), np.int64)
+    for tl in range(ntab):
+        cb = tl * k
+        both = words[:, cb >> 5] | (words[:, (cb >> 5) + 1] << np.uint64(32))
+        codes[tl] = (both >> np.uint64(cb & 31)) & np.uint64((1 << k) - 1)
+    return codes
+
+
+# the CUDA source's column layouts (struct Cols): column warps, columns a
+# thread, their floats in shared w
+_WIDE, _NARROW = (4, 8, 8), (2, 9, 12)
+
+
+def _thread_columns(layout, ct):
+    """Columns of column thread ct: wide ct * 8 + j, narrow ct + 8 j."""
+    cw, tn, _ = layout
+    return ([ct + 4 * cw * j for j in range(tn)] if layout == _NARROW
+            else [ct * tn + j for j in range(tn)])
+
+
+class TestSimhashEpilogue:
+    """Pure-Python models of the CUDA kernel's index arithmetic."""
+
+    @pytest.mark.parametrize("k", [1, 5, 7, 32])
+    def test_bit_mapping_matches_pack_bits(self, k):
+        ntab = 128 // k
+        rng = np.random.default_rng(k)
+        signs = rng.random((64, 128)) < 0.5   # padding columns: any bits
+        got = _epilogue_codes(signs, k, ntab)
+        want = pack_bits(torch.from_numpy(signs[:, :ntab * k]).reshape(
+            64, ntab, k), k).T.numpy()
+        np.testing.assert_array_equal(got, want)
+        straddle = [t for t in range(ntab) if (t * k) % 32 + k > 32]
+        assert bool(straddle) == (k in (5, 7))
+        # a group of fewer tables reads the same bits
+        np.testing.assert_array_equal(_epilogue_codes(signs, k, 3),
+                                      want[:3])
+
+    @pytest.mark.parametrize("layout,tm", [(_WIDE, 8), (_WIDE, 4),
+                                           (_WIDE, 2), (_NARROW, 4),
+                                           (_NARROW, 2)])
+    def test_thread_tiles_cover_the_block_once(self, layout, tm):
+        """Warp w, lane -> rows rt*TM + i, a thread's columns: every (row,
+        column) of a block once.  Wide: 16 x TM rows x 128 columns, a warp
+        on 32 contiguous columns, so a group of 70 columns leaves 2 of the
+        8 warps idle; narrow: 32 x TM rows x 72 columns, a warp's columns
+        spread over all 72, so every warp computes."""
+        cw, tn, _ = layout
+        rt_count, cols = 256 // (4 * cw), 4 * cw * tn
+        seen = np.zeros((rt_count * tm, cols), int)
+        live = 0
+        for warp in range(8):
+            mine = set()
+            for lane in range(32):
+                rt = warp // cw * 8 + (lane >> 2)
+                ct = warp % cw * 4 + (lane & 3)
+                for c in _thread_columns(layout, ct):
+                    seen[rt * tm:(rt + 1) * tm, c] += 1
+                    mine.add(c)
+            live += min(mine) < 70
+        assert (seen == 1).all()
+        assert live == (8 if layout == _NARROW else 6)
+
+    @pytest.mark.parametrize("rows", [128, 64, 32])
+    def test_staging_map(self, rows):
+        """4-byte copy e -> (feature f, row r) of a chunk of x: every
+        element once, and each warp's 32 copies hit 32 distinct banks of
+        the feature-major tile (row stride rows + 4 floats)."""
+        depth = 32
+        xs, groups = rows + 4, depth // 8
+        hit = np.zeros((depth, rows), int)
+        for e0 in range(0, rows * depth, 32):
+            banks = set()
+            for e in range(e0, e0 + 32):
+                f = (e // 32) % groups * 8 + (e & 7)
+                r = e // (32 * groups) * 4 + ((e >> 3) & 3)
+                hit[f, r] += 1
+                banks.add((f * xs + r) % 32)
+            assert len(banks) == 32
+        assert (hit == 1).all()
+
+    def test_narrow_w_staging_map(self):
+        """The narrow layout's 4-byte copies of w: thread tid < 216 copies
+        column c = tid % 72 of features tid / 72 + 3 i, to c % 8 * 12 + c / 8
+        of the 96-float shared row, so thread ct's columns ct + 8 j are
+        floats [ct * 12, + 9) (16-byte aligned: 3 loads); every (feature,
+        column) once, and a warp's 32 copies of one step on 32 distinct
+        banks where they share a feature row."""
+        cw, tn, sn = _NARROW
+        ct_count, depth = 4 * cw, 32
+        cols, ws = ct_count * tn, ct_count * sn
+        span = 256 // cols
+        slot = np.full((depth, ws), -1)
+        for tid in range(span * cols):
+            c, fs = tid % cols, tid // cols
+            for f in range(fs, depth, span):
+                dst = c % ct_count * sn + c // ct_count
+                assert slot[f, dst] == -1
+                slot[f, dst] = c
+        for w0 in range(0, span * cols, 32):
+            for i in range(depth // span):
+                hits = [(tid // cols + span * i) * ws
+                        + tid % cols % ct_count * sn
+                        + tid % cols // ct_count
+                        for tid in range(w0, min(w0 + 32, span * cols))]
+                rows_ = {h // ws for h in hits}
+                if len(rows_) == 1:
+                    assert len({h % 32 for h in hits}) == len(hits)
+        assert (slot[:, [c % ct_count * sn + c // ct_count
+                         for c in range(cols)]] >= 0).all()
+        for ct in range(ct_count):
+            assert ct * sn % 4 == 0
+            assert list(slot[0, ct * sn:ct * sn + tn]) == \
+                _thread_columns(_NARROW, ct)
+        assert (slot[:, [ct * sn + j for ct in range(ct_count)
+                         for j in range(tn, sn)]] == -1).all()
+
+    @pytest.mark.parametrize("tm,row_threads", [(4, 16), (2, 16), (4, 32),
+                                                (2, 32)])
+    def test_row_major_x(self, tm, row_threads):
+        """16-byte copies of x (row stride 36 floats): every piece once, and
+        a warp's 8 row threads (rows rt + RT i, rt consecutive) read 16
+        bytes each from 8 distinct 4-bank groups."""
+        rows, depth = row_threads * tm, 32
+        hit = np.zeros((rows, depth // 4), int)
+        for e in range(rows * depth // 4):
+            hit[e // (depth // 4), e % (depth // 4)] += 1
+        assert (hit == 1).all()
+        for i in range(tm):
+            for r0 in range(0, row_threads, 8):
+                groups = {((r + row_threads * i) * (depth + 4) // 4) % 8
+                          for r in range(r0, r0 + 8)}
+                assert len(groups) == 8
+
+
 class TestDispatch:
     def test_round_up(self):
         assert [round_up(a, 8) for a in (0, 1, 8, 9)] == [0, 8, 8, 16]
@@ -226,6 +469,48 @@ class TestBuild:
                            stack=0, smem=0),
         }
         assert build.ptxas_usage("") == {}
+
+    def test_simhash_usage_reads_each_instantiation(self):
+        """chip_smoke.py's labels of the simhash kernel's instantiations
+        (rows, sum mode, x layout, column layout) from the -Xptxas -v
+        lines."""
+        import importlib.util
+        import os
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "chip_smoke.py"))
+        cs = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cs)
+        pre = "_ZN43_GLOBAL__N__2ea0_10_simhash_cu_27bd0fb114simhash_kernelI"
+        names = {
+            pre + "Li8ELNS_4ModeE0ELb0ELb0EEEvNS_6ParamsE": "128 rows, one",
+            pre + "Li4ELNS_4ModeE2ELb1ELb0EEEvNS_6ParamsE":
+                "64 rows, split_parts, 16-byte x",
+            pre + "Li2ELNS_4ModeE1ELb0ELb0EEEvNS_6ParamsE":
+                "32 rows, reg_parts",
+            pre + "Li4ELNS_4ModeE2ELb1ELb1EEEvNS_6ParamsE":
+                "128 rows, split_parts, 16-byte x, narrow",
+        }
+        log = "\n".join(
+            f"ptxas info    : Compiling entry function '{m}' for 'sm_90a'\n"
+            f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+            f"loads\nptxas info    : Used {100 + i} registers, used 1 "
+            f"barriers" for i, m in enumerate(names))
+
+        class Log:
+            ptxas_usage = staticmethod(build.ptxas_usage)
+
+            @staticmethod
+            def build_log(name):
+                return log if name == "simhash" else ""
+
+        use = cs.simhash_usage(Log)
+        assert set(use) == set(names.values())
+        assert use["64 rows, split_parts, 16-byte x"] == dict(
+            regs=101, spill=0, smem=0)
+        assert cs.simhash_label(dict(rows=128, mode="split_parts", x16=True,
+                                     narrow=True)) == \
+            "128 rows, split_parts, 16-byte x, narrow"
 
     def test_a_variant_builds_apart(self):
         """A source built with extra -D flags gets a directory of its
