@@ -24,7 +24,8 @@ Phases (any failed check exits non-zero; no phase is skipped):
   4. the main path: ``init`` + 300 ``lgd_step`` + 300 ``sgd_step`` at
      N = 463,715 for the quadratic, srp and mips families x multiprobe
      {0, 2}, with the kernels' launch counts set to 0 just before and
-     read just after: every kernel must have run;
+     read just after: every kernel must have run, ``draw_assemble`` once
+     a step (300 a run);
   5. a torch.profiler trace of 50 steady LGD steps per family: device
      time per step, the device's idle share and the top kernels.
 
@@ -60,6 +61,16 @@ The LM training slice adds:
       m = 8) and a large one (N = 463,715, m = 512), with duplicate ids
       and probabilities below p_floor; timed beside the plain version
       and ``index_select``;
+  2d. the draw_assemble kernel (Algorithm 1 after the probe, and the
+      gather and weight, in one launch) against the sampler's plain
+      composition on the card with the same draws: at the LGD shapes
+      (srp and quadratic laws, B in {1, 16}, J in {1, 3}, m 16, P 200)
+      and at the train shape with its store (d 3,072, K 7, L 10,
+      N 2,048, m 8, S+1 513); ids, walk results and rows bitwise, p and
+      weights within DRAW_RTOL (the worst case printed with its cosine),
+      two calls bitwise equal, ptxas's registers and spills (no spill
+      allowed); timed beside the plain composition and, at the train
+      shape, ``index_select`` of the rows (the gather alone);
   3c. a small-input check: phi4-mini SMOKE (f32) with the same weights
       on the card (kernels) and the CPU (plain versions): the LGD index
       build, then 5 ``next_batch`` + trainer steps with the same injected
@@ -69,7 +80,8 @@ The LM training slice adds:
       synchronous refresh at step 10, through the functions ``python -m
       repro_torch.launch.train --arch phi4_mini_3_8b --full --lgd``
       calls, with the launch counts set to 0 just before and read just
-      after (gather_weight 20, bucket_probe >= 20, simhash 2); then the
+      after (draw_assemble 20, bucket_probe >= 20, simhash 2; the
+      standalone gather_weight, held in 2c, is off the path); then the
       probe and simhash kernels against their plain versions at the
       train path's shapes (d 3,072, K 7, L 10, N 2,048), timed, the
       simhash row with phase 2's plan, ptxas, yardstick and checks;
@@ -116,7 +128,12 @@ HBM_RATE = 3.35e12
 # place of the default 2,116 (phase 2's J 1 parameter-block comparison)
 COMPACT_MASKS = ("-DPROBE_MASK_SLOTS=16",)
 LGD_KERNELS = ("simhash", "bucket_probe", "bucket_probe_multi",
-               "bucket_probe_codes")
+               "bucket_probe_codes", "draw_assemble")
+# phase 2d: p and the weights of draw_assemble against the plain
+# composition.  The kernel sums x.q, x.x and q.q in another order than
+# torch and calls acosf and powf, so p parts in its last bits, and
+# (1 - cp^K)^(l-1) multiplies that by up to l - 1 < 200
+DRAW_RTOL = 1e-4
 
 # the LM train path (phases 2c, 3c, 4c, 5c): the reference launcher's
 # defaults with 512-token rows
@@ -153,7 +170,8 @@ FULL_WIDTH_FACTOR = 1.25
 # device-time classes of a trace, by substrings of the kernel's name
 KERNEL_KINDS = (
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
-    ("hand-written", ("simhash_kernel", "probe", "flash_", "gather_weight")),
+    ("hand-written", ("simhash_kernel", "probe", "flash_", "gather_weight",
+                      "draw_assemble")),
     ("copy", ("Memcpy", "Memset", "copy_kernel")),
     ("reduce", ("reduce_kernel", "logsumexp", "softmax", "norm_kernel")),
     ("index", ("index", "gather", "scatter", "embedding")),
@@ -353,7 +371,8 @@ def main() -> int:
             IndexMutation, LGDState, compute_codes, full_loss, hash_points, init,
             lgd_step, mutate_index, probe_masks, regression_query, sgd_step)
         from repro_torch.core.simhash import quadratic_forms
-        from repro_torch.core.sampler import draw_samples
+        from repro_torch.core.sampler import (
+            _probe_bounds, draw_assemble, draw_assemble_plain, draw_samples)
         from repro_torch.data import make_regression
         from repro_torch.kernels import build
         from repro_torch.kernels.bucket_probe import (
@@ -373,7 +392,7 @@ def main() -> int:
             decode_chunk, decode_smem_bytes, prefill_bf16_smem_bytes,
             sm_count)
         from repro_torch.models import LM
-        from repro_torch.core import LSHIndex, SampleDraws
+        from repro_torch.core import LSHIndex, LSHParams, SampleDraws
         from repro_torch.data import (
             LSHPipelineConfig, LSHSampledPipeline, lm_head_query_fn,
             make_token_corpus, mean_pool_feature_fn)
@@ -828,6 +847,151 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")})
 
+    # -- 2d. draw_assemble against the plain composition -------------------
+    report["draw_rows"] = []
+    gd = torch.Generator(device=dev).manual_seed(9)
+    draw_use = {fn: u for fn, u in build.ptxas_usage(
+        build.build_log("gather_weight")).items()
+        if "draw_assemble_kernel" in fn}
+    if len(draw_use) != 2 or any(u["spill_stores"] or u["spill_loads"]
+                                 for u in draw_use.values()):
+        fail(f"draw_assemble: not two ptxas lines, or a spill: {draw_use}")
+    draw_regs = {("int4" if "int4" in fn else "int32"): u["registers"]
+                 for fn, u in draw_use.items()}
+    print("draw_assemble ptxas " + json.dumps(draw_use), flush=True)
+
+    def draw_row(tag, args, x_, q_, law):
+        """Hold draw_assemble against the plain composition on ``args``,
+        check that two calls give the same bits, time both; the bound
+        counts what this draw's walks and rows touch."""
+        got = draw_assemble(*args)
+        again = draw_assemble(*args)
+        want = draw_assemble_plain(*args)
+        res, res_w = got[0], want[0]
+        for key in ("indices", "n_probes", "bucket_sizes", "fallback",
+                    "probe_code"):
+            if not torch.equal(getattr(res, key), getattr(res_w, key)):
+                fail(f"draw_assemble {tag}: {key} differs from the plain "
+                     f"composition")
+        if got[1] is not None and not torch.equal(got[1], want[1]):
+            fail(f"draw_assemble {tag}: gathered rows differ")
+        flat = [t for t in list(got[0]) + list(got[1:]) if t is not None]
+        flat2 = [t for t in list(again[0]) + list(again[1:])
+                 if t is not None]
+        if not all(torch.equal(a.view(torch.int32) if a.dtype ==
+                               torch.float32 else a,
+                               b.view(torch.int32) if b.dtype ==
+                               torch.float32 else b)
+                   for a, b in zip(flat, flat2)):
+            fail(f"draw_assemble {tag}: two calls differ")
+        err = (res.probs - res_w.probs).abs().reshape(-1)
+        rel = err / res_w.probs.abs().reshape(-1).clamp_min(1e-38)
+        worst = int(rel.argmax())
+        ids = res.indices.reshape(-1)
+        qb = q_[torch.arange(ids.numel(), device=dev) // res.indices.shape[1]]
+        xd, qd = x_[ids].double(), qb.double()
+        cos = (xd * qd).sum(-1) / (xd.norm(dim=-1) * qd.norm(dim=-1))
+        if law == "quadratic":
+            cos = cos * cos
+        out = dict(shape=tag, max_abs_err=float(err.max()),
+                   max_rel_err_p=float(rel[worst]),
+                   worst_cos=float(cos[worst]),
+                   worst_p=float(res_w.probs.reshape(-1)[worst]),
+                   fallback_frac=float(res.fallback.float().mean()),
+                   n_probes_max=int(res.n_probes.max()))
+        if not torch.allclose(res.probs, res_w.probs, rtol=DRAW_RTOL,
+                              atol=0):
+            fail(f"draw_assemble {tag}: p differs by {out['max_rel_err_p']:.3g}"
+                 f" (rtol {DRAW_RTOL}) at cos {out['worst_cos']:.6g}")
+        if got[2] is not None:
+            out["max_abs_err_w"] = float((got[2] - want[2]).abs().max())
+            out["max_rel_err_w"] = float(((got[2] - want[2]).abs()
+                                          / want[2].abs()).max())
+            if not torch.allclose(got[2], want[2], rtol=DRAW_RTOL, atol=0):
+                fail(f"draw_assemble {tag}: weights differ by "
+                     f"{out['max_rel_err_w']:.3g}")
+        # the bytes the draw needs: each block's walked table draws and
+        # bounds, its order entry, slot_u and fallback draw, its x row
+        # once per distinct id, the queries, the results; with a store its
+        # row read once per distinct id and written once a block
+        jj = len(args[8])
+        found = ~res.fallback
+        walked = torch.where(found, (res.n_probes - 1) * jj
+                             + res.probe_code + 1,
+                             res.n_probes * jj).sum()
+        draws_read = res.n_probes.sum()
+        uniq = int(torch.unique(ids).numel())
+        blocks = ids.numel()
+        d_ = x_.shape[1]
+        nbytes = (int(draws_read) * 8 + int(walked) * 8
+                  + int(found.sum()) * 8 + blocks * (4 + 8 + 25)
+                  + uniq * d_ * 4 + q_.numel() * 4)
+        if got[1] is not None:
+            nbytes += (uniq + blocks) * got[1].shape[1] * 4 + blocks * 4
+        nb, fl = bound(nbytes, 6.0 * d_ * blocks)
+        out.update(bound_ms=nb, bound_by=fl, blocks=blocks,
+                   **timings(lambda: draw_assemble(*args),
+                             lambda: draw_assemble_plain(*args),
+                             (lambda: args[9].index_select(0, ids))
+                             if got[1] is not None else None, 100))
+        out.pop("library_loop_ms", None)
+        if "library_ms" in out:
+            out["index_select_ms"] = out.pop("library_ms")
+        return out
+
+    for family, prob_f in (("srp", prob_srp), ("quadratic", prob_q)):
+        index_d = mutate_index(None, IndexMutation(
+            "build", generator=gd, x_aug=x_aug), prob_f.lsh)
+        for b in (1, 16):
+            theta = 0.1 * torch.randn((b, d - 1), generator=gd, device=dev)
+            q = regression_query(theta).contiguous()
+            for j in (1, 3):
+                masks = probe_masks(k, j)
+                lo, hi = _probe_bounds(index_d, q, prob_f.lsh, masks)
+                dr = draw_samples(gd, (b, 16), 2 * l, l, n, dev)
+                row = draw_row(f"{family}, B {b}, J {j}",
+                               (dr, lo, hi, index_d.order, x_aug, q,
+                                prob_f.lsh, 2 * l, masks), x_aug, q,
+                               "quadratic" if family == "quadratic"
+                               else "angle")
+                row.update(name="draw_assemble", family=family, B=b, J=j,
+                           m=16, regs=draw_regs["int32"], spill=0)
+                report["draw_rows"].append(row)
+                print("draw " + json.dumps(row), flush=True)
+        del index_d
+    # the train path's draw: seeded features, projections, store and
+    # query at its shape
+    n_t, d_t, k_t, l_t = TRAIN_CORPUS, 3072, 7, 10
+    shift = torch.linspace(0, 2, d_t, device=dev)
+    x_t = torch.randn((n_t, d_t), generator=gd, device=dev) + shift
+    p_t = LSHParams(k=k_t, l=l_t, dim=d_t, family="srp")
+    index_t = mutate_index(None, IndexMutation(
+        "build", projections=torch.randn((d_t, l_t * k_t), generator=gd,
+                                         device=dev), x_aug=x_t), p_t)
+    store_t = torch.randint(0, 200_064, (n_t, TRAIN_SEQ + 1), generator=gd,
+                            device=dev, dtype=torch.int32)
+    q_t = (torch.randn((1, d_t), generator=gd, device=dev)
+           + shift).contiguous()
+    lo, hi = _probe_bounds(index_t, q_t, p_t, (0,))
+    dr = draw_samples(gd, (1, TRAIN_BATCH), 2 * l_t, l_t, n_t, dev)
+    row = draw_row(f"train: d {d_t}, K {k_t}, L {l_t}, N {n_t}, "
+                   f"S+1 {TRAIN_SEQ + 1}",
+                   (dr, lo, hi, index_t.order, x_t, q_t, p_t, 2 * l_t, (0,),
+                    store_t, 1e-8), x_t, q_t, "angle")
+    row.update(name="draw_assemble", family="srp", B=1, J=1, m=TRAIN_BATCH,
+               regs=draw_regs["int32"], spill=0)
+    report["draw_rows"].append(row)
+    print("draw " + json.dumps(row), flush=True)
+    del x_t, index_t, store_t
+    main_draw = report["draw_rows"][0]             # srp, B 1, J 1
+    report["kernels"]["draw_assemble"] = dict(
+        name="draw_assemble", route="cuda",
+        source="src/repro_torch/csrc/gather_weight.cu",
+        replaces="src/repro/kernels/gather_weight/kernel.py:56",
+        **{kk: main_draw[kk] for kk in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None)
+
     # -- 3. small input: the card against the CPU's plain path --------------
     gcpu = torch.Generator().manual_seed(1)
     small = make_regression(gcpu, n_train=2000, n_test=10, d=90,
@@ -991,8 +1155,8 @@ def main() -> int:
         for where in ("cpu", "cuda"):
             lsm[where].append(float(trainers[where].train_step(bt[where])[0]))
     ran = {kk: kernels.launches[kk] for kk in ("bucket_probe",
-                                               "gather_weight")}
-    if ran != {"bucket_probe": 5, "gather_weight": 5}:
+                                               "draw_assemble")}
+    if ran != {"bucket_probe": 5, "draw_assemble": 5}:
         fail(f"the SMOKE LGD path on the card did not run the kernels: {ran}")
     l_err = max(abs(a - b) / abs(b) for a, b in zip(lsm["cuda"], lsm["cpu"]))
     if l_err > SMOKE_TRAIN_RTOL:
@@ -1064,6 +1228,9 @@ def main() -> int:
             for kname in want:
                 if used[kname] <= 0:
                     fail(f"{key}: kernel {kname} was never launched")
+            if used["draw_assemble"] != STEPS:
+                fail(f"{key}: draw_assemble launched "
+                     f"{used['draw_assemble']} times, expected {STEPS}")
             del state, s_lgd, s_sgd, xt, yt, xa
     counts = dict(kernels.launches)
     for kname in LGD_KERNELS:
@@ -1237,10 +1404,12 @@ def main() -> int:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     trained = dict(kernels.launches)
-    if trained["gather_weight"] != TRAIN_STEPS or \
+    if trained["draw_assemble"] != TRAIN_STEPS or \
             trained["bucket_probe"] < TRAIN_STEPS or trained["simhash"] != 2:
-        fail(f"train path launches {trained}: expected gather_weight "
+        fail(f"train path launches {trained}: expected draw_assemble "
              f"{TRAIN_STEPS}, bucket_probe >= {TRAIN_STEPS}, simhash 2")
+    # the standalone gather_weight is off every path (draw_assemble
+    # gathers): its count, 0, stands in the table beside phase 2c's row
     report["kernels"]["gather_weight"]["launches"] = trained["gather_weight"]
     losses = out["losses"]
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):

@@ -19,6 +19,9 @@ frozen dataclass singletons):
 * ``probe_class_probs(cp, k, rs)`` — q_r = cp^(K-r) (1-cp)^r, the
   probability that a point lands in the bucket of a weight-r XOR mask.
 * ``code_width(k)`` — packed bits per table code.
+* ``cp_law`` — the name of the collision law ``collision_prob``
+  computes, for kernels that evaluate it themselves (``draw_assemble``
+  knows "angle" and "quadratic"); empty for a law no kernel knows.
 * ``aug_dim(d)``, ``proj_kind`` ("dense" | "sparse" | "quadratic") and
   ``asymmetric``.
 
@@ -40,6 +43,7 @@ class LSHFamily:
     name: str = "base"
     proj_kind: str = "dense"     # "dense" | "sparse" | "quadratic"
     asymmetric: bool = False
+    cp_law: str = ""             # "angle" | "quadratic" | "" (no kernel)
 
     def augment_data(self, x: torch.Tensor, scale=None) -> torch.Tensor:
         """Raw stored vectors -> hashed vectors (identity by default)."""

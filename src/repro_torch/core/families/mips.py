@@ -26,6 +26,7 @@ class SimpleLSHMIPSFamily(LSHFamily):
     name: str = "mips"
     proj_kind: str = "dense"
     asymmetric: bool = True
+    cp_law: str = "angle"
 
     def data_scale(self, x: torch.Tensor):
         """M = max row norm (guarded): the augmentation's normaliser."""

@@ -36,6 +36,7 @@ class QuadraticSRPFamily(LSHFamily):
     name: str = "quadratic"
     proj_kind: str = "quadratic"
     asymmetric: bool = False
+    cp_law: str = "quadratic"
 
     def collision_prob(self, x_aug, q_aug):
         return quadratic_collision_prob(x_aug, q_aug)

@@ -36,6 +36,7 @@ class SignedRPFamily(LSHFamily):
     name: str = "dense"
     proj_kind: str = "dense"
     asymmetric: bool = False
+    cp_law: str = "angle"
 
     def augment_query(self, q: torch.Tensor) -> torch.Tensor:
         return normalize_rows(q)

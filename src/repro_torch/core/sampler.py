@@ -14,8 +14,7 @@ PyTorch port of ``repro.core.sampler`` (``sample``, ``sample_batched``,
   non-empty bucket.
 * ``sample_gather`` / ``sample_gather_batched`` — the LM training step's
   batch draw: Algorithm 1, then the token rows and their 1/(p·N)
-  weights from the device-resident store in one ``gather_weight``
-  kernel launch.
+  weights from the device-resident store.
 
 ``max_probes`` caps the table draws; if every probed bucket is empty
 the sample falls back to a uniform draw with p = 1/N (flagged), which
@@ -33,8 +32,15 @@ from the caller's ``torch.Generator``; a caller may pass them instead
 rebuilt from the same JAX key, because torch's Philox and JAX's
 threefry never give the same bits.
 
-The m (and B) repetitions run as one batch of tensor operations — the
-reference's ``vmap`` written out — with no host synchronisation.
+ONE LAUNCH AFTER THE PROBE.  On a card everything after the probe —
+the candidate walk, the slot, the id, the collision probability, p and,
+for ``sample_gather*``, the row gather and the weight — is one
+``draw_assemble`` kernel launch (``draw_assemble``), as the reference
+runs it inside one jitted program.  On the CPU the same function is its
+plain composition, ``draw_assemble_plain``: ``_sample_rows`` (the m and
+B repetitions as one batch of tensor operations, the reference's
+``vmap`` written out), then ``gather_weight_ref``.  Neither syncs with
+the host.  ``sample_drain`` is plain everywhere.
 """
 
 from __future__ import annotations
@@ -43,7 +49,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.gather_weight import gather_weight
+from repro_torch.kernels import on_cuda
+from repro_torch.kernels.gather_weight import (
+    draw_assemble_cuda, gather_weight_ref, law_code)
 
 from .families import get_family
 from .simhash import LSHParams, probe_masks
@@ -112,10 +120,20 @@ def popcounts(masks: tuple, device) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
+def _check_draws(draws: SampleDraws, lo, n_tables: int, max_probes: int,
+                 j_codes: int) -> None:
+    b, _, p = draws.tables.shape
+    if lo.shape != (b, j_codes, n_tables) or p != max_probes:
+        raise ValueError(
+            f"draws {tuple(draws.tables.shape)} do not match bounds "
+            f"{tuple(lo.shape)} and max_probes={max_probes}")
+
+
 def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
                  params: LSHParams, max_probes: int,
                  masks: tuple) -> SampleResult:
-    """Algorithm 1 for a batch of queries given their bucket bounds.
+    """Algorithm 1 for a batch of queries given their bucket bounds: the
+    port's one plain version of it.
 
     ``lo``/``hi`` are (B, J, L) — bucket bounds of the J Hamming-ball
     probe codes per table; ``queries`` (B, d); draws (B, m, ...).  Each
@@ -124,13 +142,10 @@ def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
     """
     n_tables, n_points = order.shape
     j_codes = len(masks)
+    _check_draws(draws, lo, n_tables, max_probes, j_codes)
     sizes = hi - lo                                          # (B, J, L)
     ts = draws.tables                                        # (B, m, P)
     b, m, p = ts.shape
-    if lo.shape != (b, j_codes, n_tables) or p != max_probes:
-        raise ValueError(
-            f"draws {tuple(ts.shape)} do not match bounds "
-            f"{tuple(lo.shape)} and max_probes={max_probes}")
     # sz[b, r, j, i] = sizes[b, j, ts[b, r, i]]
     sz = torch.gather(sizes[:, None].expand(b, m, j_codes, n_tables), 3,
                       ts[:, :, None, :].expand(b, m, j_codes, p))
@@ -177,12 +192,90 @@ def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
     )
 
 
+def draw_assemble_plain(draws: SampleDraws, lo, hi, order, x_aug, queries,
+                        params: LSHParams, max_probes: int, masks: tuple,
+                        store: Optional[torch.Tensor] = None,
+                        p_floor: float = 1e-8):
+    """The plain version of ``draw_assemble`` on any device:
+    ``_sample_rows``, then with a store ``gather_weight_ref``."""
+    res = _sample_rows(draws, lo, hi, order, x_aug, queries, params,
+                       max_probes, masks)
+    if store is None:
+        return res, None, None
+    rows, w = gather_weight_ref(store, res.indices.reshape(-1),
+                                res.probs.reshape(-1), p_floor=p_floor)
+    return res, rows, w
+
+
+def draw_assemble(draws: SampleDraws, lo, hi, order, x_aug, queries,
+                  params: LSHParams, max_probes: int, masks: tuple,
+                  store: Optional[torch.Tensor] = None,
+                  p_floor: float = 1e-8):
+    """Algorithm 1 after the probe for (B, m) repetitions, and with a
+    token ``store`` (N, W) int32 also the (B·m, W) rows and their weights
+    1/(max(p, p_floor)·N).
+
+    Arguments as ``_sample_rows``.  Returns (``SampleResult`` with
+    fields (B, m), rows or None, weights or None).  CUDA tensors take
+    the ``draw_assemble`` kernel, one launch (a family whose collision
+    law the kernel does not know raises); CPU tensors take
+    ``draw_assemble_plain``."""
+    if not on_cuda(queries):
+        return draw_assemble_plain(draws, lo, hi, order, x_aug, queries,
+                                   params, max_probes, masks, store, p_floor)
+    _check_draws(draws, lo, order.shape[0], max_probes, len(masks))
+    out = draw_assemble_cuda(
+        lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous(),
+        order.contiguous(),
+        x_aug.to(torch.float32).contiguous(),
+        queries.to(torch.float32).contiguous(),
+        draws.tables.to(torch.int64).contiguous(),
+        draws.slot_u.to(torch.float32).contiguous(),
+        draws.fallback.to(torch.int64).contiguous(),
+        tuple(bin(mk).count("1") for mk in masks), k=params.k,
+        law=law_code(get_family(params.family)),
+        p_fallback=1.0 / order.shape[1], store=store, p_floor=p_floor)
+    return SampleResult(*out[:6]), out[6], out[7]
+
+
 def _probe_bounds(index, queries, params, masks):
     """(…, J, L) bucket bounds for the probe sequence."""
     if len(masks) == 1:
         lo, hi = bucket_bounds_batched(index, queries, params)
         return lo[..., None, :], hi[..., None, :]
     return bucket_bounds_multi(index, queries, params, masks)
+
+
+def _draw_one(generator, index: LSHIndex, x_aug, query, params: LSHParams,
+              m: int, max_probes: Optional[int], multiprobe: int,
+              draws: Optional[SampleDraws], store=None, p_floor=1e-8):
+    """``draw_assemble`` for one query (d,): (result (m,), rows, w)."""
+    max_probes = max_probes or max(2 * params.l, 8)
+    masks = probe_masks(params.k, 1 + multiprobe)
+    if draws is None:
+        draws = draw_samples(generator, (m,), max_probes, index.n_tables,
+                             index.n_points, x_aug.device)
+    lo, hi = _probe_bounds(index, query, params, masks)     # (J, L)
+    res, rows, w = draw_assemble(
+        SampleDraws(*(d[None] for d in draws)), lo[None], hi[None],
+        index.order, x_aug, query[None], params, max_probes, masks, store,
+        p_floor)
+    return SampleResult(*(f[0] for f in res)), rows, w
+
+
+def _draw_batch(generator, index: LSHIndex, x_aug, queries,
+                params: LSHParams, m: int, max_probes: Optional[int],
+                multiprobe: int, draws: Optional[SampleDraws], store=None,
+                p_floor=1e-8):
+    """``draw_assemble`` for queries (B, d): (result (B, m), rows, w)."""
+    max_probes = max_probes or max(2 * params.l, 8)
+    masks = probe_masks(params.k, 1 + multiprobe)
+    if draws is None:
+        draws = draw_samples(generator, (queries.shape[0], m), max_probes,
+                             index.n_tables, index.n_points, x_aug.device)
+    lo, hi = _probe_bounds(index, queries, params, masks)   # (B, J, L)
+    return draw_assemble(draws, lo, hi, index.order, x_aug, queries, params,
+                         max_probes, masks, store, p_floor)
 
 
 def sample(
@@ -212,16 +305,8 @@ def sample(
       ``SampleResult`` with every field shaped (m,); ``1/(probs * N)``
       importance weights are unbiased.
     """
-    max_probes = max_probes or max(2 * params.l, 8)
-    masks = probe_masks(params.k, 1 + multiprobe)
-    if draws is None:
-        draws = draw_samples(generator, (m,), max_probes, index.n_tables,
-                             index.n_points, x_aug.device)
-    lo, hi = _probe_bounds(index, query, params, masks)     # (J, L)
-    res = _sample_rows(SampleDraws(*(d[None] for d in draws)), lo[None],
-                       hi[None], index.order, x_aug, query[None], params,
-                       max_probes, masks)
-    return SampleResult(*(f[0] for f in res))
+    return _draw_one(generator, index, x_aug, query, params, m, max_probes,
+                     multiprobe, draws)[0]
 
 
 def sample_batched(
@@ -245,14 +330,8 @@ def sample_batched(
         raise ValueError(
             f"sample_batched expects queries (B, d), got "
             f"{tuple(queries.shape)}; use sample() for a single query")
-    max_probes = max_probes or max(2 * params.l, 8)
-    masks = probe_masks(params.k, 1 + multiprobe)
-    if draws is None:
-        draws = draw_samples(generator, (queries.shape[0], m), max_probes,
-                             index.n_tables, index.n_points, x_aug.device)
-    lo, hi = _probe_bounds(index, queries, params, masks)   # (B, J, L)
-    return _sample_rows(draws, lo, hi, index.order, x_aug, queries, params,
-                        max_probes, masks)
+    return _draw_batch(generator, index, x_aug, queries, params, m,
+                       max_probes, multiprobe, draws)[0]
 
 
 def sample_drain(
@@ -314,16 +393,16 @@ def sample_drain(
     )
 
 
-def _assemble(res: SampleResult, store: torch.Tensor, example_offset: int,
-              p_floor: float, normalize: bool,
+def _assemble(res: SampleResult, rows: torch.Tensor, w: torch.Tensor,
+              example_offset: int, normalize: bool,
               row_width: Optional[int]) -> GatherBatch:
-    """Gather token rows + compute 1/(p·N) weights for one draw (m,)."""
-    rows, w = gather_weight(store, res.indices, res.probs, p_floor=p_floor)
+    """A ``GatherBatch`` of one draw (m,) from its gathered rows and
+    1/(p·N) weights."""
     if normalize:
         w = w / torch.clamp(w.mean(), min=1e-30)
     # row_width: the logical S+1 of the rows (the whole store row unless
     # a caller says otherwise)
-    sw = store.shape[1] if row_width is None else row_width
+    sw = rows.shape[1] if row_width is None else row_width
     return GatherBatch(
         tokens=rows[:, :sw - 1],
         targets=rows[:, 1:sw],
@@ -374,10 +453,9 @@ def sample_gather(
     syncs with the host.
     """
     _no_streaming(n_live)
-    res = sample(generator, index, x_aug, query, params, m=m,
-                 max_probes=max_probes, multiprobe=multiprobe, draws=draws)
-    return _assemble(res, store, example_offset, p_floor, normalize,
-                     row_width)
+    res, rows, w = _draw_one(generator, index, x_aug, query, params, m,
+                             max_probes, multiprobe, draws, store, p_floor)
+    return _assemble(res, rows, w, example_offset, normalize, row_width)
 
 
 def sample_gather_batched(
@@ -398,16 +476,19 @@ def sample_gather_batched(
     draws: Optional[SampleDraws] = None,
 ) -> GatherBatch:
     """``sample_gather`` for C queries at once; every field comes back
-    (C, m, ...).  The C·m rows go through ONE gather+weight launch, and
-    weight normalisation is per chain.  ``draws`` fields are shaped
-    (C, m, ...)."""
+    (C, m, ...).  On a card the C·m draws, rows and weights are ONE
+    ``draw_assemble`` launch, and weight normalisation is per chain.
+    ``draws`` fields are shaped (C, m, ...)."""
     _no_streaming(n_live)
+    if queries.dim() != 2:
+        raise ValueError(f"sample_gather_batched expects queries (C, d), "
+                         f"got {tuple(queries.shape)}")
     c = queries.shape[0]
-    res = sample_batched(generator, index, x_aug, queries, params, m=m,
-                         max_probes=max_probes, multiprobe=multiprobe,
-                         draws=draws)                  # fields (C, m)
+    res, rows, w = _draw_batch(generator, index, x_aug, queries, params, m,
+                               max_probes, multiprobe, draws, store,
+                               p_floor)                # fields (C, m)
     flat = SampleResult(*(f.reshape((-1,) + f.shape[2:]) for f in res))
-    batch = _assemble(flat, store, example_offset, p_floor, False, row_width)
+    batch = _assemble(flat, rows, w, example_offset, False, row_width)
     unflat = GatherBatch(*(f.reshape((c, m) + f.shape[1:]) for f in batch))
     if normalize:
         w = unflat.loss_weights

@@ -16,9 +16,9 @@ The paper's BERT recipe:
 DEVICE-RESIDENT STEP PATH: the token corpus is uploaded to the device
 ONCE, as (N, S+1) int32 with no lane padding, and every ``next_batch``
 is ``core.sampler.sample_gather`` on it: query hash and bucket search
-(the ``bucket_probe`` kernel), the within-bucket draws, then the row
-gather and 1/(p·N) weights (the ``gather_weight`` kernel).  No step
-syncs with the host.
+(the ``bucket_probe`` kernel), then the candidate walk, the
+within-bucket draw, the probability, the row gather and the 1/(p·N)
+weights in one ``draw_assemble`` launch.  No step syncs with the host.
 
 RANDOM STREAMS: every random number comes from a ``torch.Generator`` on
 the pipeline's device, seeded by a fixed function of (``seed``, stream

@@ -14,6 +14,11 @@ Each kernel package (``simhash``, ``bucket_probe``, ``flash_attention``,
 
 Dispatch is by the tensor's device, the counterpart of the JAX
 package's ``default_use_pallas()`` backend check.
+
+One kernel has no ``ops.py`` entry of its own: ``draw_assemble``
+(``gather_weight/kernel.py``), Algorithm 1 after the probe plus the
+gather, whose plain version is the sampler's own composition; its
+dispatch is ``core.sampler.draw_assemble``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ launches = {
     "flash_attention": 0,
     "flash_decode": 0,
     "gather_weight": 0,
+    "draw_assemble": 0,
 }
 
 

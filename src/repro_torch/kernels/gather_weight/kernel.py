@@ -1,12 +1,22 @@
-"""ctypes wrapper of the CUDA gather+weight kernel (``csrc/gather_weight.cu``).
+"""ctypes wrappers of the CUDA batch-assembly kernels (``csrc/gather_weight.cu``).
 
-Replaces the TPU kernel ``_gather_weight_kernel`` /
+Both replace the TPU kernel ``_gather_weight_kernel`` /
 ``gather_weight_pallas`` (src/repro/kernels/gather_weight/kernel.py:48 /
-:56).  Bound on the H100: bytes, ~2·m·W·4 of token rows, so a launch
-costs its latency.  The design — one block per sampled row, coalesced
-16- or 4-byte copies, the weight from thread 0 with IEEE division, a
-device-side assert on ids outside [0, N) — is set out at the top of the
-CUDA source.
+:56):
+
+  * ``gather_weight_cuda`` — the gather and the weights alone.  Bound on
+    the H100: bytes, ~2·m·W·4 of token rows, so a launch costs its
+    latency.  One block per sampled row, coalesced 16- or 4-byte
+    copies, the weight from thread 0 with IEEE division, a device-side
+    assert on ids outside [0, N).
+  * ``draw_assemble_cuda`` — Algorithm 1 after the probe (the candidate
+    walk, the slot, the id, the collision probability and p), and with
+    a token store the gather and the weight, in one launch: what the
+    JAX package runs as one jitted program around its TPU kernel.  One
+    block per (query, repetition); warp 0 walks 32 candidates a round
+    with a ballot; the dot products sum in one fixed order.
+
+The design of each is set out at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -20,14 +30,32 @@ from .. import check_tensor, launches
 from ..build import library
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_F = ctypes.c_float
+_ARGTYPES = {
+    "gather_weight_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _F, _P],
+    "draw_assemble_launch": [_P] * 18 + [_I64] * 10 + [_F, _F, _P],
+}
+# the CUDA source's draw_assemble constants
+DRAW_THREADS = 128                   # kDrawThreads: 4 warps a block
+MAX_MASKS = 1 + 32 + 32 * 31 // 2    # kMaxMasks: the probe's mask cap
+# the collision laws draw_assemble knows, in the order of its enum Law:
+# "angle" is cp = 1 - acos(cos(x, q)) / pi (SRP, its sparse twin and
+# Simple-LSH MIPS on augmented vectors), "quadratic" the same law on
+# cos(T(x), T(q)) = (x.q)^2 / (|x|^2 |q|^2)
+LAWS = ("angle", "quadratic")
 
 
 @functools.cache
-def _fn():
-    fn = library("gather_weight").gather_weight_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _P]
+def _fn(name: str):
+    fn = getattr(library("gather_weight"), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def gather_weight_cuda(store: torch.Tensor, idx: torch.Tensor,
@@ -51,10 +79,109 @@ def gather_weight_cuda(store: torch.Tensor, idx: torch.Tensor,
     if m == 0:
         return rows, w
     stream = torch.cuda.current_stream(store.device).cuda_stream
-    err = _fn()(store.data_ptr(), idx.data_ptr(), probs.data_ptr(),
-                rows.data_ptr(), w.data_ptr(), n, width, m, p_floor, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"gather_weight kernel launch failed: CUDA error {err}")
+    _raise_on(_fn("gather_weight_launch")(
+        store.data_ptr(), idx.data_ptr(), probs.data_ptr(), rows.data_ptr(),
+        w.data_ptr(), n, width, m, p_floor, stream), "gather_weight")
     launches["gather_weight"] += 1
     return rows, w
+
+
+def law_code(family) -> int:
+    """draw_assemble's code of ``family``'s collision law (its
+    ``cp_law``); a family whose law the kernel does not know raises."""
+    law = getattr(family, "cp_law", None)
+    if law not in LAWS:
+        raise ValueError(
+            f"the draw_assemble kernel knows no collision law {law!r} "
+            f"(LSH family {getattr(family, 'name', family)!r}); it knows "
+            f"{LAWS}")
+    return LAWS.index(law)
+
+
+@functools.lru_cache(maxsize=64)
+def _host_popcounts(popcounts: tuple):
+    return (ctypes.c_uint8 * len(popcounts))(*popcounts)
+
+
+def draw_assemble_cuda(lo: torch.Tensor, hi: torch.Tensor,
+                       order: torch.Tensor, x: torch.Tensor,
+                       queries: torch.Tensor, tables: torch.Tensor,
+                       slot_u: torch.Tensor, fallback_ids: torch.Tensor,
+                       popcounts: tuple, *, k: int, law: int,
+                       p_fallback: float, store=None, p_floor: float = 1e-8):
+    """Algorithm 1 after the probe, in one launch.
+
+    lo, hi: (B, J, L) int32 bucket bounds; order: (L, N) int64; x: (N, d)
+    f32; queries: (B, d) f32; tables: (B, m, P) int64 table draws;
+    slot_u: (B, m) f32; fallback_ids: (B, m) int64; ``popcounts``: the J
+    probe masks' popcounts; ``law``: an index of LAWS; ``p_fallback``:
+    the probability of a uniform fallback (1/N).  With ``store`` (N, W)
+    int32 it also gathers the rows and computes 1/(max(p, p_floor)·N).
+
+    Returns (indices (B, m) int64, probs f32, n_probes int32,
+    bucket_sizes int32, fallback bool, probe_code int32, rows (B·m, W)
+    int32 or None, w (B·m,) f32 or None).  A table draw outside [0, L)
+    or a fallback id outside [0, N) stops the kernel with a device-side
+    assert."""
+    check_tensor(lo, "lo", torch.int32, 3)
+    dev = lo.device
+    check_tensor(hi, "hi", torch.int32, 3, dev)
+    check_tensor(order, "order", torch.int64, 2, dev)
+    check_tensor(x, "x", torch.float32, 2, dev)
+    check_tensor(queries, "queries", torch.float32, 2, dev)
+    check_tensor(tables, "tables", torch.int64, 3, dev)
+    check_tensor(slot_u, "slot_u", torch.float32, 2, dev)
+    check_tensor(fallback_ids, "fallback_ids", torch.int64, 2, dev)
+    b, j, n_tables = lo.shape
+    n, d = x.shape
+    _, m, p = tables.shape
+    if hi.shape != lo.shape or order.shape != (n_tables, n):
+        raise ValueError(f"bounds {tuple(lo.shape)} / {tuple(hi.shape)} do "
+                         f"not match order {tuple(order.shape)}")
+    if queries.shape != (b, d) or tables.shape[0] != b or \
+            slot_u.shape != (b, m) or fallback_ids.shape != (b, m):
+        raise ValueError(
+            f"queries {tuple(queries.shape)}, draws {tuple(tables.shape)} / "
+            f"{tuple(slot_u.shape)} / {tuple(fallback_ids.shape)} do not "
+            f"match B={b}, d={d}")
+    if len(popcounts) != j or not 1 <= j <= MAX_MASKS:
+        raise ValueError(f"{len(popcounts)} mask popcounts for J={j} "
+                         f"(at most {MAX_MASKS})")
+    if not 1 <= k <= 32 or not 0 <= law < len(LAWS):
+        raise ValueError(f"K={k} or law={law} out of range")
+    width = 0
+    if store is not None:
+        check_tensor(store, "store", torch.int32, 2, dev)
+        if store.shape[0] != n or store.shape[1] == 0:
+            raise ValueError(f"store {tuple(store.shape)} does not hold the "
+                             f"N={n} rows of the index")
+        width = store.shape[1]
+    if n == 0 or d == 0 or n_tables == 0 or p == 0:
+        raise ValueError(f"empty index or draws: x {tuple(x.shape)}, "
+                         f"order {tuple(order.shape)}, P={p}")
+    out = (torch.empty((b, m), dtype=torch.int64, device=dev),
+           torch.empty((b, m), dtype=torch.float32, device=dev),
+           torch.empty((b, m), dtype=torch.int32, device=dev),
+           torch.empty((b, m), dtype=torch.int32, device=dev),
+           torch.empty((b, m), dtype=torch.bool, device=dev),
+           torch.empty((b, m), dtype=torch.int32, device=dev))
+    rows = w = None
+    if store is not None:
+        rows = torch.empty((b * m, width), dtype=torch.int32, device=dev)
+        w = torch.empty((b * m,), dtype=torch.float32, device=dev)
+    if b * m == 0:
+        return out + (rows, w)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(_fn("draw_assemble_launch")(
+        lo.data_ptr(), hi.data_ptr(), order.data_ptr(), x.data_ptr(),
+        queries.data_ptr(), tables.data_ptr(), slot_u.data_ptr(),
+        fallback_ids.data_ptr(),
+        ctypes.addressof(_host_popcounts(tuple(popcounts))),
+        None if store is None else store.data_ptr(),
+        *(t.data_ptr() for t in out),
+        None if rows is None else rows.data_ptr(),
+        None if w is None else w.data_ptr(),
+        b, m, p, j, n_tables, n, d, width, k, law, p_fallback, p_floor,
+        stream), "draw_assemble")
+    launches["draw_assemble"] += 1
+    return out + (rows, w)

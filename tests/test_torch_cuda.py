@@ -8,7 +8,9 @@ also runs on a machine that has only PyTorch:
 Codes must be equal except where a projection is within 1e-4 of zero
 (kernel and plain version sum in different orders); lo/hi bitwise
 outside the tables whose query code is exempt that way; gathered rows
-and weights bitwise.
+and weights bitwise.  draw_assemble against the sampler's plain
+composition on the same card: ids, walk results and rows bitwise, p
+and weights within rtol 1e-4 (another sum order, acosf and powf).
 """
 
 import os
@@ -20,8 +22,9 @@ import pytest
 import torch
 
 from repro_torch.core import (
-    IndexMutation, LGDProblem, LSHParams, bucket_bounds, draw_samples, init,
-    lgd_step, mutate_index, probe_masks, query_codes)
+    IndexMutation, LGDProblem, LSHParams, SampleDraws, bucket_bounds,
+    draw_samples, init, lgd_step, mutate_index, probe_masks, query_codes)
+from repro_torch.core.sampler import draw_assemble, draw_assemble_plain
 from repro_torch.kernels import arrival_counts, launches
 from repro_torch.kernels.bucket_probe import (
     bucket_probe_codes_cuda,
@@ -415,9 +418,9 @@ def test_gather_weight_id_out_of_range_stops_the_kernel(card):
 
 
 def test_lgd_training_runs_the_kernels(card):
-    """A SMOKE LGD training run on the card launches gather_weight once
-    per step, the probe at least once per step and simhash at the build
-    and at the refresh."""
+    """A SMOKE LGD training run on the card launches draw_assemble once
+    per step (the standalone gather_weight never), the probe at least
+    once per step and simhash at the build and at the refresh."""
     cfg, model = launch_train.load_model("phi4_mini_3_8b", False, card)
     for k in launches:
         launches[k] = 0
@@ -428,6 +431,177 @@ def test_lgd_training_runs_the_kernels(card):
                                    sampler=sampler)
     losses = tr.run(6)["losses"]
     assert all(np.isfinite(losses)) and len(losses) == 6
-    assert launches["gather_weight"] == 6
+    assert launches["draw_assemble"] == 6
+    assert launches["gather_weight"] == 0
     assert launches["bucket_probe"] >= 6
     assert launches["simhash"] == 2
+
+
+# -- draw_assemble: Algorithm 1 after the probe, in one launch ---------------
+
+def _held(got, want, rtol=1e-4):
+    """The kernel's (result, rows, w) against the plain composition's on
+    the same card: integer fields and rows bitwise, p and w within rtol."""
+    for key in ("indices", "n_probes", "bucket_sizes", "fallback",
+                "probe_code"):
+        assert torch.equal(getattr(got[0], key), getattr(want[0], key)), key
+    torch.testing.assert_close(got[0].probs, want[0].probs, rtol=rtol,
+                               atol=0)
+    if want[1] is not None:
+        assert torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=rtol, atol=0)
+
+
+def _draw_twice(args):
+    """The kernel twice (one launch each, the same bits) and the plain
+    composition, on the same card tensors."""
+    before = launches["draw_assemble"]
+    got = draw_assemble(*args)
+    assert launches["draw_assemble"] == before + 1
+    again = draw_assemble(*args)
+    for a, b in zip(list(got[0]) + list(got[1:]),
+                    list(again[0]) + list(again[1:])):
+        assert (a is None and b is None) or torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b)
+    return got, draw_assemble_plain(*args)
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("mp", [0, 2])
+@pytest.mark.parametrize("family", ["quadratic", "srp", "mips"])
+def test_draw_assemble(card, family, mp, b):
+    """The LGD path's draw (d 91, L 100, K 5, P 200, m 16) on an index
+    of 3,000 rows, kernel against plain composition on the card."""
+    from repro_torch.core.sampler import _probe_bounds
+    from repro_torch.data import make_regression
+    from repro_torch.quickstart import make_problem
+
+    g = torch.Generator(device=card).manual_seed(31)
+    ds = make_regression(g, "yearmsd-like", n_train=3000, d=90,
+                         noise="pareto", device=card)
+    problem, _ = make_problem(family, mp, "sgd")
+    _, _, x_aug = problem.preprocess(ds.x_train, ds.y_train)
+    index = mutate_index(None, IndexMutation("build", generator=g,
+                                             x_aug=x_aug), problem.lsh)
+    theta = 0.1 * torch.randn((b, 90), generator=g, device=card)
+    queries = problem.query_fn()(theta).contiguous()
+    masks = probe_masks(problem.lsh.k, 1 + mp)
+    lo, hi = _probe_bounds(index, queries, problem.lsh, masks)
+    draws = draw_samples(g, (b, 16), 200, 100, 3000, card)
+    got, want = _draw_twice((draws, lo, hi, index.order, x_aug, queries,
+                             problem.lsh, 200, masks))
+    assert got[1] is None and got[0].indices.shape == (b, 16)
+    _held(got, want)
+
+
+@pytest.mark.parametrize("width", [513, 512])
+def test_draw_assemble_train_shape(card, width):
+    """The train path's draw with its store: d 3,072, K 7, L 10, N 2,048,
+    m 8; 4-byte row copies at W 513, 16-byte at 512."""
+    from repro_torch.core.sampler import _probe_bounds
+
+    x, w, _, q = _inputs(card, 8, 2048, 3072, 10, 7, 1)
+    p = LSHParams(k=7, l=10, dim=3072, family="srp")
+    index = mutate_index(None, IndexMutation("build", projections=w,
+                                             x_aug=x), p)
+    store = torch.randint(0, 200_064, (2048, width), device=card,
+                          dtype=torch.int32)
+    lo, hi = _probe_bounds(index, q, p, (0,))
+    g = torch.Generator(device=card).manual_seed(2)
+    draws = draw_samples(g, (1, 8), 20, 10, 2048, card)
+    got, want = _draw_twice((draws, lo, hi, index.order, x, q, p, 20, (0,),
+                             store, 1e-8))
+    assert got[1].shape == (8, width)
+    _held(got, want)
+
+
+@pytest.mark.parametrize("name", ["all_empty", "last_round", "probe_2",
+                                  "size_1", "u_top", "duplicates"])
+def test_draw_assemble_edges(card, name):
+    """tests/test_torch_draw.py's edge cases on the card: the kernel
+    against the plain composition and against the numpy model of the
+    kernel (integers bitwise, p and w within 1e-4)."""
+    from test_torch_draw import _edge, _masks, model
+
+    c, j, check = _edge(name)
+    p = LSHParams(k=5, l=c["lo"].shape[2], dim=c["x"].shape[1],
+                  family="dense")
+    masks = _masks(5, j)
+    dev = [torch.from_numpy(c[key]).to(card) for key in (
+        "lo", "hi", "order", "x", "q", "store")]
+    draws = SampleDraws(*(t.to(card) for t in c["draws"]))
+    got, want = _draw_twice((draws, *dev[:5], p,
+                             draws.tables.shape[2], masks, dev[5], 0.5))
+    _held(got, want)
+    fields, rows, w = model(c["draws"], c["lo"], c["hi"], c["order"], c["x"],
+                            c["q"], "angle", 5, masks, c["store"], 0.5)
+    assert check(fields)
+    for key, val in fields.items():
+        if key != "probs":
+            np.testing.assert_array_equal(
+                getattr(got[0], key).cpu().numpy(), val)
+    np.testing.assert_allclose(got[0].probs.cpu().numpy(), fields["probs"],
+                               rtol=1e-4)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), rows)
+    np.testing.assert_allclose(got[2].cpu().numpy(), w, rtol=1e-4)
+
+
+def test_draw_assemble_does_not_spill(card):
+    """Every draw_assemble instantiation of the build is spill-free."""
+    from repro_torch.kernels import build
+
+    build.library("gather_weight")
+    use = {name: u for name, u in build.ptxas_usage(
+        build.build_log("gather_weight")).items()
+        if "draw_assemble_kernel" in name}
+    assert len(use) == 2
+    assert all(u["spill_stores"] == u["spill_loads"] == 0
+               for u in use.values()), use
+
+
+def test_draw_assemble_unknown_law_raises(card, monkeypatch):
+    """A family whose collision law the kernel does not know raises on
+    the card: no plain fallback."""
+    import dataclasses
+
+    from repro_torch.core import families
+
+    fam = dataclasses.replace(families.get_family("srp"), name="odd",
+                              cp_law="")
+    monkeypatch.setitem(families.FAMILIES, "odd", fam)
+    p = LSHParams(k=2, l=3, dim=4, family="odd")
+    lo = torch.zeros((1, 1, 3), dtype=torch.int32, device=card)
+    draws = SampleDraws(torch.zeros((1, 2, 8), dtype=torch.int64,
+                                    device=card),
+                        torch.zeros((1, 2), device=card),
+                        torch.zeros((1, 2), dtype=torch.int64, device=card))
+    with pytest.raises(ValueError, match="knows no collision law"):
+        draw_assemble(draws, lo, lo, torch.zeros((3, 5), dtype=torch.int64,
+                                                 device=card),
+                      torch.ones((5, 4), device=card),
+                      torch.ones((1, 4), device=card), p, 8, (0,))
+
+
+def test_draw_assemble_id_out_of_range_stops_the_kernel(card):
+    """A fallback id outside [0, N) trips the device-side assert (in a
+    child process: the assert leaves its CUDA context unusable)."""
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.gather_weight import draw_assemble_cuda\n"
+        "c = 'cuda'\n"
+        "lo = torch.zeros((1, 1, 3), dtype=torch.int32, device=c)\n"
+        "draw_assemble_cuda(lo, lo, torch.zeros((3, 5), dtype=torch.int64,"
+        " device=c), torch.ones((5, 4), device=c), torch.ones((1, 4),"
+        " device=c), torch.zeros((1, 2, 8), dtype=torch.int64, device=c),"
+        " torch.zeros((1, 2), device=c), torch.tensor([[1, 5]], device=c),"
+        " (0,), k=2, law=0, p_fallback=0.2)\n"
+        "torch.cuda.synchronize()\n")
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "assert" in (out.stdout + out.stderr).lower()
