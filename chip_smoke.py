@@ -76,18 +76,46 @@ The LM training slice adds:
       build, then 5 ``next_batch`` + trainer steps with the same injected
       draws and queries;
   4c. the train path at full width: phi4-mini FULL in bf16, batch 8 x
-      512 tokens from a 2,048-example corpus, Adam, 20 LGD steps with a
-      synchronous refresh at step 10, through the functions ``python -m
-      repro_torch.launch.train --arch phi4_mini_3_8b --full --lgd``
-      calls, with the launch counts set to 0 just before and read just
-      after (draw_assemble 20, bucket_probe >= 20, simhash 2; the
-      standalone gather_weight, held in 2c, is off the path); then the
-      probe and simhash kernels against their plain versions at the
-      train path's shapes (d 3,072, K 7, L 10, N 2,048), timed, the
+      512 tokens from a 2,048-example corpus, Adam, 20 LGD steps with an
+      async refresh (launched at step 9, swapped in at step 10; another
+      launched at step 19 and joined at teardown), through the functions
+      ``python -m repro_torch.launch.train --arch phi4_mini_3_8b --full
+      --lgd`` calls, with the launch counts set to 0 just before and
+      read just after (draw_assemble 20, bucket_probe >= 20, simhash 3;
+      the standalone gather_weight, held in 2c, is off the path); every
+      refresh returned True with no health transition; the refreshes'
+      device ms and host wait, the boundary steps beside the steady p50;
+      then the probe and simhash kernels against their plain versions at
+      the train path's shapes (d 3,072, K 7, L 10, N 2,048), timed, the
       simhash row with phase 2's plan, ptxas, yardstick and checks;
   5c. a torch.profiler trace of 5 steady training steps.
 4c and 5c run last, after the serve model of 4b/5b is freed: the train
 state (bf16 weights and grads, f32 Adam moments) takes ~53 GB.
+
+The streaming slice adds:
+  2c. simhash at the delta refresh's shapes (N in {64, 256}, d 3,072,
+      L·K 70) against its plain version, with the train-shape row's
+      checks, plan, registers and spills;
+  2d. draw_assemble on a streaming index at the train shape (capacity
+      2,048, 1/2 and 1/8 of the slots evicted, queries far from every
+      live row, so most walks fall back to the live prefix, n_live by
+      value): ids, walk results and rows bitwise, p and weights within
+      DRAW_RTOL, the fallback share and the time;
+  3d. a small-input check of the streaming pipeline, card against CPU
+      (``streaming_card_vs_cpu``);
+  4d. the streaming path at full width, after 5c on the same model:
+      phi4-mini FULL in bf16, batch 8 x 512, Adam, corpus 2,048 with
+      window 2,048, delta refresh every 5 steps, async, 20 steps; 128
+      rows appended at steps 4, 8, 12 and 16 (the window evicts the
+      oldest), 64 evicted at step 10; launch counts (draw_assemble 20,
+      bucket_probe >= 20, simhash >= 1 per build, append and delta
+      refresh), every refresh returned True with no health transition,
+      losses finite, batch-mean weights 1 +- 1e-5, every drawn id live
+      at its step, and the final index: order[t, :n_live] the live
+      slots, the sentinel tail, sorted_codes bitwise a fresh stable sort
+      of hash(features) masked by the live mask with the same ids per
+      code; the delta refreshes' rows and device ms, the append ms per
+      row, the steady step p50 and the peak memory.
 
 Imports torch, numpy and repro_torch only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
@@ -98,6 +126,7 @@ every measurement (probe rows, paths, profiles, the kernels table).
 from __future__ import annotations
 
 import functools
+import gc
 import itertools
 import json
 import math
@@ -356,6 +385,285 @@ def profile_steps(torch, family, ds, make_problem, init, lgd_step,
     return trace_steps(torch, step, steps)
 
 
+# the streaming slice (phases 3d and 4d)
+STREAM_STEPS, STREAM_REFRESH, STREAM_APPEND, STREAM_EVICT = 20, 5, 128, 64
+STREAM_APPEND_AT, STREAM_EVICT_AT = (4, 8, 12, 16), 10
+
+
+def refresh_health(sampler, tag: str, swaps: int) -> list:
+    """The refreshes' records; fails unless ``swaps`` of them reached their
+    swap boundary and every one returned True, with no health transition
+    and no failed refresh attempt (a refresh catches any exception and
+    degrades to the stale index, so a kernel fault would hide there)."""
+    recs = sampler.refresh_records()
+    done = [r for r in recs if r["ok"] is not None]
+    hs = sampler.health_summary()
+    if len(done) != swaps or not all(r["ok"] for r in done) or \
+            hs["transitions"] or hs["refresh_failures"]:
+        fail(f"{tag}: refreshes {recs}, health {hs} (expected {swaps} "
+             f"successful swaps, no transition, no failure)")
+    return recs
+
+
+def streaming_card_vs_cpu(torch, np, dev, cfg_t, seq: int = 64) -> dict:
+    """Phase 3d: phi4-mini SMOKE (f32) with the same weights on the card
+    and the CPU, a streaming pipeline on each (window 256, delta refresh
+    every 4 steps, async with lead 1, drift 0.25) fed the same injected
+    draws and drift masks, 10 draws and trainer steps: an append past the
+    window (auto-evict 16) at step 2, an explicit evict of 8 during the
+    refresh in flight at step 4, an append at step 7, delta refreshes
+    swapped in at steps 4 and 8.  The index after each mutation and
+    refresh bitwise the CPU's (codes may part only where a projection is
+    within 1e-4 of zero, and then the card takes the CPU's index, as in
+    3c), drawn ids bitwise, weights within rtol 1e-5, and a second
+    restore_at(t) bitwise the first."""
+    from repro_torch import kernels
+    from repro_torch.core import LSHIndex, SampleDraws, draw_samples, \
+        hash_points
+    from repro_torch.data import (
+        LSHPipelineConfig, LSHSampledPipeline, lm_head_query_fn,
+        make_token_corpus, mean_pool_feature_fn)
+    from repro_torch.models import LM
+    from repro_torch.optim import Adam, schedules
+    from repro_torch.train import Trainer
+
+    lm_c = LM.init(cfg_t, seed=0, device="cpu")
+    lm_g = LM(cfg_t, device=dev)
+    lm_g.load_state_dict(lm_c.state_dict())
+    toks = make_token_corpus(0, 256, seq, cfg_t.vocab).tokens
+    extra = make_token_corpus(1, 32, seq, cfg_t.vocab).tokens
+
+    def drift(r, cap):
+        return torch.from_numpy(np.random.default_rng(100 + r).random(cap)
+                                < 0.25)
+
+    pcfg = dict(minibatch=TRAIN_BATCH, window=256, refresh_mode="delta",
+                refresh_async=True, refresh_lead=1, refresh_every=4,
+                drift_frac=0.25)
+    pipes = {"cpu": LSHSampledPipeline(
+        2, toks, mean_pool_feature_fn(cfg_t), lm_head_query_fn(),
+        LSHPipelineConfig(**pcfg), params=lm_c, device="cpu", drift=drift)}
+    kernels.reset_launch_counts()
+    pipes["cuda"] = LSHSampledPipeline(
+        2, toks, mean_pool_feature_fn(cfg_t), lm_head_query_fn(),
+        LSHPipelineConfig(**pcfg), params=lm_g, device=dev, drift=drift,
+        projections=pipes["cpu"].index.projections.to(dev))
+    cpu, gpu = pipes["cpu"], pipes["cuda"]
+    trainers = {where: Trainer(
+        cfg_t, lm, Adam(lr=schedules.warmup_cosine(1e-3, 2, 10)),
+        sampler=pipes[where]) for where, lm in (("cpu", lm_c),
+                                                ("cuda", lm_g))}
+    out = {"flips": 0, "checked": [], "feature_max_abs_diff": 0.0,
+           "weight_max_rel_diff": 0.0}
+
+    def compare(stage):
+        if not np.array_equal(cpu._live_np, gpu._live_np):
+            fail(f"3d {stage}: membership on the card differs")
+        proj, lsh = cpu.index.projections, cpu.lsh
+        fc, fg = cpu.features, gpu.features.cpu()
+        live = torch.from_numpy(cpu._live_np)
+        out["feature_max_abs_diff"] = max(out["feature_max_abs_diff"], float(
+            (fg - fc)[live].abs().max()))
+        near = ((fc @ proj).abs() < 1e-4).reshape(-1, lsh.l, lsh.k).any(-1).T
+        diff = (hash_points(fc, proj, lsh) != hash_points(
+            gpu.features, proj.to(dev), lsh).cpu()) & live[None]
+        if bool((diff & ~near).any()):
+            fail(f"3d {stage}: codes on the card differ away from zero")
+        flips = int(diff.sum())
+        out["flips"] += flips
+        if flips == 0:
+            if not (torch.equal(gpu.index.sorted_codes.cpu(),
+                                cpu.index.sorted_codes)
+                    and torch.equal(gpu.index.order.cpu(), cpu.index.order)):
+                fail(f"3d {stage}: the index on the card differs from the "
+                     f"CPU's")
+        else:   # from here the card samples the CPU's index, as in 3c
+            gpu.features = fc.to(dev)
+            gpu.index = LSHIndex(*(x.to(dev) for x in cpu.index))
+        out["checked"].append(stage)
+
+    compare("build")
+    gd = torch.Generator().manual_seed(4)
+    for step in range(10):
+        if step == 2:
+            for p in (cpu, gpu):
+                p.append_rows(extra[:16])
+            compare("append 16 (window auto-evict 16)")
+        if step == 4:
+            gone = np.flatnonzero(cpu._live_np)[::31][:8]
+            for p in (cpu, gpu):
+                p.evict_rows(gone)
+            compare("evict 8 (refresh in flight)")
+        if step == 7:
+            for p in (cpu, gpu):
+                p.append_rows(extra[16:])
+            compare("append 16 (window auto-evict 8)")
+        dr = draw_samples(gd, (TRAIN_BATCH,), max(2 * cpu.lsh.l, 8),
+                          cpu.lsh.l, cpu.n_live, "cpu")
+        q = cpu.family.augment_query(lm_c.lm_head_query().detach())
+        bt = {"cpu": cpu.next_batch(query=q, draws=dr),
+              "cuda": gpu.next_batch(query=q.to(dev), draws=SampleDraws(
+                  *(x.to(dev) for x in dr)))}
+        if step in (4, 8):
+            compare(f"delta refresh swapped in at step {step}")
+        for kk in ("tokens", "example_ids"):
+            if not torch.equal(bt["cuda"][kk].cpu(), bt["cpu"][kk]):
+                fail(f"3d step {step}: batch {kk} differ from the CPU's")
+        if not bool(torch.from_numpy(cpu._live_np)[
+                bt["cpu"]["example_ids"]].all()):
+            fail(f"3d step {step}: a drawn id is not live")
+        wc, wg = bt["cpu"]["loss_weights"], bt["cuda"]["loss_weights"].cpu()
+        out["weight_max_rel_diff"] = max(out["weight_max_rel_diff"], float(
+            ((wg - wc).abs() / wc).max()))
+        if not torch.allclose(wg, wc, rtol=1e-5, atol=0):
+            fail(f"3d step {step}: weights differ from the CPU's")
+        for where in ("cpu", "cuda"):
+            trainers[where].train_step(bt[where])
+    for where in ("cpu", "cuda"):
+        trainers[where].finalize()
+        refresh_health(pipes[where], f"3d {where}", 2)
+    out["launches"] = {kk: kernels.launches[kk] for kk in (
+        "simhash", "bucket_probe", "draw_assemble")}
+    # the build, 2 appends and 2 delta refreshes each hash once on the card
+    if out["launches"]["draw_assemble"] != 10 or \
+            out["launches"]["simhash"] < 5:
+        fail(f"3d: the card path's launches {out['launches']}")
+    step = gpu._step
+    runs = []
+    for _ in range(2):
+        gpu.restore_at(step)
+        runs.append((gpu.index.sorted_codes.clone(), gpu.index.order.clone(),
+                     [gpu.next_batch() for _ in range(3)]))
+    (sc_a, od_a, ba), (sc_b, od_b, bb) = runs
+    if not (torch.equal(sc_a, sc_b) and torch.equal(od_a, od_b) and all(
+            torch.equal(x[kk], y[kk]) for x, y in zip(ba, bb) for kk in x)):
+        fail("3d: two restore_at at the same step differ")
+    out.update(restored_at=step, n_live=gpu.n_live, capacity=gpu.capacity,
+               refresh_rows=[r["rows"] for r in gpu.refresh_records()])
+    return out
+
+
+def streaming_full_width(torch, np, dev, cfg_f, model, feature_batch) -> dict:
+    """Phase 4d: the streaming path at full width (module docstring)."""
+    from repro_torch import kernels
+    from repro_torch.core import EMPTY_CODE, hash_points
+    from repro_torch.data import (
+        LSHPipelineConfig, LSHSampledPipeline, lm_head_query_fn,
+        make_token_corpus, mean_pool_feature_fn)
+    from repro_torch.launch import train as launch_train
+
+    data = make_token_corpus(0, TRAIN_CORPUS, TRAIN_SEQ, cfg_f.vocab)
+    new = make_token_corpus(5, STREAM_APPEND * len(STREAM_APPEND_AT),
+                            TRAIN_SEQ, cfg_f.vocab).tokens
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start_mem_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sampler = LSHSampledPipeline(
+        2, data.tokens, mean_pool_feature_fn(cfg_f), lm_head_query_fn(),
+        LSHPipelineConfig(minibatch=TRAIN_BATCH, window=TRAIN_CORPUS,
+                          refresh_mode="delta", refresh_async=True,
+                          refresh_every=STREAM_REFRESH),
+        feature_batch=feature_batch, params=model, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tr = launch_train.make_trainer(cfg_f, model, steps=STREAM_STEPS,
+                                   lr=1e-3, sampler=sampler)
+    drawn, append_s, dts, losses = [], [], [], []
+    next_batch = sampler.next_batch
+
+    def kept_batch(*a, **kw):
+        b = next_batch(*a, **kw)
+        drawn.append((b["example_ids"], b["loss_weights"].mean(),
+                      torch.from_numpy(sampler._live_np.copy()).to(dev)))
+        return b
+
+    sampler.next_batch = kept_batch
+    tr.batches = iter(sampler.next_batch, None)
+    for step in range(STREAM_STEPS):
+        if step in STREAM_APPEND_AT:
+            i = STREAM_APPEND_AT.index(step)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sampler.append_rows(new[i * STREAM_APPEND:(i + 1) * STREAM_APPEND])
+            torch.cuda.synchronize()
+            append_s.append(time.perf_counter() - t)
+        if step == STREAM_EVICT_AT:
+            sampler.evict_rows(np.flatnonzero(sampler._live_np)[
+                ::TRAIN_CORPUS // STREAM_EVICT][:STREAM_EVICT])
+        t = time.perf_counter()
+        losses += tr.run(1)["losses"]
+        torch.cuda.synchronize()
+        dts.append((time.perf_counter() - t) * 1e3)
+    tr.finalize()
+    torch.cuda.synchronize()
+    launched = {kk: kernels.launches[kk] for kk in (
+        "simhash", "bucket_probe", "draw_assemble")}
+    sampler.next_batch = next_batch
+    swaps = len(range(STREAM_REFRESH, STREAM_STEPS, STREAM_REFRESH))
+    recs = refresh_health(sampler, "4d", swaps)
+    # simhash: the build, every append, every delta refresh (the one
+    # launched at the last step joins at teardown)
+    want_hash = 1 + len(STREAM_APPEND_AT) + swaps
+    if launched["draw_assemble"] != STREAM_STEPS or \
+            launched["bucket_probe"] < STREAM_STEPS or \
+            launched["simhash"] < want_hash:
+        fail(f"4d launches {launched}: expected draw_assemble "
+             f"{STREAM_STEPS}, bucket_probe >= {STREAM_STEPS}, simhash >= "
+             f"{want_hash}")
+    if len(losses) != STREAM_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"4d losses {losses}")
+    w_means = torch.stack([m for _, m, _ in drawn]).cpu()
+    if not torch.allclose(w_means, torch.ones_like(w_means), rtol=0,
+                          atol=1e-5):
+        fail(f"4d weights' batch means are not 1: {w_means}")
+    if not all(bool(live[ids].all()) for ids, _, live in drawn):
+        fail("4d: a drawn id was not live at its step")
+    # the index: the live prefix, the sentinel tail, and a fresh stable
+    # sort of hash(features) masked by the live mask
+    sc, od = sampler.index.sorted_codes, sampler.index.order
+    nl, cap = sampler.n_live, sampler.capacity
+    live = sampler._live_dev
+    live_ids = torch.nonzero(live).flatten()
+    if not (torch.equal(od[:, :nl].sort(dim=1).values,
+                        live_ids.expand(sc.shape[0], -1))
+            and bool((sc[:, nl:] == EMPTY_CODE).all())
+            and bool((sc[:, :nl] != EMPTY_CODE).all())):
+        fail("4d: order[t, :n_live] is not the live slots, or the tail is "
+             "not the sentinel")
+    codes = torch.where(live[None], hash_points(
+        sampler.features, sampler.index.projections, sampler.lsh),
+        torch.full_like(sc, EMPTY_CODE))
+    fresh_sc, fresh_od = torch.sort(codes, dim=1, stable=True)
+    if not torch.equal(fresh_sc, sc):
+        fail("4d: sorted_codes differ from a fresh sort of the live codes")
+    if not torch.equal((sc * cap + od).sort(dim=1).values,
+                       (fresh_sc * cap + fresh_od).sort(dim=1).values):
+        fail("4d: the ids of some bucket differ from a fresh sort's")
+    boundary = {s for s in range(STREAM_STEPS)
+                if (s + 1) % STREAM_REFRESH == 0 or
+                (s % STREAM_REFRESH == 0 and s > 0)}
+    steady = [d for s, d in enumerate(dts)
+              if s not in boundary and s not in STREAM_APPEND_AT
+              and s != STREAM_EVICT_AT]
+    return dict(
+        arch=cfg_f.name, corpus=TRAIN_CORPUS, window=TRAIN_CORPUS,
+        steps=STREAM_STEPS, refresh_every=STREAM_REFRESH,
+        index_build_s=build_s, append_rows=STREAM_APPEND,
+        append_s=append_s, append_ms_per_row=[
+            a * 1e3 / STREAM_APPEND for a in append_s],
+        refreshes=recs, step_ms_all=dts,
+        step_ms_p50=float(np.percentile(steady, 50)),
+        steady_steps=len(steady), n_live=nl, capacity=cap,
+        start_mem_gb=start_mem_gb,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        losses=losses, weight_mean_max_dev=float((w_means - 1).abs().max()),
+        fallback_rate=sampler.sampler_stats()["fallback_rate"],
+        launches=launched)
+
+
 def main() -> int:
     try:
         import torch
@@ -368,8 +676,9 @@ def main() -> int:
         import numpy as np
         from repro_torch import kernels
         from repro_torch.core import (
-            IndexMutation, LGDState, compute_codes, full_loss, hash_points, init,
-            lgd_step, mutate_index, probe_masks, regression_query, sgd_step)
+            IndexMutation, LGDState, compute_codes, evict_rows, full_loss,
+            hash_points, init, lgd_step, mutate_index, probe_masks,
+            regression_query, sgd_step)
         from repro_torch.core.simhash import quadratic_forms
         from repro_torch.core.sampler import (
             _probe_bounds, draw_assemble, draw_assemble_plain, draw_samples)
@@ -847,6 +1156,32 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")})
 
+    # the delta refresh's re-hash: simhash at its dirty buckets (N 64 and
+    # 256) at the train path's d 3,072 and L·K 70, against its plain
+    # version with the train-shape row's checks
+    report["delta_simhash_rows"] = []
+    gs = torch.Generator(device=dev).manual_seed(13)
+    shift_s = torch.linspace(0, 2, 3072, device=dev)
+    w_s = torch.randn((3072, 70), generator=gs, device=dev)
+    for n_s in (64, 256):
+        x_s = torch.randn((n_s, 3072), generator=gs, device=dev) + shift_s
+        got = simhash_codes_cuda(x_s, w_s, k=7, l=10)
+        want = simhash_codes_ref(x_s, w_s, k=7, l=10).T
+        near_s = ((x_s @ w_s).abs() < 1e-4).reshape(n_s, 10, 7).any(-1).T
+        e_s = int((got - want).abs()[~near_s].max())
+        if e_s != 0:
+            fail(f"simhash disagrees with its plain version at N {n_s}")
+        nb, fl = bound(n_s * 3072 * 4 + 3072 * 70 * 4 + n_s * 10 * 8,
+                       2.0 * n_s * 3072 * 70)
+        row = dict(name="simhash", shape=f"N {n_s}, d 3,072, K 7, L 10",
+                   max_abs_err=e_s, bound_ms=nb, bound_by=fl,
+                   **simhash_extras(x_s, w_s, got, 10, 7, 100),
+                   **timings(lambda: simhash_codes_cuda(x_s, w_s, k=7, l=10),
+                             lambda: simhash_codes_ref(x_s, w_s, k=7, l=10),
+                             None, 100))
+        report["delta_simhash_rows"].append(row)
+        print("simhash-delta " + json.dumps(row), flush=True)
+
     # -- 2d. draw_assemble against the plain composition -------------------
     report["draw_rows"] = []
     gd = torch.Generator(device=dev).manual_seed(9)
@@ -982,7 +1317,34 @@ def main() -> int:
                regs=draw_regs["int32"], spill=0)
     report["draw_rows"].append(row)
     print("draw " + json.dumps(row), flush=True)
-    del x_t, index_t, store_t
+    # a streaming index at the train shape: 1/2 and 1/8 of the slots
+    # evicted (the EMPTY_CODE tail), queries far from the live rows, so
+    # most walks miss and fall back to the live prefix, n_live by value
+    for frac in (2, 8):
+        gone = torch.randperm(n_t, generator=gd, device=dev)[:n_t // frac]
+        index_s = evict_rows(index_t, gone)
+        n_live_s = n_t - n_t // frac
+        # opposite the rows' common direction (the shift): few live rows
+        # share their buckets
+        q_s = (-(x_t[gone[:4]] + 2 * shift)).contiguous()
+        lo, hi = _probe_bounds(index_s, q_s, p_t, (0,))
+        dr = draw_samples(gd, (4, TRAIN_BATCH), 2 * l_t, l_t, n_live_s, dev)
+        args_s = (dr, lo, hi, index_s.order, x_t, q_s, p_t, 2 * l_t, (0,),
+                  store_t, 1e-8, n_live_s)
+        row = draw_row(f"streaming: 1/{frac} evicted, n_live {n_live_s}",
+                       args_s, x_t, q_s, "angle")
+        res_s = draw_assemble(*args_s)[0]
+        live_s = torch.ones(n_t, dtype=torch.bool, device=dev)
+        live_s[gone] = False
+        if not bool(live_s[res_s.indices].all()):
+            fail(f"draw_assemble drew an evicted slot (1/{frac} evicted)")
+        row.update(name="draw_assemble", family="srp", B=4, J=1,
+                   m=TRAIN_BATCH, n_live=n_live_s,
+                   fallbacks=int(res_s.fallback.sum()),
+                   regs=draw_regs["int32"], spill=0)
+        report["draw_rows"].append(row)
+        print("draw " + json.dumps(row), flush=True)
+    del x_t, index_t, store_t, index_s
     main_draw = report["draw_rows"][0]             # srp, B 1, J 1
     report["kernels"]["draw_assemble"] = dict(
         name="draw_assemble", route="cuda",
@@ -1168,6 +1530,11 @@ def main() -> int:
     print("small-input check train " + json.dumps(report["smoke_train"]),
           flush=True)
     del lm_c, lm_g, pipes, trainers
+
+    # -- 3d. small input: the streaming pipeline on the card against the CPU
+    report["smoke_stream"] = streaming_card_vs_cpu(torch, np, dev, cfg_t)
+    print("small-input check stream " + json.dumps(report["smoke_stream"]),
+          flush=True)
 
     # -- 4. the main path ---------------------------------------------------
     expect = {0: ("simhash", "bucket_probe"), 2: ("simhash",
@@ -1378,36 +1745,44 @@ def main() -> int:
         corpus=TRAIN_CORPUS, device=dev, refresh_every=TRAIN_REFRESH)
     torch.cuda.synchronize()
     index_s = time.perf_counter() - t0
-    # instruments: the refresh timed with syncs around it, and each
-    # batch's mean weight kept on the device
-    refresh_s, w_means = [], []
-    refresh, next_batch = sampler.refresh, sampler.next_batch
-
-    def timed_refresh(full=None):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ok = refresh(full)
-        torch.cuda.synchronize()
-        refresh_s.append(time.perf_counter() - t)
-        return ok
+    # instrument: each batch's mean weight kept on the device (the async
+    # refreshes are timed by the pipeline's own CUDA events)
+    w_means = []
+    next_batch = sampler.next_batch
 
     def kept_batch(*a, **kw):
         b = next_batch(*a, **kw)
         w_means.append(b["loss_weights"].mean())
         return b
 
-    sampler.refresh, sampler.next_batch = timed_refresh, kept_batch
+    sampler.next_batch = kept_batch
+    # the launcher's log cadence (10): a log also feeds the ladder's
+    # fallback-rate check, and logged every step a run whose query drifts
+    # into empty buckets for 3 steps degrades to uniform batches; the
+    # loop's iterations are timed from their train_step calls instead
     tr = launch_train.make_trainer(cfg_f, model, steps=TRAIN_STEPS, lr=1e-3,
-                                   sampler=sampler, log_every=1)
+                                   sampler=sampler)
+    starts, train_step = [], tr.train_step
+
+    def timed_step(batch):
+        starts.append(time.perf_counter())
+        return train_step(batch)
+
+    tr.train_step = timed_step
     t0 = time.perf_counter()
     out = tr.run(TRAIN_STEPS)
+    starts.append(time.perf_counter())
+    del tr.train_step              # no trainer -> wrapper -> trainer cycle
+    tr.finalize()                  # joins the refresh launched at step 19
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     trained = dict(kernels.launches)
     if trained["draw_assemble"] != TRAIN_STEPS or \
-            trained["bucket_probe"] < TRAIN_STEPS or trained["simhash"] != 2:
+            trained["bucket_probe"] < TRAIN_STEPS or trained["simhash"] != 3:
         fail(f"train path launches {trained}: expected draw_assemble "
-             f"{TRAIN_STEPS}, bucket_probe >= {TRAIN_STEPS}, simhash 2")
+             f"{TRAIN_STEPS}, bucket_probe >= {TRAIN_STEPS}, simhash 3 (the "
+             f"build and two refreshes)")
+    recs = refresh_health(sampler, "4c", 1)
     # the standalone gather_weight is off every path (draw_assemble
     # gathers): its count, 0, stands in the table beside phase 2c's row
     report["kernels"]["gather_weight"]["launches"] = trained["gather_weight"]
@@ -1418,14 +1793,23 @@ def main() -> int:
     if not torch.allclose(w_means, torch.ones_like(w_means), rtol=0,
                           atol=1e-5):
         fail(f"train path weights' batch means are not 1: {w_means}")
-    dts = [m_["dt"] * 1e3 for m_ in tr.metrics_history]
-    steady = dts[:TRAIN_REFRESH - 1] + dts[TRAIN_REFRESH:]
+    dts = [(b_ - a_) * 1e3 for a_, b_ in zip(starts, starts[1:])]
+    # loop iteration k trains step k and draws batch k + 1: the refreshes
+    # launch in iterations 8 and 18, iterations 9 and 19 wait for their
+    # reads before the update, and iteration 9 swaps
+    boundary = (TRAIN_REFRESH - 2, TRAIN_REFRESH - 1, 2 * TRAIN_REFRESH - 2,
+                2 * TRAIN_REFRESH - 1)
+    steady = [d_ for i_, d_ in enumerate(dts) if i_ not in boundary]
     report["train"] = dict(
         arch=cfg_f.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         corpus=TRAIN_CORPUS, steps=TRAIN_STEPS,
         params=sum(p.numel() for p in model.parameters()),
         feature_batch=sampler.feature_batch, init_s=init_s,
-        index_build_s=index_s, refresh_s=refresh_s, run_s=run_s,
+        index_build_s=index_s, refreshes=recs,
+        refresh_device_s=[r["device_ms"] / 1e3 for r in recs
+                          if "device_ms" in r],
+        boundary_step_ms={i_: dts[i_] for i_ in boundary},
+        run_s=run_s,
         step_ms_p10=float(np.percentile(steady, 10)),
         step_ms_p50=float(np.percentile(steady, 50)),
         step_ms_all=dts, sampler_overhead=tr.sampler_overhead,
@@ -1482,13 +1866,22 @@ def main() -> int:
     del got, want, near_x
 
     # -- 5c. where a full-width training step's time goes -------------------
-    sampler.refresh, sampler.next_batch = refresh, next_batch
+    sampler.next_batch = next_batch
     sampler.cfg.refresh_every = 0          # steady steps: no refresh
     tr.batches = iter(sampler.next_batch, None)
     report["profile"]["train_step"] = trace_steps(torch, lambda: tr.run(1), 5)
     print("profile train/step " + json.dumps(
         report["profile"]["train_step"]), flush=True)
-    del tr, sampler, model
+    feature_batch = sampler.feature_batch
+    # every reference to the trainer (its Adam moments: ~36 GB) goes
+    del tr, sampler, train_step, timed_step, next_batch, kept_batch
+    gc.collect()
+
+    # -- 4d. the streaming path at full width (the same model) --------------
+    report["stream"] = streaming_full_width(torch, np, dev, cfg_f, model,
+                                            feature_batch)
+    print("stream " + json.dumps(report["stream"]), flush=True)
+    del model
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -26,9 +26,12 @@ from .tables import (  # noqa: F401
     EMPTY_CODE,
     IndexMutation,
     LSHIndex,
+    append_rows,
     bucket_bounds,
     bucket_bounds_batched,
     bucket_bounds_multi,
+    evict_rows,
+    grow_index,
     hash_points,
     mutate_index,
     query_codes,

@@ -18,9 +18,13 @@ PyTorch port of ``repro.core.sampler`` (``sample``, ``sample_batched``,
 
 ``max_probes`` caps the table draws; if every probed bucket is empty
 the sample falls back to a uniform draw with p = 1/N (flagged), which
-keeps the estimator unbiased.  With ``multiprobe > 0`` each table draw
-walks ``J = 1 + multiprobe`` Hamming-ball probe codes before the next
-draw, and the probability is corrected for the walk:
+keeps the estimator unbiased.  On a streaming index (``n_live``, the
+host's live count) the fallback draws a slot u < n_live and takes
+``order[0, u]`` — the live ids fill every table's first n_live sorted
+slots — with p = 1/n_live, and the weights are 1/(p·n_live).  With
+``multiprobe > 0`` each table draw walks ``J = 1 + multiprobe``
+Hamming-ball probe codes before the next draw, and the probability is
+corrected for the walk:
 
     p = q_{r_j} * (1 - Q)^(l-1) / |S_b|,      Q = sum_{i<J} q_{r_i}.
 
@@ -45,6 +49,7 @@ the host.  ``sample_drain`` is plain everywhere.
 
 from __future__ import annotations
 
+import operator
 from typing import NamedTuple, Optional
 
 import torch
@@ -87,7 +92,8 @@ class SampleDraws(NamedTuple):
 
     tables: torch.Tensor    # (..., m, max_probes) int64 in [0, L)
     slot_u: torch.Tensor    # (..., m) float32 in [0, 1)
-    fallback: torch.Tensor  # (..., m) int64 in [0, N)
+    fallback: torch.Tensor  # (..., m) int64 in [0, N): an id; with n_live
+    #                         in [0, n_live): a slot of order[0, :n_live]
 
 
 def draw_samples(generator: torch.Generator, shape: tuple, max_probes: int,
@@ -129,16 +135,30 @@ def _check_draws(draws: SampleDraws, lo, n_tables: int, max_probes: int,
             f"{tuple(lo.shape)} and max_probes={max_probes}")
 
 
+def _live_count(n_live) -> Optional[int]:
+    """``n_live`` as a host int (or None).  A tensor is refused: reading a
+    device scalar on the host would sync every step, and the pipeline
+    knows its live count on the host."""
+    if n_live is None:
+        return None
+    if isinstance(n_live, torch.Tensor):
+        raise TypeError("n_live must be a Python int (the host's live "
+                        "count), not a tensor")
+    return operator.index(n_live)
+
+
 def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
                  params: LSHParams, max_probes: int,
-                 masks: tuple) -> SampleResult:
+                 masks: tuple, n_live: Optional[int] = None) -> SampleResult:
     """Algorithm 1 for a batch of queries given their bucket bounds: the
     port's one plain version of it.
 
     ``lo``/``hi`` are (B, J, L) — bucket bounds of the J Hamming-ball
     probe codes per table; ``queries`` (B, d); draws (B, m, ...).  Each
     of the ``max_probes`` table draws walks the probe sequence in order;
-    the first non-empty bucket in (table-draw, probe) order wins.
+    the first non-empty bucket in (table-draw, probe) order wins.  With
+    ``n_live`` the fallback is ``order[0, draws.fallback]`` with
+    p = 1/n_live.
     """
     n_tables, n_points = order.shape
     j_codes = len(masks)
@@ -166,7 +186,11 @@ def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
     # an unfound repetition's slot may sit past the end; its id is
     # replaced by the fallback below, so clamp only to keep it in range
     idx = order[t, torch.clamp(slot, max=n_points - 1)]
-    idx = torch.where(found, idx, draws.fallback)
+    if n_live is None:
+        fb_idx, p_fb = draws.fallback, 1.0 / n_points
+    else:
+        fb_idx, p_fb = order[0, draws.fallback], 1.0 / n_live
+    idx = torch.where(found, idx, fb_idx)
 
     fam = get_family(params.family)
     cp = fam.collision_prob(x_aug[idx], queries[:, None, :])  # (B, m)
@@ -181,7 +205,7 @@ def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
         miss = torch.clamp(1.0 - q_all.sum(-1), min=0.0)
         p_lsh = (torch.gather(q_all, -1, pj[..., None])[..., 0]
                  * miss ** (l - 1) / size.to(torch.float32))
-    probs = torch.where(found, p_lsh, 1.0 / n_points).to(torch.float32)
+    probs = torch.where(found, p_lsh, p_fb).to(torch.float32)
     return SampleResult(
         indices=idx,
         probs=probs,
@@ -195,34 +219,39 @@ def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
 def draw_assemble_plain(draws: SampleDraws, lo, hi, order, x_aug, queries,
                         params: LSHParams, max_probes: int, masks: tuple,
                         store: Optional[torch.Tensor] = None,
-                        p_floor: float = 1e-8):
+                        p_floor: float = 1e-8,
+                        n_live: Optional[int] = None):
     """The plain version of ``draw_assemble`` on any device:
     ``_sample_rows``, then with a store ``gather_weight_ref``."""
+    n_live = _live_count(n_live)
     res = _sample_rows(draws, lo, hi, order, x_aug, queries, params,
-                       max_probes, masks)
+                       max_probes, masks, n_live)
     if store is None:
         return res, None, None
     rows, w = gather_weight_ref(store, res.indices.reshape(-1),
-                                res.probs.reshape(-1), p_floor=p_floor)
+                                res.probs.reshape(-1), p_floor=p_floor,
+                                n_rows=n_live)
     return res, rows, w
 
 
 def draw_assemble(draws: SampleDraws, lo, hi, order, x_aug, queries,
                   params: LSHParams, max_probes: int, masks: tuple,
                   store: Optional[torch.Tensor] = None,
-                  p_floor: float = 1e-8):
+                  p_floor: float = 1e-8, n_live: Optional[int] = None):
     """Algorithm 1 after the probe for (B, m) repetitions, and with a
     token ``store`` (N, W) int32 also the (B·m, W) rows and their weights
-    1/(max(p, p_floor)·N).
+    1/(max(p, p_floor)·N) — N = ``n_live`` on a streaming index.
 
     Arguments as ``_sample_rows``.  Returns (``SampleResult`` with
     fields (B, m), rows or None, weights or None).  CUDA tensors take
     the ``draw_assemble`` kernel, one launch (a family whose collision
     law the kernel does not know raises); CPU tensors take
     ``draw_assemble_plain``."""
+    n_live = _live_count(n_live)
     if not on_cuda(queries):
         return draw_assemble_plain(draws, lo, hi, order, x_aug, queries,
-                                   params, max_probes, masks, store, p_floor)
+                                   params, max_probes, masks, store, p_floor,
+                                   n_live)
     _check_draws(draws, lo, order.shape[0], max_probes, len(masks))
     out = draw_assemble_cuda(
         lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous(),
@@ -234,7 +263,8 @@ def draw_assemble(draws: SampleDraws, lo, hi, order, x_aug, queries,
         draws.fallback.to(torch.int64).contiguous(),
         tuple(bin(mk).count("1") for mk in masks), k=params.k,
         law=law_code(get_family(params.family)),
-        p_fallback=1.0 / order.shape[1], store=store, p_floor=p_floor)
+        p_fallback=1.0 / (order.shape[1] if n_live is None else n_live),
+        store=store, p_floor=p_floor, n_live=n_live)
     return SampleResult(*out[:6]), out[6], out[7]
 
 
@@ -248,34 +278,31 @@ def _probe_bounds(index, queries, params, masks):
 
 def _draw_one(generator, index: LSHIndex, x_aug, query, params: LSHParams,
               m: int, max_probes: Optional[int], multiprobe: int,
-              draws: Optional[SampleDraws], store=None, p_floor=1e-8):
+              draws: Optional[SampleDraws], store=None, p_floor=1e-8,
+              n_live=None):
     """``draw_assemble`` for one query (d,): (result (m,), rows, w)."""
-    max_probes = max_probes or max(2 * params.l, 8)
-    masks = probe_masks(params.k, 1 + multiprobe)
-    if draws is None:
-        draws = draw_samples(generator, (m,), max_probes, index.n_tables,
-                             index.n_points, x_aug.device)
-    lo, hi = _probe_bounds(index, query, params, masks)     # (J, L)
-    res, rows, w = draw_assemble(
-        SampleDraws(*(d[None] for d in draws)), lo[None], hi[None],
-        index.order, x_aug, query[None], params, max_probes, masks, store,
-        p_floor)
+    res, rows, w = _draw_batch(
+        generator, index, x_aug, query[None], params, m, max_probes,
+        multiprobe, None if draws is None else SampleDraws(
+            *(d[None] for d in draws)), store, p_floor, n_live)
     return SampleResult(*(f[0] for f in res)), rows, w
 
 
 def _draw_batch(generator, index: LSHIndex, x_aug, queries,
                 params: LSHParams, m: int, max_probes: Optional[int],
                 multiprobe: int, draws: Optional[SampleDraws], store=None,
-                p_floor=1e-8):
+                p_floor=1e-8, n_live=None):
     """``draw_assemble`` for queries (B, d): (result (B, m), rows, w)."""
+    n_live = _live_count(n_live)
     max_probes = max_probes or max(2 * params.l, 8)
     masks = probe_masks(params.k, 1 + multiprobe)
     if draws is None:
-        draws = draw_samples(generator, (queries.shape[0], m), max_probes,
-                             index.n_tables, index.n_points, x_aug.device)
+        draws = draw_samples(
+            generator, (queries.shape[0], m), max_probes, index.n_tables,
+            index.n_points if n_live is None else n_live, x_aug.device)
     lo, hi = _probe_bounds(index, queries, params, masks)   # (B, J, L)
     return draw_assemble(draws, lo, hi, index.order, x_aug, queries, params,
-                         max_probes, masks, store, p_floor)
+                         max_probes, masks, store, p_floor, n_live)
 
 
 def sample(
@@ -288,6 +315,7 @@ def sample(
     max_probes: Optional[int] = None,
     multiprobe: int = 0,
     draws: Optional[SampleDraws] = None,
+    n_live: Optional[int] = None,
 ) -> SampleResult:
     """m independent LSH samples for one query (paper Algorithm 1 x m).
 
@@ -300,13 +328,16 @@ def sample(
       max_probes: cap on table draws per repetition (default max(2L, 8)).
       multiprobe: ADDITIONAL Hamming-ball probe codes walked per table.
       draws: explicit ``SampleDraws`` with fields shaped (m, ...).
+      n_live: a streaming index's live count (a host int): the uniform
+        fallback draws from the live prefix ``order[0, :n_live]`` with
+        p = 1/n_live.  None keeps the dense-index path.
 
     Returns:
       ``SampleResult`` with every field shaped (m,); ``1/(probs * N)``
       importance weights are unbiased.
     """
     return _draw_one(generator, index, x_aug, query, params, m, max_probes,
-                     multiprobe, draws)[0]
+                     multiprobe, draws, n_live=n_live)[0]
 
 
 def sample_batched(
@@ -319,19 +350,21 @@ def sample_batched(
     max_probes: Optional[int] = None,
     multiprobe: int = 0,
     draws: Optional[SampleDraws] = None,
+    n_live: Optional[int] = None,
 ) -> SampleResult:
     """Algorithm 1 for B queries at once; every field comes back (B, m).
 
     One probe-kernel launch hashes all B queries and finds all B·J·L
     bucket slices; each (query, repetition) pair is an independent,
-    exact-probability sample.  ``draws`` fields are shaped (B, m, ...).
+    exact-probability sample.  ``draws`` fields are shaped (B, m, ...);
+    ``n_live`` as in ``sample``.
     """
     if queries.dim() != 2:
         raise ValueError(
             f"sample_batched expects queries (B, d), got "
             f"{tuple(queries.shape)}; use sample() for a single query")
     return _draw_batch(generator, index, x_aug, queries, params, m,
-                       max_probes, multiprobe, draws)[0]
+                       max_probes, multiprobe, draws, n_live=n_live)[0]
 
 
 def sample_drain(
@@ -415,13 +448,6 @@ def _assemble(res: SampleResult, rows: torch.Tensor, w: torch.Tensor,
     )
 
 
-def _no_streaming(n_live) -> None:
-    if n_live is not None:
-        raise NotImplementedError(
-            "n_live (a streaming store's live-row count) comes with the "
-            "streaming slice (ROADMAP.md queue 1)")
-
-
 def sample_gather(
     generator: Optional[torch.Generator],
     index: LSHIndex,
@@ -447,14 +473,17 @@ def sample_gather(
       p_floor: probability floor inside the weight computation.
       normalize: rescale weights to mean 1 over the batch.
       row_width: logical S+1 when it is narrower than the store rows.
-      n_live: not ported (streaming); must be None.
+      n_live: a capacity-managed store's live count (a host int): the
+        fallback draws from the live prefix with p = 1/n_live and every
+        weight is 1/(p·n_live), so the estimator stays unbiased over the
+        live window.
 
     Returns a ``GatherBatch`` with every field shaped (m, ...).  Nothing
     syncs with the host.
     """
-    _no_streaming(n_live)
     res, rows, w = _draw_one(generator, index, x_aug, query, params, m,
-                             max_probes, multiprobe, draws, store, p_floor)
+                             max_probes, multiprobe, draws, store, p_floor,
+                             n_live)
     return _assemble(res, rows, w, example_offset, normalize, row_width)
 
 
@@ -478,15 +507,15 @@ def sample_gather_batched(
     """``sample_gather`` for C queries at once; every field comes back
     (C, m, ...).  On a card the C·m draws, rows and weights are ONE
     ``draw_assemble`` launch, and weight normalisation is per chain.
-    ``draws`` fields are shaped (C, m, ...)."""
-    _no_streaming(n_live)
+    ``draws`` fields are shaped (C, m, ...); ``n_live`` as in
+    ``sample_gather``."""
     if queries.dim() != 2:
         raise ValueError(f"sample_gather_batched expects queries (C, d), "
                          f"got {tuple(queries.shape)}")
     c = queries.shape[0]
     res, rows, w = _draw_batch(generator, index, x_aug, queries, params, m,
                                max_probes, multiprobe, draws, store,
-                               p_floor)                # fields (C, m)
+                               p_floor, n_live)        # fields (C, m)
     flat = SampleResult(*(f.reshape((-1,) + f.shape[2:]) for f in res))
     batch = _assemble(flat, rows, w, example_offset, False, row_width)
     unflat = GatherBatch(*(f.reshape((c, m) + f.shape[1:]) for f in batch))

@@ -18,15 +18,27 @@ kernels on a card and plain PyTorch on the CPU:
 Sorts are stable (``torch.sort(stable=True)``), as ``jnp.argsort`` is,
 so tie order — and with it ``order`` — matches the reference bitwise.
 
-This slice ports ``build`` and ``refresh``.  The ``delta``, ``append``
-and ``evict`` merges, ``grow_index`` and the banded helpers wait for
-the streaming slice (ROADMAP.md queue 1).
+INDEX MUTATIONS.  Every index write goes through ``mutate_index(index,
+IndexMutation(op, ...), params)``: the build, the full refresh, and the
+``delta`` / ``append`` / ``evict`` merges, which are ONE tie-stable
+merge (``_merge_impl``): the changed codes are scattered into their
+previous sorted slots, then a stable sort is composed back through the
+previous ``order``.  Unchanged rows keep their slots, appended rows
+land after existing equal-code ties, and an all-rows delta is bitwise
+a full warm refresh.
+
+STREAMING / CAPACITY.  A streaming index has a power-of-two capacity C
+(``grow_index`` adds empty slots); an empty slot carries ``EMPTY_CODE``,
+which sorts after every live code (K <= 31), so the first ``n_live``
+entries of every table's ``order`` are exactly the live ids — what the
+sampler's live-count fallback draws from.  The banded helpers wait for
+the banded family (ROADMAP.md queue 1 item 2).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -117,59 +129,155 @@ def _refresh_impl(index: LSHIndex, x_aug: torch.Tensor, params: LSHParams,
                     torch.gather(prev, 1, delta))
 
 
+def _merge_impl(index: LSHIndex, ids: torch.Tensor,
+                codes: torch.Tensor) -> LSHIndex:
+    """The ONE tie-stable merge under delta / append / evict.
+
+    ``ids`` (D,) point ids, ``codes`` (L, D) their new codes.  Scatter
+    the codes into the ids' previous sorted slots (pos[t, order[t, j]]
+    = j), then compose a stable sort back through the previous
+    ``order``: entries are placed by (new code, previous position),
+    bitwise what a full warm refresh computes when the other codes are
+    unchanged.  Duplicate ids with equal code columns write equal
+    values, a no-op (padding repeats an entry)."""
+    order = index.order
+    l, n = order.shape
+    iota = torch.arange(n, dtype=order.dtype, device=order.device)
+    pos = torch.empty_like(order).scatter_(1, order, iota.expand(l, n))
+    pos_d = pos.index_select(1, ids.to(torch.int64))        # (L, D)
+    permuted = index.sorted_codes.clone().scatter_(
+        1, pos_d, codes.to(index.sorted_codes.dtype))
+    sorted_codes, delta = _sort_rows(permuted)
+    return LSHIndex(index.projections, sorted_codes,
+                    torch.gather(order, 1, delta))
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class IndexMutation:
     """ONE declarative description of an index write (see ``mutate_index``).
 
-      * ``"build"``   — ``x_aug`` (N, d) and either ``generator`` (draws
+      * ``"build"``   — ``x_aug`` (C, d) and either ``generator`` (draws
         the projections) or ``projections`` (given — the hook the
         parity tests use to build on the reference's projections);
-        optional ``live_mask`` (N,) bool.
-      * ``"refresh"`` — ``x_aug`` fresh (N, d) features (projections are
-        reused); ``warm_start`` keeps tie layouts stable.
+        optional ``live_mask`` (C,) bool under a managed capacity.
+      * ``"refresh"`` — ``x_aug`` fresh (C, d) features (projections are
+        reused); ``warm_start`` keeps tie layouts stable; optional
+        ``live_mask``.
+      * ``"delta"``   — ``ids`` (D,) + ``codes`` (L, D): merge the fresh
+        codes of a dirty subset (duplicate ids with equal code columns
+        are legal: padding repeats an entry).
+      * ``"append"``  — ``ids`` (D,) previously EMPTY slots + ``codes``
+        (L, D) of the new rows.
+      * ``"evict"``   — ``ids`` (D,) live slots to empty (their codes
+        become ``EMPTY_CODE``).
+
+    ``tokens`` is a pipeline payload (the token rows of a pipeline
+    append, which ``LSHSampledPipeline.mutate`` embeds and hashes);
+    ``mutate_index`` never reads it.
     """
 
     op: str
     generator: Optional[torch.Generator] = None
     projections: Optional[torch.Tensor] = None
     x_aug: Optional[torch.Tensor] = None
+    ids: Optional[torch.Tensor] = None
+    codes: Optional[torch.Tensor] = None
     live_mask: Optional[torch.Tensor] = None
     warm_start: bool = True
+    tokens: Optional[Any] = None
 
-    _OPS = ("build", "refresh")
-    _LATER = ("delta", "append", "evict")
+    _OPS = ("build", "refresh", "delta", "append", "evict")
 
     def __post_init__(self):
-        if self.op in self._LATER:
-            raise ValueError(
-                f"IndexMutation op {self.op!r} is not ported to PyTorch "
-                "yet; it comes with the streaming slice (ROADMAP.md "
-                "queue 1)")
         if self.op not in self._OPS:
             raise ValueError(
                 f"IndexMutation.op must be one of {self._OPS}, "
                 f"got {self.op!r}")
 
 
-def mutate_index(index: Optional[LSHIndex], mutation: IndexMutation,
-                 params: LSHParams) -> LSHIndex:
-    """THE index write entry point: apply ``mutation``, return a new index.
+def _require(mutation: IndexMutation, **fields):
+    for name, value in fields.items():
+        if value is None:
+            raise ValueError(
+                f"IndexMutation(op={mutation.op!r}) requires {name}")
 
-    Runs on the device of ``x_aug``: the simhash kernel on a card, the
-    plain version on the CPU.  Each op is a pure function of its inputs
-    (and of the generator's state for a build)."""
-    if mutation.x_aug is None:
-        raise ValueError(f"IndexMutation(op={mutation.op!r}) requires x_aug")
-    if mutation.op == "build":
+
+def mutate_index(index: Optional[LSHIndex], mutation: IndexMutation,
+                 params: Optional[LSHParams] = None) -> LSHIndex:
+    """THE index write entry point: apply ``mutation``, return a new index
+    (inputs are never written).
+
+    ``params`` is needed by the hashing ops (``build`` / ``refresh``),
+    not by the merges (``delta`` / ``append`` / ``evict``), whose payload
+    is hashed codes.  Runs on the device of its tensors: the simhash
+    kernel on a card, the plain version on the CPU.  Each op is a pure
+    function of its inputs (and of the generator's state for a build).
+    ``append`` / ``evict`` keep the delta merge's contract: unchanged
+    rows keep their exact slots, appended rows land after existing
+    equal-code ties, evicted rows join the sentinel tail in their
+    previous relative order."""
+    op = mutation.op
+    if op == "build":
+        _require(mutation, x_aug=mutation.x_aug, params=params)
         if mutation.generator is None and mutation.projections is None:
             raise ValueError(
                 "IndexMutation(op='build') requires generator or projections")
         return _build_impl(mutation.generator, mutation.projections,
                            mutation.x_aug, params, mutation.live_mask)
     if index is None:
-        raise ValueError(f"IndexMutation(op={mutation.op!r}) requires an index")
-    return _refresh_impl(index, mutation.x_aug, params, mutation.live_mask,
-                         mutation.warm_start)
+        raise ValueError(f"IndexMutation(op={op!r}) requires an index")
+    if op == "refresh":
+        _require(mutation, x_aug=mutation.x_aug, params=params)
+        return _refresh_impl(index, mutation.x_aug, params,
+                             mutation.live_mask, mutation.warm_start)
+    if op in ("delta", "append"):
+        _require(mutation, ids=mutation.ids, codes=mutation.codes)
+        return _merge_impl(index, mutation.ids, mutation.codes)
+    _require(mutation, ids=mutation.ids)                    # evict
+    return evict_rows(index, mutation.ids)
+
+
+def append_rows(index: LSHIndex, ids: torch.Tensor,
+                codes: torch.Tensor) -> LSHIndex:
+    """Merge new rows into previously EMPTY capacity slots: ``ids`` (D,)
+    slots holding ``EMPTY_CODE``, ``codes`` (L, D) the rows' codes.  Pad
+    D by repeating an entry.  Every live row keeps its slot; appended
+    rows insert after existing equal-code ties."""
+    return _merge_impl(index, ids, codes)
+
+
+def evict_rows(index: LSHIndex, ids: torch.Tensor) -> LSHIndex:
+    """Empty the given live slots (their codes become ``EMPTY_CODE``).
+    Evicted slots join every table's sentinel tail; the remaining live
+    rows keep their slots, so ``order[t, :n_live]`` stays a permutation
+    of the live ids in every table t."""
+    codes = torch.full((index.n_tables, ids.shape[0]), EMPTY_CODE,
+                       dtype=index.sorted_codes.dtype,
+                       device=index.sorted_codes.device)
+    return _merge_impl(index, ids, codes)
+
+
+def grow_index(index: LSHIndex, new_capacity: int) -> LSHIndex:
+    """Grow a capacity-managed index to ``new_capacity`` slots: the new
+    slots are EMPTY and join the tail of every table's sorted order in
+    slot order (the sentinel is the largest code), so every existing
+    row keeps its exact slot."""
+    l, n = index.order.shape
+    if new_capacity < n:
+        raise ValueError(
+            f"new_capacity={new_capacity} < current capacity {n} "
+            "(shrink by compaction at the store level, not here)")
+    if new_capacity == n:
+        return index
+    pad = new_capacity - n
+    sc = index.sorted_codes
+    sorted_codes = torch.cat(
+        [sc, torch.full((l, pad), EMPTY_CODE, dtype=sc.dtype,
+                        device=sc.device)], dim=1)
+    extra = torch.arange(n, new_capacity, dtype=index.order.dtype,
+                         device=index.order.device).expand(l, pad)
+    return LSHIndex(index.projections, sorted_codes,
+                    torch.cat([index.order, extra], dim=1))
 
 
 def hash_points(x: torch.Tensor, proj: torch.Tensor,

@@ -44,13 +44,17 @@
 //   walk:  the P table draws x J probes in (draw, probe) order; the
 //          first candidate whose bucket hi - lo is non-empty wins
 //   slot:  lo + min(floor(u * (f32)size), size - 1)
-//   id:    order[t, slot], or the fallback draw when no bucket is found
+//   id:    order[t, slot], or the fallback when no bucket is found: the
+//          fallback draw itself, or with a live count n_live (a
+//          streaming index, whose live ids fill every table's first
+//          n_live sorted slots) order[0, draw] for a draw in [0, n_live)
 //   cp:    the family's collision law on x_aug[id] and the query
 //   p:     J = 1: cp^K (1 - cp^K)^(l-1) / size
 //          J > 1: q_r = cp^(K-r) (1-cp)^r, miss = max(1 - sum q, 0),
 //                 p = q_pj miss^(l-1) / size
-//          fallback: p_fallback (1/N; 1/n_live once streaming comes)
-//   gather and weight: as gather_weight, when a store is given
+//          fallback: p_fallback (1/N, or 1/n_live)
+//   gather and weight: as gather_weight, when a store is given, with
+//          N = n_live when a live count is given
 //
 // Bound on an H100: bytes, and those are nanoseconds: a repetition reads
 // its walked table draws and bounds, one order entry, one row of x and
@@ -86,8 +90,9 @@
 //     bits (another sum order, acosf and powf against torch's).  The
 //     weights' mean-1 normalisation needs every block of a chain, so it
 //     stays two torch ops after the launch, not a last-block count.
-//   * An id outside [0, N) (a fallback draw out of range) and a table
-//     draw outside [0, L) stop the kernel with a device-side assert.
+//   * An id outside [0, N) (a fallback draw out of range), a live-prefix
+//     draw outside [0, n_live) and a table draw outside [0, L) stop the
+//     kernel with a device-side assert.
 //     Nothing syncs with the host.
 
 #include <cuda_runtime.h>
@@ -148,6 +153,7 @@ struct DrawArgs {
   int32_t* rows;              // (B * m, W), or null
   float* w;                   // (B * m,), or null
   int64_t n, d, width;        // width in units of the copy type
+  int64_t n_live;             // 0, or the live count of a streaming index
   int n_tables, m, p, j, k, law;
   float p_fallback, p_floor;
   uint8_t popc[kMaxMasks];    // popcount r of each probe mask
@@ -197,7 +203,13 @@ draw_assemble_kernel(const __grid_constant__ DrawArgs a) {
       }
     }
     if (first < 0 && lane == 0) {
-      s_id = a.fb_ids[blk];
+      const int64_t fb = a.fb_ids[blk];
+      if (a.n_live > 0) {               // a slot of table 0's live prefix
+        assert(0 <= fb && fb < a.n_live);
+        s_id = a.order[fb];
+      } else {
+        s_id = fb;
+      }
       s_first = -1;
       s_size = 0;
     }
@@ -317,7 +329,8 @@ draw_assemble_kernel(const __grid_constant__ DrawArgs a) {
   a.probe_code[blk] = pj;
   if (gather) {
     const float pf = p < a.p_floor ? a.p_floor : p;
-    a.w[blk] = 1.0f / (pf * static_cast<float>(a.n));
+    const int64_t n_w = a.n_live > 0 ? a.n_live : a.n;
+    a.w[blk] = 1.0f / (pf * static_cast<float>(n_w));
   }
 }
 
@@ -351,9 +364,11 @@ extern "C" int gather_weight_launch(const int32_t* store, const int64_t* idx,
 // lo, hi: (b, j, n_tables) int32; order: (n_tables, n) int64; x: (n, d)
 // f32; q: (b, d) f32; tables: (b, m, p) int64; slot_u: (b, m) f32;
 // fb_ids: (b, m) int64; popc: (j,) popcounts; store: (n, width) int32 or
-// null.  Results: indices (b, m) int64, probs f32, n_probes,
-// bucket_sizes and probe_code int32, fallback bool; with a store rows
-// (b * m, width) int32 and w (b * m,) f32.  law: 0 angle, 1 quadratic.
+// null.  n_live: 0, or the live count of a streaming index, which makes
+// fb_ids slots of order[0, :n_live] and the weights' N n_live.  Results:
+// indices (b, m) int64, probs f32, n_probes, bucket_sizes and probe_code
+// int32, fallback bool; with a store rows (b * m, width) int32 and w
+// (b * m,) f32.  law: 0 angle, 1 quadratic.
 // Returns the cudaError_t of the launch.
 extern "C" int draw_assemble_launch(
     const int32_t* lo, const int32_t* hi, const int64_t* order,
@@ -363,17 +378,19 @@ extern "C" int draw_assemble_launch(
     int32_t* bucket_sizes, bool* fallback, int32_t* probe_code,
     int32_t* rows, float* w, int64_t b, int64_t m, int64_t p, int64_t j,
     int64_t n_tables, int64_t n, int64_t d, int64_t width, int64_t k,
-    int64_t law, float p_fallback, float p_floor, void* stream) {
+    int64_t law, int64_t n_live, float p_fallback, float p_floor,
+    void* stream) {
   if (b < 1 || m < 1 || b * m > 0x7fffffffLL || p < 1 || j < 1 ||
       j > kMaxMasks || p * j > 0x7fffffffLL - 32 || n_tables < 1 ||
       n_tables > 0x7fffffffLL || n < 1 || d < 1 || k < 1 || k > 32 ||
+      n_live < 0 || n_live > n ||
       (law != kAngle && law != kQuadratic) ||
       (store != nullptr && (width < 1 || rows == nullptr || w == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   DrawArgs a = {lo, hi, order, x, q, tables, slot_u, fb_ids, store,
                 indices, probs, n_probes, bucket_sizes, fallback, probe_code,
                 store ? rows : nullptr, store ? w : nullptr,
-                n, d, store ? width : 0,
+                n, d, store ? width : 0, n_live,
                 static_cast<int>(n_tables), static_cast<int>(m),
                 static_cast<int>(p), static_cast<int>(j), static_cast<int>(k),
                 static_cast<int>(law), p_fallback, p_floor, {}};

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -33,7 +34,7 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _F = ctypes.c_float
 _ARGTYPES = {
     "gather_weight_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _F, _P],
-    "draw_assemble_launch": [_P] * 18 + [_I64] * 10 + [_F, _F, _P],
+    "draw_assemble_launch": [_P] * 18 + [_I64] * 11 + [_F, _F, _P],
 }
 # the CUDA source's draw_assemble constants
 DRAW_THREADS = 128                   # kDrawThreads: 4 warps a block
@@ -108,21 +109,25 @@ def draw_assemble_cuda(lo: torch.Tensor, hi: torch.Tensor,
                        queries: torch.Tensor, tables: torch.Tensor,
                        slot_u: torch.Tensor, fallback_ids: torch.Tensor,
                        popcounts: tuple, *, k: int, law: int,
-                       p_fallback: float, store=None, p_floor: float = 1e-8):
+                       p_fallback: float, store=None, p_floor: float = 1e-8,
+                       n_live: Optional[int] = None):
     """Algorithm 1 after the probe, in one launch.
 
     lo, hi: (B, J, L) int32 bucket bounds; order: (L, N) int64; x: (N, d)
     f32; queries: (B, d) f32; tables: (B, m, P) int64 table draws;
     slot_u: (B, m) f32; fallback_ids: (B, m) int64; ``popcounts``: the J
     probe masks' popcounts; ``law``: an index of LAWS; ``p_fallback``:
-    the probability of a uniform fallback (1/N).  With ``store`` (N, W)
-    int32 it also gathers the rows and computes 1/(max(p, p_floor)·N).
+    the probability of a uniform fallback (1/N, or 1/n_live).  With
+    ``store`` (N, W) int32 it also gathers the rows and computes
+    1/(max(p, p_floor)·N).  ``n_live`` (a host int, a streaming index's
+    live count): the fallback draws are slots of ``order[0, :n_live]``,
+    mapped to ids through it, and the weights' N is n_live.
 
     Returns (indices (B, m) int64, probs f32, n_probes int32,
     bucket_sizes int32, fallback bool, probe_code int32, rows (B·m, W)
     int32 or None, w (B·m,) f32 or None).  A table draw outside [0, L)
-    or a fallback id outside [0, N) stops the kernel with a device-side
-    assert."""
+    or a fallback draw outside [0, N) (or [0, n_live)) stops the kernel
+    with a device-side assert."""
     check_tensor(lo, "lo", torch.int32, 3)
     dev = lo.device
     check_tensor(hi, "hi", torch.int32, 3, dev)
@@ -149,6 +154,8 @@ def draw_assemble_cuda(lo: torch.Tensor, hi: torch.Tensor,
                          f"(at most {MAX_MASKS})")
     if not 1 <= k <= 32 or not 0 <= law < len(LAWS):
         raise ValueError(f"K={k} or law={law} out of range")
+    if n_live is not None and not 1 <= n_live <= n:
+        raise ValueError(f"n_live={n_live} outside [1, N={n}]")
     width = 0
     if store is not None:
         check_tensor(store, "store", torch.int32, 2, dev)
@@ -181,7 +188,7 @@ def draw_assemble_cuda(lo: torch.Tensor, hi: torch.Tensor,
         *(t.data_ptr() for t in out),
         None if rows is None else rows.data_ptr(),
         None if w is None else w.data_ptr(),
-        b, m, p, j, n_tables, n, d, width, k, law, p_fallback, p_floor,
-        stream), "draw_assemble")
+        b, m, p, j, n_tables, n, d, width, k, law, n_live or 0, p_fallback,
+        p_floor, stream), "draw_assemble")
     launches["draw_assemble"] += 1
     return out + (rows, w)

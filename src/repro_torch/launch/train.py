@@ -9,8 +9,9 @@ random from seed 0 and the corpus is ``make_token_corpus(0, ...)``, as
 in the reference.  With ``--lgd`` batches come from one
 ``LSHSampledPipeline`` over the whole corpus — one card is one shard,
 which is what the reference's one-shard ``ShardedLSHPipeline``
-computes — with the refresh synchronous (the async refresh is not
-ported yet).  Runs on the card unless ``--device cpu``.
+computes — with the refresh asynchronous (``refresh_async=True``), as
+the reference launcher builds it.  Runs on the card unless ``--device
+cpu``.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ def make_batches(cfg, model, *, lgd: bool, batch: int, seq: int, corpus: int,
         return None, uniform_batches(data, batch, seed=1, device=device)
     sampler = LSHSampledPipeline(
         2, data.tokens, mean_pool_feature_fn(cfg), lm_head_query_fn(),
-        LSHPipelineConfig(minibatch=batch, refresh_every=refresh_every),
+        LSHPipelineConfig(minibatch=batch, refresh_every=refresh_every,
+                          refresh_async=True),
         feature_batch=feature_batch_for(cfg, seq), params=model,
         device=device)
     return sampler, None

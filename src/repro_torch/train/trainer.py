@@ -25,9 +25,14 @@ and Adam's moments are running statistics of that estimate.
 LGD sampler hook: pass ``sampler=`` (an ``LSHSampledPipeline``) instead
 of ``batches``.  The trainer draws ``sampler.next_batch`` (device
 tensors, no host-side assembly), pushes the live model through
-``sampler.set_params`` after every step, and reads ``sampler_stats`` at
-log cadence.  ``data_seconds`` accumulates the host time spent drawing
-batches and ``sampler_overhead`` is its share of the loop's wall time.
+``sampler.set_params`` after every step, calls
+``sampler.before_param_update`` before each in-place update (an async
+refresh in flight must read the launch-time weights first), feeds
+``sampler.note_loss`` each step's finiteness (the degradation ladder),
+and at log cadence reads ``sampler_stats``, ``check_health`` and
+``health_summary`` into ``metrics_history``.  ``data_seconds``
+accumulates the host time spent drawing batches and
+``sampler_overhead`` is its share of the loop's wall time.
 
 Host syncs per step are the reference's: the finiteness flag and the
 loss are read once each (``bool``, ``float``).
@@ -188,6 +193,8 @@ class Trainer:
                                         max=1.0)
                     for g in grads.values():   # in place, in their dtype
                         g.copy_(g.float().mul_(scale))
+                if self._sampler is not None:
+                    self._sampler.before_param_update()
                 self.opt_state = update_in_place(
                     self.optimizer, self.named_params, grads, self.opt_state)
         for p in self.named_params.values():
@@ -237,6 +244,9 @@ class Trainer:
             if ok is False:
                 self.skipped_steps += 1
             if self._sampler is not None:
+                # the ladder: a non-finite streak sends the pipeline to
+                # uniform-fallback
+                self._sampler.note_loss(ok is not False)
                 # the next draw's query reads the post-step model; sync
                 # on the loss first, so data_seconds measures the draw
                 self._sampler.set_params(self.params)
@@ -268,6 +278,10 @@ class Trainer:
                     st = self._sampler.sampler_stats()   # syncs
                     entry["fallback_rate"] = st["fallback_rate"]
                     entry["primary_miss_rate"] = st["primary_miss_rate"]
+                    # feeds the batch fallback rate into the ladder
+                    entry["health"] = self._sampler.check_health()
+                    entry["health_transitions"] = \
+                        self._sampler.health_summary()["transitions"]
                 self.metrics_history.append(entry)
             if next_batch is None:
                 break

@@ -9,9 +9,11 @@ from the same JAX key exactly as ``repro.core.sampler`` splits it.
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.core.sampler import _uniform_below
 from repro_torch.core.sampler import SampleDraws
 
 # Golden-pin tolerance of the reference's own float parity tests.
@@ -38,28 +40,34 @@ def n(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _one(k, max_probes, n_tables, n_points):
+def _one(k, max_probes, n_tables, n_points, n_live):
     k_tables, k_slot, k_fb = jax.random.split(k, 3)
+    if n_live is None:
+        fb = jax.random.randint(k_fb, (), 0, n_points)
+    else:   # the live-prefix slot: ``_uniform_below(k_fb, n_live)``
+        fb = _uniform_below(k_fb, jnp.int32(n_live))
     return (jax.random.randint(k_tables, (max_probes,), 0, n_tables),
-            jax.random.uniform(k_slot, ()),
-            jax.random.randint(k_fb, (), 0, n_points))
+            jax.random.uniform(k_slot, ()), fb)
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
-def _sample_draws(key, m, max_probes, n_tables, n_points, batch):
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
+def _sample_draws(key, m, max_probes, n_tables, n_points, batch, n_live):
     # one compiled program per shape instead of one per eager op; the
     # random bits are the same under jit
     keys = jax.random.split(key, m if batch is None else (batch, m))
-    fn = jax.vmap(lambda k: _one(k, max_probes, n_tables, n_points))
+    fn = jax.vmap(lambda k: _one(k, max_probes, n_tables, n_points, n_live))
     if batch is not None:
         fn = jax.vmap(fn)
     return fn(keys)
 
 
-def jax_sample_draws(key, m, max_probes, n_tables, n_points, batch=None):
+def jax_sample_draws(key, m, max_probes, n_tables, n_points, batch=None,
+                     n_live=None):
     """The draws ``repro.core.sampler.sample`` (``batch=None``) or
-    ``sample_batched`` (``batch=B``) makes from ``key``."""
-    ts, us, fbs = _sample_draws(key, m, max_probes, n_tables, n_points, batch)
+    ``sample_batched`` (``batch=B``) makes from ``key``; with ``n_live``
+    the fallback draw is the streaming path's live-prefix slot."""
+    ts, us, fbs = _sample_draws(key, m, max_probes, n_tables, n_points, batch,
+                                n_live)
     return SampleDraws(t(ts, torch.int64), t(us), t(fbs, torch.int64))
 
 

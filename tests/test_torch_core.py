@@ -215,9 +215,19 @@ class TestIndex:
             np.testing.assert_array_equal(n(tr.order), n(jr.order))
 
     def test_mutation_surface(self):
-        for op in ("delta", "append", "evict"):
-            with pytest.raises(ValueError, match="ROADMAP"):
-                T.IndexMutation(op)
+        x, _ = _data(11, 20, 4)
+        tp = T.LSHParams(k=2, l=2, dim=4, family="dense")
+        idx = T.mutate_index(None, T.IndexMutation(
+            "build", generator=torch.Generator().manual_seed(0),
+            x_aug=t(x)), tp)
+        for op, need in (("delta", "ids"), ("append", "ids"),
+                         ("evict", "ids"), ("refresh", "x_aug")):
+            with pytest.raises(ValueError, match=f"requires {need}"):
+                T.mutate_index(idx, T.IndexMutation(op), tp)
+            with pytest.raises(ValueError, match="requires an index"):
+                T.mutate_index(None, T.IndexMutation(op), tp)
+        with pytest.raises(ValueError, match="must be one of"):
+            T.IndexMutation("compact")
         with pytest.raises(ValueError, match="generator or projections"):
             T.mutate_index(None, T.IndexMutation("build", x_aug=torch.ones(
                 3, 4)), T.LSHParams(k=2, l=2, dim=4, family="dense"))

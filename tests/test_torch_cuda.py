@@ -605,3 +605,163 @@ def test_draw_assemble_id_out_of_range_stops_the_kernel(card):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "assert" in (out.stdout + out.stderr).lower()
+
+
+# -- the streaming slice: n_live, the sentinel tail, the async refresh -------
+
+@pytest.mark.parametrize("j", [1, 3])
+@pytest.mark.parametrize("n_live", [1, 37, 300])
+def test_draw_assemble_live_prefix(card, n_live, j):
+    """The live-prefix fallback (order[0, draw], p = 1/n_live, weights
+    1/(p n_live)) on the card: against the plain composition and the
+    numpy model of tests/test_torch_draw.py."""
+    from test_torch_draw import _case, _live, _masks, model
+
+    c = _live(_case(60 + n_live, b=3, m=6, j=j, p=30), n_live)
+    p = LSHParams(k=5, l=c["lo"].shape[2], dim=c["x"].shape[1],
+                  family="dense")
+    masks = _masks(5, j)
+    dev = [torch.from_numpy(c[key]).to(card) for key in (
+        "lo", "hi", "order", "x", "q", "store")]
+    draws = SampleDraws(*(t.to(card) for t in c["draws"]))
+    got, want = _draw_twice((draws, *dev[:5], p, draws.tables.shape[2],
+                             masks, dev[5], 1e-8, n_live))
+    _held(got, want)
+    fields, rows, w = model(c["draws"], c["lo"], c["hi"], c["order"], c["x"],
+                            c["q"], "angle", 5, masks, c["store"], 1e-8,
+                            n_live)
+    np.testing.assert_array_equal(got[0].indices.cpu().numpy(),
+                                  fields["indices"])
+    np.testing.assert_array_equal(got[1].cpu().numpy(), rows)
+    np.testing.assert_allclose(got[2].cpu().numpy(), w, rtol=1e-4)
+    assert bool(got[0].fallback.any())
+
+
+@pytest.mark.parametrize("evicted", [2, 8])
+def test_draw_assemble_streaming_train_shape(card, evicted):
+    """The train shape (d 3,072, K 7, L 10, capacity 2,048, m 8, S+1 513)
+    with 1/2 or 7/8 of the slots evicted and queries far from every live
+    row, so most walks fall back to the live prefix."""
+    from repro_torch.core import evict_rows
+    from repro_torch.core.sampler import _probe_bounds
+
+    x, w, _, _ = _inputs(card, 9, 2048, 3072, 10, 7, 1)
+    p = LSHParams(k=7, l=10, dim=3072, family="srp")
+    index = mutate_index(None, IndexMutation("build", projections=w,
+                                             x_aug=x), p)
+    g = torch.Generator(device=card).manual_seed(4)
+    gone = torch.randperm(2048, generator=g, device=card)[
+        :2048 - 2048 // evicted]
+    index = evict_rows(index, gone)
+    n_live = 2048 // evicted
+    assert int((index.sorted_codes[:, n_live:] == 0xFFFFFFFF).sum()) == \
+        10 * (2048 - n_live)
+    q = -x[gone[:4]].contiguous()            # far from the live rows
+    store = torch.randint(0, 200_064, (2048, 513), device=card,
+                          dtype=torch.int32)
+    lo, hi = _probe_bounds(index, q, p, (0,))
+    draws = draw_samples(g, (4, 8), 20, 10, n_live, card)
+    got, want = _draw_twice((draws, lo, hi, index.order, x, q, p, 20, (0,),
+                             store, 1e-8, n_live))
+    _held(got, want)
+    live = torch.ones(2048, dtype=torch.bool, device=card)
+    live[gone] = False
+    assert bool(live[got[0].indices].all())
+    assert float(got[0].fallback.float().mean()) > 0.5
+
+
+def _toy_embed(card):
+    g = torch.Generator().manual_seed(1)
+    return torch.randint(-4, 5, (50, 16), generator=g).float()
+
+
+def test_streaming_pipeline_card_matches_cpu(card):
+    """A streaming, delta, async pipeline (window 100, lead 1) on the card
+    and on the CPU with the same draws and drift masks injected, through
+    appends past the window, an explicit evict and two delta refreshes:
+    the index bitwise after each mutation, ids bitwise, weights rtol
+    1e-5 (integer features: exact on both)."""
+    from repro_torch.data import LSHPipelineConfig, LSHSampledPipeline
+
+    emb = _toy_embed(card)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, 50, (96, 9)).astype(np.int32)
+    cfg = dict(k=4, l=8, minibatch=8, refresh_every=4, refresh_mode="delta",
+               drift_frac=0.2, refresh_async=True, window=100)
+    drift = lambda r, cap: torch.from_numpy(                      # noqa: E731
+        np.random.default_rng(r).random(cap) < 0.2)
+    pipes = {}
+    for dev in ("cpu", card):
+        params = {"embed": emb.to(dev), "q": torch.ones(16, device=dev)}
+        pipes[dev] = LSHSampledPipeline(
+            3, toks, lambda pr, c: pr["embed"][c].sum(1), lambda pr: pr["q"],
+            LSHPipelineConfig(**cfg), params=params, device=dev,
+            drift=drift, projections=None if dev == "cpu"
+            else pipes["cpu"].index.projections.to(card))
+    cpu, gpu = pipes["cpu"], pipes[card]
+
+    def same_index():
+        assert torch.equal(gpu.index.sorted_codes.cpu(),
+                           cpu.index.sorted_codes)
+        assert torch.equal(gpu.index.order.cpu(), cpu.index.order)
+
+    same_index()
+    g = torch.Generator().manual_seed(5)
+    for step in range(10):
+        if step in (2, 6):
+            extra = rng.integers(0, 50, (8, 9)).astype(np.int32)
+            for pp in (cpu, gpu):
+                pp.append_rows(extra)
+            same_index()
+        if step == 5:
+            gone = np.flatnonzero(cpu._live_np)[:6]
+            for pp in (cpu, gpu):
+                pp.evict_rows(gone)
+            same_index()
+        dr = draw_samples(g, (8,), 16, 8, cpu.n_live, "cpu")
+        bc = cpu.next_batch(draws=dr)
+        bg = gpu.next_batch(draws=SampleDraws(*(x.to(card) for x in dr)))
+        assert torch.equal(bg["example_ids"].cpu(), bc["example_ids"])
+        torch.testing.assert_close(bg["loss_weights"].cpu(),
+                                   bc["loss_weights"], rtol=1e-5, atol=0)
+    for pp in (cpu, gpu):
+        pp.finalize()
+    same_index()
+    assert gpu._refresh_count == cpu._refresh_count == 2
+    assert all(r["ok"] for r in gpu.refresh_records())
+    assert not gpu.health_summary()["transitions"]
+
+
+def test_async_refresh_reads_the_launch_time_weights(card):
+    """The weights change IN PLACE on the step's stream right after the
+    launch (behind before_param_update): the refresh, on its own stream,
+    still embeds the launch-time weights, bitwise."""
+    from repro_torch.data import LSHPipelineConfig, LSHSampledPipeline
+
+    g = torch.Generator(device=card).manual_seed(3)
+    params = {"w": torch.randn((256,), generator=g, device=card),
+              "q": torch.ones(256, device=card)}
+
+    def heavy(pr, chunk):    # slow enough to overlap; elementwise, so exact
+        h = torch.nn.functional.one_hot(chunk.long(), 256).float().sum(1)
+        for _ in range(100):
+            h = torch.tanh(h * pr["w"] + 0.5)
+        return h
+
+    toks = np.random.default_rng(1).integers(0, 256, (2048, 17)).astype(
+        np.int32)
+    pipe = LSHSampledPipeline(
+        4, toks, heavy, lambda pr: pr["q"],
+        LSHPipelineConfig(k=7, l=10, minibatch=8, refresh_every=3,
+                          refresh_async=True), feature_batch=64,
+        params=params, device=card)
+    for _ in range(3):                       # the launch is at step 2
+        pipe.next_batch()
+    launch_time = {k: v.clone() for k, v in params.items()}
+    pipe.before_param_update()
+    params["w"].mul_(-1.5)                   # the in-place update
+    pipe.next_batch()                        # the swap
+    want, _ = pipe._compute_features_scaled(launch_time)
+    assert torch.equal(pipe.features, want)
+    rec = pipe.refresh_records()[0]
+    assert rec["ok"] and rec["async"] and rec["device_ms"] > 0

@@ -16,7 +16,10 @@ sampler's plain version (``_sample_rows`` and ``gather_weight_ref``):
     check holds the kernel to (the plain version sums in torch's order
     and calls torch's acos and pow);
   * the fixed float32 sum order against torch.sum and a float64 sum, the
-    same bits on every call.
+    same bits on every call;
+  * the streaming fallback (``n_live``): the draw a slot of table 0's
+    live prefix, the id ``order[0, slot]``, p = 1/n_live and the weights
+    1/(p n_live), on walks that mostly miss.
 
 It also checks that every ported family maps to a collision law the
 kernel knows, and that the model's constants are the source's.
@@ -141,9 +144,11 @@ def weight(p, p_floor, n):
 
 
 def model(draws, lo, hi, order, x, queries, law, k, masks, store=None,
-          p_floor=1e-8):
+          p_floor=1e-8, n_live=None):
     """Every block of one draw_assemble launch: the result fields (B, m),
-    and with a store the rows (B·m, W) and weights (B·m,)."""
+    and with a store the rows (B·m, W) and weights (B·m,).  With
+    ``n_live`` the fallback draw is a slot of order[0, :n_live] and the
+    fallback p and the weights' N are n_live's."""
     tables, slot_u, fb = (np.asarray(a) for a in draws)
     b, m, p = tables.shape
     j = len(masks)
@@ -159,11 +164,15 @@ def model(draws, lo, hi, order, x, queries, law, k, masks, store=None,
             first, t, lov, size, _ = walk(tables[bi, r], lo[bi], hi[bi], j)
             if first >= 0:
                 idx = int(order[t, lov + slot_of(slot_u[bi, r], size)])
+            elif n_live is not None:
+                assert 0 <= fb[bi, r] < n_live
+                idx = int(order[0, fb[bi, r]])
             else:
                 idx = int(fb[bi, r])
             assert 0 <= idx < n
             cp = law_cp(law, *block_sums(x[idx], queries[bi]))
-            pr = prob(cp, first, size, j, k, popc, F32(1.0 / n))
+            pr = prob(cp, first, size, j, k, popc,
+                      F32(1.0 / (n if n_live is None else n_live)))
             found = first >= 0
             vals = dict(indices=idx, probs=pr,
                         n_probes=first // j + 1 if found else p,
@@ -173,7 +182,7 @@ def model(draws, lo, hi, order, x, queries, law, k, masks, store=None,
                 out[key][bi, r] = val
             if store is not None:
                 rows.append(store[idx])
-                w.append(weight(pr, p_floor, n))
+                w.append(weight(pr, p_floor, n if n_live is None else n_live))
     if store is None:
         return out, None, None
     return out, np.stack(rows), np.array(w, F32)
@@ -209,7 +218,7 @@ def _masks(k, j):
     return probe_masks(k, j) if j > 1 else (0,)
 
 
-def _plain(c, family, k, masks, p_floor=1e-8):
+def _plain(c, family, k, masks, p_floor=1e-8, n_live=None):
     """The sampler's plain composition on the case (CPU tensors)."""
     params = LSHParams(k=k, l=c["lo"].shape[2], dim=c["x"].shape[1],
                        family=family)
@@ -217,17 +226,17 @@ def _plain(c, family, k, masks, p_floor=1e-8):
     return draw_assemble_plain(
         c["draws"], t(c["lo"]), t(c["hi"]), t(c["order"]), t(c["x"]),
         t(c["q"]), params, c["draws"].tables.shape[2], masks,
-        t(c["store"]), p_floor)
+        t(c["store"]), p_floor, n_live)
 
 
-def _hold(c, family, k, j, p_floor=1e-8):
+def _hold(c, family, k, j, p_floor=1e-8, n_live=None):
     """The model against the plain composition: integer fields and rows
     bitwise, p and w within RTOL.  Returns the model's fields."""
     masks = _masks(k, j)
-    want, rows_w, w_w = _plain(c, family, k, masks, p_floor)
+    want, rows_w, w_w = _plain(c, family, k, masks, p_floor, n_live)
     got, rows, w = model(c["draws"], c["lo"], c["hi"], c["order"], c["x"],
                          c["q"], get_family(family).cp_law, k, masks,
-                         c["store"], p_floor)
+                         c["store"], p_floor, n_live)
     for key in ("indices", "n_probes", "bucket_sizes", "fallback",
                 "probe_code"):
         np.testing.assert_array_equal(got[key], getattr(want, key).numpy(),
@@ -334,6 +343,45 @@ def test_walk_rounds():
         lo = np.zeros((j, 10), np.int32)
         ts = rng.integers(0, 10, 200)
         assert walk(ts, lo, lo, j)[4] == most
+
+
+def _live(c, n_live, empty=0.97):
+    """The case on a streaming index: the bounds inside the live prefix
+    [0, n_live), most buckets empty, the fallback draws in [0, n_live)."""
+    rng = np.random.default_rng(n_live)
+    b, j, l = c["lo"].shape
+    size = rng.integers(1, 6, (b, j, l))
+    size[rng.random((b, j, l)) < empty] = 0
+    size = np.minimum(size, n_live)
+    lo = rng.integers(0, n_live - size + 1)
+    fb = torch.from_numpy(rng.integers(0, n_live, c["draws"].slot_u.shape))
+    c = _edit(c, lo=lo.astype(np.int32), hi=(lo + size).astype(np.int32))
+    c["draws"] = c["draws"]._replace(fallback=fb)
+    return c
+
+
+@pytest.mark.parametrize("j", [1, 3])
+@pytest.mark.parametrize("n_live", [1, 37, 300])
+def test_live_prefix_fallback(n_live, j):
+    """The streaming fallback: order[0, draw] over the live prefix, p =
+    1/n_live and weights 1/(p n_live), against the plain composition."""
+    c = _live(_case(60 + n_live, b=3, m=6, j=j, p=30), n_live)
+    got, w = _hold(c, "dense", 5, j, n_live=n_live)
+    fb = got["fallback"]
+    assert fb.any() and (~fb).any() or n_live == 1
+    live_ids = set(c["order"][0, :n_live].tolist())
+    assert set(got["indices"][fb].tolist()) <= live_ids
+    np.testing.assert_array_equal(got["probs"][fb], F32(1.0 / n_live))
+    _, _, w_plain = _plain(c, "dense", 5, _masks(5, j), n_live=n_live)
+    np.testing.assert_array_equal(
+        w_plain.numpy().reshape(fb.shape)[fb],
+        F32(1) / F32(F32(1.0 / n_live) * F32(n_live)))
+
+
+def test_live_count_is_a_host_int():
+    c = _case(13)
+    with pytest.raises(TypeError, match="Python int"):
+        _plain(c, "dense", 5, (0,), n_live=torch.tensor(100))
 
 
 # -- the probability and the weight --------------------------------------------

@@ -165,6 +165,23 @@ class TestSampleGather:
         assert gb.tokens.shape == (4, 9) and gb.targets.shape == (4, 9)
         np.testing.assert_array_equal(n(gb.targets),
                                       store[n(gb.indices), 1:10])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        # n_live is the host's live count: a tensor would sync each step
+        with pytest.raises(TypeError, match="Python int"):
             T.sample_gather(g, tindex, t(x), t(x[1]), t(store), tp, m=4,
                             n_live=torch.tensor(100))
+        # a streaming index (slots 200.. empty): the reference's draws,
+        # the live-prefix fallback and the weights 1/(p n_live)
+        live = np.arange(300) < 200
+        jidx = J.mutate_index(None, J.IndexMutation(
+            "build", key=jax.random.PRNGKey(5), x_aug=x,
+            live_mask=jnp.asarray(live)), params)
+        key = jax.random.PRNGKey(9)
+        want = J.sample_gather(key, jidx, x, -x[3], jnp.asarray(store),
+                               params, m=16, normalize=False,
+                               use_pallas=False, n_live=jnp.int32(200))
+        got = T.sample_gather(
+            None, convert.index_from_numpy(*jidx), t(x), t(-x[3]), t(store),
+            tp, m=16, normalize=False, n_live=200,
+            draws=jax_sample_draws(key, 16, 16, 8, 300, n_live=200))
+        _assert_batch(got, want)
+        assert (n(got.indices) < 200).all()

@@ -20,8 +20,9 @@ and the corpus from numpy seeds.  Tolerances:
     batches, within a 3-sigma band (statistical).
 """
 
-import io
 import contextlib
+import dataclasses
+import io
 import math
 
 import jax
@@ -408,11 +409,30 @@ class TestPipeline:
                 assert torch.equal(ba[k], bb[k])
 
     def test_not_ported_config_raises(self):
+        """The streaming, delta, async, watchdog and health knobs are
+        ported: each config is the reference's, field for field, and the
+        reference's invalid values raise as there.  What stays unported,
+        the legacy closure hooks, raises."""
+        from repro_torch.data.health import HealthConfig
         for kw in ({"refresh_mode": "delta"}, {"refresh_async": True},
                    {"window": 8}, {"streaming": True},
-                   {"refresh_timeout": 1.0}, {"health": object()}):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                   {"refresh_timeout": 1.0},
+                   {"health": HealthConfig(recover_after=5)}):
+            got = dataclasses.asdict(LSHPipelineConfig(**kw))
+            want = dataclasses.asdict(JD.LSHPipelineConfig(**{
+                k: (JD.HealthConfig(**dataclasses.asdict(v))
+                    if k == "health" else v) for k, v in kw.items()}))
+            assert got == want
+        for kw in ({"window": 0}, {"streaming": True, "min_capacity": 3},
+                   {"streaming": True, "k": 32},
+                   {"refresh_mode": "incremental"}):
+            with pytest.raises(ValueError):
                 LSHPipelineConfig(**kw)
+            with pytest.raises(ValueError):
+                JD.LSHPipelineConfig(**kw)
+        with pytest.raises(NotImplementedError, match="legacy closure"):
+            LSHSampledPipeline(0, np.zeros((4, 3), np.int32), None, None,
+                               LSHPipelineConfig(), device="cpu")
 
     @pytest.mark.statistical
     def test_weighted_estimate_is_unbiased(self, model):
