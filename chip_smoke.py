@@ -117,6 +117,40 @@ The streaming slice adds:
       code; the delta refreshes' rows and device ms, the append ms per
       row, the steady step p50 and the peak memory.
 
+The banded slice (the mips_banded family and the LSH decode head) adds:
+  2e. draw_assemble's band mode against the plain composition on the
+      card with the same draws: the LGD shape with mips_banded
+      (N 463,715, K 5, L 100, nb 8, B in {1, 16}, J in {1, 3}, m 16,
+      P 200), the head shape (N 200,064, aug d 3,074, K 12, L 8, J 3,
+      B 4, m 32, P 16) and a streaming row with band 3 evicted empty;
+      ids, walk results and bands bitwise, p within DRAW_RTOL, two calls
+      bitwise equal, registers and spills, timed beside the plain
+      composition, and the flat 2d main row beside PERF.md's time;
+  3e. a small-input check, card against CPU: phi4-mini SMOKE (f32) with
+      the same weights and projections: the head index's sorted codes
+      and order bitwise (hashing the CPU's x_aug), the shortlist ids and
+      valid bitwise, 8 lsh_decode_step tokens equal; and (in phase 3's
+      loop) a mips_banded LGD index build and 20 steps with the same
+      draws;
+  4e. the serve path with ``--head lsh`` at full width, on 4b's model:
+      phi4-mini FULL in bf16, B 4, prompt 2,048, 512 greedy steps through
+      the functions ``python -m repro_torch.serve --size full --head
+      lsh`` calls, counts set to 0 just before the index build and read
+      after the run (flash_attention 32, flash_decode 16,384,
+      bucket_probe_codes one per emitted token, simhash 1); every token
+      in the vocabulary and equal to the masked argmax recomputed in f32
+      over its own candidates; the index build time, decode p10/p50
+      beside 4b's, the head's device ms beside the full lm_logits, a
+      profile of 20 steady steps, the first tokens' agreement with the
+      full head, recall@1 on 256 planted queries, peak memory; then
+      mips_banded x mp {0, 2} through phase 4's LGD path (300 steps,
+      draw_assemble 300, bucket_probe_codes >= 300, losses finite; the
+      loss trend reported, not gated: on a pareto-noise corpus the
+      reference's own banded loss rises where plain mips falls, and the
+      port follows it, as tests/test_torch_banded.py shows), and 300
+      banded steps on the card, each from the CPU's state, held against
+      the CPU's plain step on the same data, index and draws.
+
 Imports torch, numpy and repro_torch only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
 result.  The last line is the JSON result; the lines before it carry
@@ -140,6 +174,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_TRAIN = 463_715          # public YearPredictionMSD train split
 STEPS = 300
 FAMILIES = ("quadratic", "srp", "mips")
+# the banded slice: the LM head's vocabulary at phi4-mini FULL, and the
+# planted queries of 4e's recall (tests/test_sampled_softmax.py:219)
+HEAD_ROWS, RECALL_QUERIES = 200_064, 256
 
 
 def fail(msg: str):
@@ -418,7 +455,7 @@ def streaming_card_vs_cpu(torch, np, dev, cfg_t, seq: int = 64) -> dict:
     3c), drawn ids bitwise, weights within rtol 1e-5, and a second
     restore_at(t) bitwise the first."""
     from repro_torch import kernels
-    from repro_torch.core import LSHIndex, SampleDraws, draw_samples, \
+    from repro_torch.core import LSHIndex, draw_samples, \
         hash_points
     from repro_torch.data import (
         LSHPipelineConfig, LSHSampledPipeline, lm_head_query_fn,
@@ -502,8 +539,7 @@ def streaming_card_vs_cpu(torch, np, dev, cfg_t, seq: int = 64) -> dict:
                           cpu.lsh.l, cpu.n_live, "cpu")
         q = cpu.family.augment_query(lm_c.lm_head_query().detach())
         bt = {"cpu": cpu.next_batch(query=q, draws=dr),
-              "cuda": gpu.next_batch(query=q.to(dev), draws=SampleDraws(
-                  *(x.to(dev) for x in dr)))}
+              "cuda": gpu.next_batch(query=q.to(dev), draws=dr.to(dev))}
         if step in (4, 8):
             compare(f"delta refresh swapped in at step {step}")
         for kk in ("tokens", "example_ids"):
@@ -664,6 +700,216 @@ def streaming_full_width(torch, np, dev, cfg_f, model, feature_batch) -> dict:
         launches=launched)
 
 
+def serve_lsh_full_width(torch, np, dev, cfg_f, lm_f, prompts, full_first,
+                         full) -> dict:
+    """Phase 4e: ``--head lsh`` through ``serve.build_head`` and
+    ``serve.generate`` on 4b's model (module docstring)."""
+    from repro_torch import kernels, serve
+    from repro_torch.models import lsh_decode_step
+    from repro_torch.models import sampled_softmax as ssm
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    head, build_s = serve.build_head(lm_f)
+    # every emitted token's hidden state and token, kept on the card
+    seen, orig = [], ssm.lsh_head_tokens
+
+    def recorded(lm, h, head):
+        tok = orig(lm, h, head)
+        seen.append((h, tok))
+        return tok
+
+    ssm.lsh_head_tokens = serve.lsh_head_tokens = recorded
+    try:
+        t0 = time.perf_counter()
+        out = serve.generate(lm_f, prompts, SERVE_NEW, head)
+        wall_s = time.perf_counter() - t0
+    finally:
+        ssm.lsh_head_tokens = serve.lsh_head_tokens = orig
+    served = dict(kernels.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emitted = SERVE_NEW + 1
+    want = {"flash_attention": cfg_f.n_layers,
+            "flash_decode": cfg_f.n_layers * SERVE_NEW,
+            "bucket_probe_codes": emitted, "simhash": 1}
+    got = {kk: served[kk] for kk in want}
+    if got != want or served["draw_assemble"] or served["bucket_probe"]:
+        fail(f"4e launches {served}: expected {want}")
+    toks = out["tokens"]
+    if toks.shape != (SERVE_B, emitted) or len(seen) != emitted:
+        fail(f"4e: {tuple(toks.shape)} tokens, {len(seen)} head calls")
+    if not bool(((toks >= 0) & (toks < cfg_f.vocab)).all()):
+        fail("4e: a token outside the vocabulary")
+    # each token against the masked argmax recomputed in f32 over its own
+    # candidates from the (d, V) head's columns; a different id counts only
+    # where its logit is below the best by more than f32 rounding
+    lm_head, worse, exact = lm_f.embed_group.lm_head, 0, 0
+    with torch.inference_mode():
+        for h, tok in seen:
+            q = lm_f.embed_group.final_norm(h)[:, 0].float()
+            ids, valid = ssm.shortlist_candidates(
+                head.index, head._fam.augment_query(q), head.lsh, head.scfg)
+            w = lm_head.index_select(1, ids.reshape(-1)).float().reshape(
+                q.shape[1], *ids.shape)
+            lg = torch.where(valid, torch.einsum("bd,dbk->bk", q, w),
+                             float("-inf"))
+            best = lg.max(-1).values
+            mine = torch.where(ids == tok, lg, float("-inf")).max(-1).values
+            exact += int((torch.gather(ids, 1, lg.argmax(-1)[:, None])
+                          == tok).sum())
+            worse += int((best - mine > 1e-5 * best.abs().clamp_min(
+                1.0)).sum())
+    if worse:
+        fail(f"4e: {worse} tokens are not their candidates' argmax")
+    p10, p50 = serve.percentiles(out["step_ms"])
+    # the head alone against the full head on the last hidden states
+    h_last = seen[-1][0]
+    with torch.inference_mode():
+        head_ms = time_ms(torch, lambda: ssm.lsh_head_tokens(
+            lm_f, h_last, head), 50)
+        full_ms = time_ms(torch, lambda: lm_f.embed_group.lm_logits(
+            h_last).argmax(-1), 50)
+        # 20 steady steps under the profiler, as 5b
+        cache = lm_f.init_cache(SERVE_B, SERVE_PROMPT + 30)
+        h, cache = lm_f.prefill({"tokens": prompts}, cache)
+        tok = ssm.lsh_head_tokens(lm_f, h[:, -1:], head)
+        pos = [SERVE_PROMPT]
+
+        def decode():
+            nonlocal tok
+            step = {"tokens": tok, "positions": torch.full(
+                (SERVE_B, 1), pos[0], dtype=torch.int32, device=dev)}
+            tok, _ = lsh_decode_step(lm_f, step, cache, head)
+            pos[0] += 1
+
+        for _ in range(5):
+            decode()
+        prof = trace_steps(torch, decode, 20)
+        del cache, h
+        # recall@1 on planted queries: head rows plus 0.1 sigma noise
+        g = torch.Generator(device=dev).manual_seed(30)
+        rows = head.rows.float()
+        sigma = float(rows.std())
+        winners = torch.randint(0, cfg_f.vocab, (RECALL_QUERIES,),
+                                generator=g, device=dev)
+        q = rows[winners] + 0.1 * sigma * torch.randn(
+            (RECALL_QUERIES, rows.shape[1]), generator=g, device=dev)
+        del rows
+        hits, head_f = 0, lm_head.float()
+        for i in range(0, RECALL_QUERIES, 16):
+            qc = q[i:i + 16]
+            true = (qc @ head_f).argmax(-1)
+            ids, valid = ssm.shortlist_candidates(
+                head.index, head._fam.augment_query(qc), head.lsh, head.scfg)
+            lg = ssm.shortlist_logits(head.rows, qc, ids, valid)
+            hits += int((torch.gather(ids, 1, lg.argmax(-1)[:, None])[:, 0]
+                         == true).sum())
+        del head_f
+    return dict(
+        arch=cfg_f.name, batch=SERVE_B, prompt=SERVE_PROMPT,
+        new_tokens=SERVE_NEW, rows=head.index.n_points,
+        tables=head.index.n_tables, k=head.lsh.k,
+        code_width=head._fam.code_width(head.lsh.k),
+        candidates_per_token=serve.shortlist_size(head.scfg),
+        index_build_s=build_s, prefill_s=out["prefill_s"],
+        decode_ms_p10=p10, decode_ms_p50=p50,
+        full_decode_ms_p10=full["decode_ms_p10"],
+        full_decode_ms_p50=full["decode_ms_p50"],
+        first_step_ms=out["step_ms"][0], wall_s=wall_s,
+        head_ms=head_ms["ms"], head_loop_ms=head_ms["loop_ms"],
+        full_head_ms=full_ms["ms"], full_head_loop_ms=full_ms["loop_ms"],
+        profile=prof, tokens_argmax_exact=exact,
+        tokens_checked=emitted * SERVE_B,
+        agree_with_full_first_token=float(
+            (toks[:, 0] == full_first[:, 0]).float().mean()),
+        agree_with_full_first_decode_step=float(
+            (toks[:, 1] == full_first[:, 1]).float().mean()),
+        recall_at_1=hits / RECALL_QUERIES, recall_queries=RECALL_QUERIES,
+        peak_mem_gb=peak_gb, launches=got,
+        sample_row=toks[0, :12].tolist())
+
+
+def banded_card_vs_cpu(torch, dev, ds, mp: int) -> dict:
+    """Phase 4e: the mips_banded LGD step at N_TRAIN on the card against
+    the CPU's plain path, STEPS times, each step from the CPU's state with
+    the same data, projections, index and draws (the card takes the CPU's
+    index, as phase 3 does when a near-zero projection flips a code).  At
+    every step: the draw's integers (ids, probes, bucket sizes, probe
+    codes, fallbacks) equal; each p within DRAW_RTOL times its float32
+    condition number 1 + K(l-1)Q/(1-Q) (Q the per-table hit probability:
+    1 - Q cancels when Q is near 1, on both sides); and the card's theta
+    within phase 3's rtol 1e-4, atol 1e-6 of the CPU's step taken with
+    the card's p.  Free-running paths are not compared: the query is made
+    from theta, so such a p difference moves every later draw's p."""
+    from repro_torch.core import LGDState, draw_samples, init, lgd_step, \
+        probe_masks, sample
+    from repro_torch.core import estimator as est
+    from repro_torch.core.sampler import popcounts
+    from repro_torch.quickstart import make_problem
+
+    problem, opt = make_problem("mips_banded", mp, "sgd")
+    lsh, fam, n = problem.lsh, problem.family, ds.x_train.shape[0]
+    gcpu = torch.Generator().manual_seed(7)
+    proj = fam.mask_projections(torch.randn((lsh.dim, lsh.l * lsh.k),
+                                            generator=gcpu))
+    st_c, xt_c, yt_c, xa_c = init(None, problem, ds.x_train.cpu(),
+                                  ds.y_train.cpu(), opt, projections=proj)
+
+    def to_dev(t):
+        return None if t is None else t.to(dev)
+
+    index_g = type(st_c.index)(*map(to_dev, st_c.index))
+    xt_g, yt_g, xa_g = xt_c.to(dev), yt_c.to(dev), xa_c.to(dev)
+    rs = popcounts(probe_masks(lsh.k, 1 + mp), "cpu")
+    worst_p = worst_theta = max_kappa = 0.0
+    for step in range(STEPS):
+        dr = draw_samples(gcpu, (problem.minibatch,), max(2 * lsh.l, 8),
+                          lsh.l, n, "cpu", bands=True)
+        th = st_c.theta
+        q = problem.query_fn()(th)
+        r_c = sample(None, st_c.index, xa_c, q, lsh, m=problem.minibatch,
+                     multiprobe=mp, draws=dr)
+        # the card's own query, as its lgd_step below makes it
+        r_g = type(r_c)(*(f.cpu() for f in sample(
+            None, index_g, xa_g, problem.query_fn()(th.to(dev)), lsh,
+            m=problem.minibatch, multiprobe=mp, draws=dr.to(dev))))
+        for field in ("indices", "n_probes", "bucket_sizes", "probe_code",
+                      "fallback"):
+            if not torch.equal(getattr(r_g, field), getattr(r_c, field)):
+                fail(f"mips_banded/mp{mp} step {step}: the card's draw "
+                     f"{field} differs from the CPU's")
+        cp = fam.collision_prob(xa_c[r_c.indices], q[None])
+        hit = fam.probe_class_probs(cp[..., None], lsh.k, rs).sum(-1)
+        kappa = torch.where(r_c.fallback, 1.0, 1.0 + lsh.k * (
+            r_c.n_probes - 1) * hit / torch.clamp(1.0 - hit, min=1e-30))
+        max_kappa = max(max_kappa, float(kappa.max()))
+        p_err = float(((r_g.probs - r_c.probs).abs()
+                       / (DRAW_RTOL * kappa * r_c.probs)).max())
+        worst_p = max(worst_p, p_err)
+        # the CPU's step with the card's p, and the card's whole step
+        grad = est.lgd_gradient(problem.grad_fn(), th, xt_c[r_c.indices],
+                                yt_c[r_c.indices], r_g, n, problem.p_floor)
+        upd, _ = opt.update(grad, st_c.opt_state, th)
+        st_g, _ = lgd_step(None, LGDState(
+            to_dev(th), type(st_c.opt_state)(*map(to_dev, st_c.opt_state)),
+            index_g, to_dev(st_c.step)), xt_g, yt_g, xa_g, problem, opt,
+            draws=dr.to(dev))
+        want = th + upd
+        worst_theta = max(worst_theta, float(
+            ((st_g.theta.cpu() - want).abs()
+             / (1e-6 + 1e-4 * want.abs())).max()))
+        st_c, _ = lgd_step(None, st_c, xt_c, yt_c, xa_c, problem, opt,
+                           draws=dr)
+    out = dict(steps=STEPS, p_diff_over_tol=worst_p, max_condition=max_kappa,
+               theta_diff_over_tol=worst_theta)
+    if worst_p > 1.0 or worst_theta > 1.0:
+        fail(f"mips_banded/mp{mp}: LGD steps on the card differ from the "
+             f"CPU's: {out}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -701,7 +947,7 @@ def main() -> int:
             decode_chunk, decode_smem_bytes, prefill_bf16_smem_bytes,
             sm_count)
         from repro_torch.models import LM
-        from repro_torch.core import LSHIndex, LSHParams, SampleDraws
+        from repro_torch.core import LSHIndex, LSHParams
         from repro_torch.data import (
             LSHPipelineConfig, LSHSampledPipeline, lm_head_query_fn,
             make_token_corpus, mean_pool_feature_fn)
@@ -1188,17 +1434,21 @@ def main() -> int:
     draw_use = {fn: u for fn, u in build.ptxas_usage(
         build.build_log("gather_weight")).items()
         if "draw_assemble_kernel" in fn}
-    if len(draw_use) != 2 or any(u["spill_stores"] or u["spill_loads"]
+    # four instantiations: 4- and 16-byte row copies, flat and band mode
+    if len(draw_use) != 4 or any(u["spill_stores"] or u["spill_loads"]
                                  for u in draw_use.values()):
-        fail(f"draw_assemble: not two ptxas lines, or a spill: {draw_use}")
-    draw_regs = {("int4" if "int4" in fn else "int32"): u["registers"]
+        fail(f"draw_assemble: not four ptxas lines, or a spill: {draw_use}")
+    draw_regs = {("int4" if "int4" in fn else "int32")
+                 + (" band" if "Lb1E" in fn else ""): u["registers"]
                  for fn, u in draw_use.items()}
     print("draw_assemble ptxas " + json.dumps(draw_use), flush=True)
 
-    def draw_row(tag, args, x_, q_, law):
+    def draw_row(tag, args, x_, q_, law, d_law=None):
         """Hold draw_assemble against the plain composition on ``args``,
         check that two calls give the same bits, time both; the bound
-        counts what this draw's walks and rows touch."""
+        counts what this draw's walks and rows touch.  ``d_law``: the
+        leading coordinates the law reads (a banded row's band id is
+        not geometry)."""
         got = draw_assemble(*args)
         again = draw_assemble(*args)
         want = draw_assemble_plain(*args)
@@ -1224,7 +1474,7 @@ def main() -> int:
         worst = int(rel.argmax())
         ids = res.indices.reshape(-1)
         qb = q_[torch.arange(ids.numel(), device=dev) // res.indices.shape[1]]
-        xd, qd = x_[ids].double(), qb.double()
+        xd, qd = x_[ids, :d_law].double(), qb[:, :d_law].double()
         cos = (xd * qd).sum(-1) / (xd.norm(dim=-1) * qd.norm(dim=-1))
         if law == "quadratic":
             cos = cos * cos
@@ -1246,9 +1496,10 @@ def main() -> int:
                 fail(f"draw_assemble {tag}: weights differ by "
                      f"{out['max_rel_err_w']:.3g}")
         # the bytes the draw needs: each block's walked table draws and
-        # bounds, its order entry, slot_u and fallback draw, its x row
-        # once per distinct id, the queries, the results; with a store its
-        # row read once per distinct id and written once a block
+        # bounds, its order entry, slot_u, on a miss its fallback draw,
+        # its x row once per distinct id, the queries, the results; with
+        # a store its row read once per distinct id and written once a
+        # block
         jj = len(args[8])
         found = ~res.fallback
         walked = torch.where(found, (res.n_probes - 1) * jj
@@ -1257,10 +1508,16 @@ def main() -> int:
         draws_read = res.n_probes.sum()
         uniq = int(torch.unique(ids).numel())
         blocks = ids.numel()
+        misses = blocks - int(found.sum())
         d_ = x_.shape[1]
         nbytes = (int(draws_read) * 8 + int(walked) * 8
-                  + int(found.sum()) * 8 + blocks * (4 + 8 + 25)
+                  + int(found.sum()) * 8 + blocks * (4 + 25)
                   + uniq * d_ * 4 + q_.numel() * 4)
+        if len(args) > 12 and args[12] is not None:   # band mode: starts,
+            # band_u; on a miss fallback_u and order[0, slot]
+            nbytes += blocks * (args[12].numel() * 4 + 4) + misses * 12
+        else:                           # on a miss the fallback id
+            nbytes += misses * 8
         if got[1] is not None:
             nbytes += (uniq + blocks) * got[1].shape[1] * 4 + blocks * 4
         nb, fl = bound(nbytes, 6.0 * d_ * blocks)
@@ -1354,17 +1611,127 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
         library_ms=None)
 
+    # -- 2e. draw_assemble's band mode against the plain composition -------
+    from repro_torch.core import band_starts, bucket_bounds_banded, \
+        query_codes
+    from repro_torch.core.families import get_family
+    from repro_torch.core.tables import _band_probe_bits
+    report["band_rows"] = []
+
+    def band_row(tag, index_b, xa_b, q_b, lsh_b, m, p_max, j, live=None,
+                 reps=100):
+        """A banded draw on ``index_b``: the probe of every band, the
+        starts, the band mode held against the plain composition; the
+        bands drawn (from the plain version's ids) compared too."""
+        masks = probe_masks(lsh_b.k, j)
+        lo, hi = bucket_bounds_banded(index_b, q_b, lsh_b, masks)
+        starts = band_starts(index_b, lsh_b)
+        dr = draw_samples(gd, (q_b.shape[0], m), p_max, lsh_b.l,
+                          index_b.n_points, dev, bands=True)
+        args = (dr, lo, hi, index_b.order, xa_b, q_b, lsh_b, p_max, masks,
+                None, 1e-8, None, starts)
+        row = draw_row(tag, args, xa_b, q_b, "angle",
+                       d_law=xa_b.shape[1] - 1)
+        res = draw_assemble(*args)[0]
+        want = draw_assemble_plain(*args)[0]
+        bands = [xa_b[r.indices.reshape(-1), -1].round().long()
+                 for r in (res, want)]
+        if not torch.equal(*bands):
+            fail(f"draw_assemble band mode {tag}: the bands drawn differ")
+        if live is not None and not bool(live[res.indices].all()):
+            fail(f"draw_assemble band mode {tag}: drew an evicted row")
+        row.update(name="draw_assemble", mode="band", family="mips_banded",
+                   B=q_b.shape[0], J=j, m=m, P=p_max,
+                   nb=starts.numel() - 1,
+                   bands_drawn=torch.bincount(
+                       bands[0], minlength=starts.numel() - 1).tolist(),
+                   regs=draw_regs["int32 band"], spill=0)
+        report["band_rows"].append(row)
+        print("draw-band " + json.dumps(row), flush=True)
+        # the probe of this draw alone: every band's probe codes, one
+        # bucket_probe_codes launch, against its plain version
+        marr, tags = _band_probe_bits(tuple(masks), starts.numel() - 1,
+                                      lsh_b.k, dev)
+        qc = query_codes(index_b, q_b, lsh_b)
+        pc = ((qc[:, None, None, :] ^ marr[None, None, :, None])
+              | tags[None, :, None, None]).reshape(-1, lsh_b.l).contiguous()
+        sc_b = index_b.sorted_codes
+        got_p = bucket_probe_codes_cuda(pc, sc_b)
+        want_p = bucket_probe_codes_ref(pc, sc_b)
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got_p, want_p)):
+            fail(f"bucket_probe_codes disagrees on the banded codes ({tag})")
+        lv = math.floor(math.log2(index_b.n_points))
+        nb_p, fl_p = bound(pc.numel() * (2 * lv * 8 + 2 * 4), 0.0)
+        pct = pc.T.contiguous()
+        prow = dict(name="bucket_probe_codes", shape=tag, codes=pc.numel(),
+                    max_abs_err=0, bound_ms=nb_p, bound_by=fl_p,
+                    **probe_regs("bucket_probe_codes"), **timings(
+                        lambda: bucket_probe_codes_cuda(pc, sc_b),
+                        lambda: bucket_probe_codes_ref(pc, sc_b),
+                        lambda: two_searches(pct, sc_b), 100))
+        report["band_rows"].append(prow)
+        print("probe-band " + json.dumps(prow), flush=True)
+
+    prob_b, _ = make_problem("mips_banded", 0, "sgd")
+    _, _, xa_b = prob_b.preprocess(ds.x_train, ds.y_train)      # (N, 93)
+    idx_b = mutate_index(None, IndexMutation(
+        "build", generator=gd, x_aug=xa_b,
+        live_mask=torch.ones(n, dtype=torch.bool, device=dev)), prob_b.lsh)
+    for b in (1, 16):
+        theta = 0.1 * torch.randn((b, d - 1), generator=gd, device=dev)
+        q_b = prob_b.query_fn()(theta).contiguous()
+        for j in (1, 3):
+            band_row(f"mips_banded, B {b}, J {j}", idx_b, xa_b, q_b,
+                     prob_b.lsh, 16, 2 * l, j)
+    # the streaming row: every row of band 3 evicted, its region empty
+    fam_b = get_family("mips_banded")
+    gone = torch.nonzero(xa_b[:, -1] == 3).flatten()
+    idx_e = evict_rows(idx_b, gone)
+    st_e = band_starts(idx_e, prob_b.lsh)
+    if int(st_e[4] - st_e[3]) != 0 or int(st_e[-1]) != n - gone.numel():
+        fail(f"band 3 not empty after its evict: starts {st_e.tolist()}")
+    live_e = torch.ones(n, dtype=torch.bool, device=dev)
+    live_e[gone] = False
+    q_b = prob_b.query_fn()(0.1 * torch.randn(
+        (4, d - 1), generator=gd, device=dev)).contiguous()
+    band_row(f"streaming: band 3 evicted ({gone.numel()} rows)", idx_e,
+             xa_b, q_b, prob_b.lsh, 16, 2 * l, 1, live=live_e)
+    del idx_b, idx_e, xa_b, live_e
+    # the head shape: a (V, d) head of phi4-mini's width from a seeded
+    # generator, drawn as the sampled-softmax loss would (K 12, L 8, J 3)
+    d_head_rows = 3072
+    rows_h = torch.randn((HEAD_ROWS, d_head_rows), generator=gd,
+                         device=dev) * d_head_rows ** -0.5
+    xa_h = fam_b.augment_data(rows_h, scale=fam_b.data_scale(rows_h))
+    lsh_h = LSHParams(k=12, l=8, dim=d_head_rows + 2, family="mips_banded")
+    idx_h = mutate_index(None, IndexMutation("build", generator=gd,
+                                             x_aug=xa_h), lsh_h)
+    q_h = fam_b.augment_query(torch.randn((4, d_head_rows), generator=gd,
+                                          device=dev)).contiguous()
+    band_row(f"head: N {HEAD_ROWS}, d {d_head_rows + 2}, K 12, L 8",
+             idx_h, xa_h, q_h, lsh_h, 32, 16, 3)
+    del rows_h, xa_h, idx_h
+    # the flat rows of 2d beside PERF.md's (call 19.2) time of the main row
+    report["draw_flat_vs_perf_md"] = dict(
+        ms=main_draw["ms"], perf_md_ms=0.003067,
+        ratio=main_draw["ms"] / 0.003067)
+    print("draw-flat " + json.dumps(report["draw_flat_vs_perf_md"]),
+          flush=True)
+
     # -- 3. small input: the card against the CPU's plain path --------------
     gcpu = torch.Generator().manual_seed(1)
     small = make_regression(gcpu, n_train=2000, n_test=10, d=90,
                             device="cpu")
-    for family, mp in (("quadratic", 0), ("srp", 2), ("mips", 0)):
+    # ("mips_banded", 2): phase 3e's LGD index build and 20 steps
+    for family, mp in (("quadratic", 0), ("srp", 2), ("mips", 0),
+                       ("mips_banded", 2)):
+        banded = family == "mips_banded"
         problem, opt = make_problem(family, mp, "sgd")
         proj = (torch.randn((problem.lsh.l * k, problem.lsh.dim,
                              problem.lsh.dim), generator=gcpu)
                 if family == "quadratic" else
-                torch.randn((problem.lsh.dim, problem.lsh.l * k),
-                            generator=gcpu))
+                problem.family.mask_projections(torch.randn(
+                    (problem.lsh.dim, problem.lsh.l * k), generator=gcpu)))
         # both devices start from the CPU's preprocessed data: the
         # Simple-LSH tail sqrt(1 - |x/M|^2) magnifies last-bit
         # differences of the two devices' own preprocessing
@@ -1401,11 +1768,11 @@ def main() -> int:
         for _ in range(20):
             dr = draw_samples(gcpu, (problem.minibatch,),
                               max(2 * problem.lsh.l, 8), problem.lsh.l, 2000,
-                              "cpu")
+                              "cpu", bands=banded)
             for where in ("cpu", "cuda"):
                 st, xt, yt, xa = runs[where]
                 st, _ = lgd_step(None, st, xt, yt, xa, problem, opt,
-                                 draws=type(dr)(*(t.to(where) for t in dr)))
+                                 draws=dr.to(where))
                 runs[where][0] = st
         th_c, th_g = runs["cpu"][0].theta, runs["cuda"][0].theta.cpu()
         if not torch.allclose(th_g, th_c, rtol=1e-4, atol=1e-6):
@@ -1449,7 +1816,93 @@ def main() -> int:
              f"max |diff| {err:.3g}")
     print(f"small-input check {cfg_s.name}: prefill 2x256 + 8 decode "
           f"steps, logits max |diff| card vs CPU {err:.3g}", flush=True)
-    del lm_c, lm_g
+
+    # -- 3e. small input: the LSH head on the card against the CPU ---------
+    from repro_torch.models import LMHeadIndex, lsh_decode_step
+    from repro_torch.models.sampled_softmax import (
+        lsh_head_tokens, shortlist_candidates, shortlist_logits)
+
+    scfg_s = serve.lsh_head_config(cfg_s)
+    head_c = LMHeadIndex(lm_c, scfg_s)
+    before = kernels.launches["simhash"]
+    head_g = LMHeadIndex(lm_g, scfg_s,
+                         projections=head_c.index.projections.to(dev))
+    if kernels.launches["simhash"] != before + 1:
+        fail("3e: the head index on the card was not hashed by simhash")
+    lsh_s, fam_s = head_c.lsh, head_c._fam
+    xa_err = float((head_g.x_aug.cpu() - head_c.x_aug)[:, :-2].abs().max())
+    if xa_err > 1e-5:
+        fail(f"3e: the head's x_aug on the card is {xa_err:.3g} from the "
+             f"CPU's")
+    # the card hashes the CPU's x_aug (the Simple-LSH tail magnifies the
+    # two devices' last-bit differences, ROADMAP queue 3's note)
+    proj_s = head_c.index.projections
+    idx_sg = mutate_index(None, IndexMutation(
+        "build", projections=proj_s.to(dev), x_aug=head_c.x_aug.to(dev)),
+        lsh_s)
+    near = ((head_c.x_aug @ proj_s).abs() < 1e-4).reshape(
+        -1, lsh_s.l, lsh_s.k).any(-1).T
+    codes = [hash_points(head_c.x_aug, proj_s, lsh_s),
+             hash_points(head_c.x_aug.to(dev), proj_s.to(dev), lsh_s).cpu()]
+    if not torch.equal(codes[0][~near], codes[1][~near]):
+        fail("3e: head codes hashed on the card differ from the CPU's")
+    head_flips = int((codes[0] != codes[1]).sum())
+    if head_flips == 0 and not (
+            torch.equal(idx_sg.sorted_codes.cpu(), head_c.index.sorted_codes)
+            and torch.equal(idx_sg.order.cpu(), head_c.index.order)):
+        fail("3e: the head index built on the card differs from the CPU's")
+    # from here both hold the CPU's index
+    head_g.index = LSHIndex(*(x.to(dev) for x in head_c.index))
+    head_g.x_aug = head_c.x_aug.to(dev)
+    qs = torch.randn((4, cfg_s.d_model),
+                     generator=torch.Generator().manual_seed(8))
+    sl = [shortlist_candidates(hd.index, fam_s.augment_query(qs.to(where)),
+                               lsh_s, scfg_s)
+          for hd, where in ((head_c, "cpu"), (head_g, dev))]
+    if not (torch.equal(sl[0][0], sl[1][0].cpu())
+            and torch.equal(sl[0][1], sl[1][1].cpu())):
+        fail("3e: the shortlist on the card differs from the CPU's")
+    lg_s = [shortlist_logits(hd.rows, qs.to(hd.rows.device), *ids_v)
+            for hd, ids_v in ((head_c, sl[0]), (head_g, sl[1]))]
+    lg_err = float((lg_s[1].cpu() - lg_s[0])[sl[0][1]].abs().max())
+    # 8 tokens: each side's LSH head on its own hidden state, both fed
+    # the CPU's token
+    lsh_toks, caches = {"cpu": [], "cuda": []}, {}
+    before = dict(kernels.launches)
+    with torch.inference_mode():
+        for where, lm, hd in (("cpu", lm_c, head_c), ("cuda", lm_g, head_g)):
+            caches[where] = lm.init_cache(2, 264)
+            h, _ = lm.prefill({"tokens": toks[:, :256].to(lm.device)},
+                              caches[where])
+            lsh_toks[where].append(lsh_head_tokens(lm, h[:, -1:], hd)
+                                   .cpu())
+        tok = lsh_toks["cpu"][0]
+        for i in range(7):
+            for where, lm, hd in (("cpu", lm_c, head_c),
+                                  ("cuda", lm_g, head_g)):
+                step = {"tokens": tok.to(lm.device),
+                        "positions": torch.full((2, 1), 256 + i,
+                                                device=lm.device)}
+                out, _ = lsh_decode_step(lm, step, caches[where], hd)
+                lsh_toks[where].append(out.cpu())
+            tok = lsh_toks["cpu"][-1]
+    ran = {kk: kernels.launches[kk] - before[kk]
+           for kk in ("bucket_probe_codes", "flash_attention",
+                      "flash_decode")}
+    if ran != {"bucket_probe_codes": 8, "flash_attention": cfg_s.n_layers,
+               "flash_decode": 7 * cfg_s.n_layers}:
+        fail(f"3e: the LSH head on the card did not run the kernels: {ran}")
+    tc, tg = torch.cat(lsh_toks["cpu"], 1), torch.cat(lsh_toks["cuda"], 1)
+    if not torch.equal(tc, tg):
+        fail(f"3e: LSH-head tokens on the card differ from the CPU's: "
+             f"{tg.tolist()} vs {tc.tolist()}")
+    report["smoke_lsh_head"] = dict(
+        x_aug_max_abs_diff_body=xa_err, code_flips=head_flips,
+        shortlist_logit_max_abs_diff=lg_err, tokens=tc.tolist(),
+        launches=ran)
+    print("small-input check lsh-head " + json.dumps(
+        report["smoke_lsh_head"]), flush=True)
+    del lm_c, lm_g, head_c, head_g
 
     # -- 3c. small input: LGD training on the card against the CPU ---------
     cfg_t = configs.get_smoke(SERVE_ARCH)                 # f32
@@ -1504,8 +1957,7 @@ def main() -> int:
         q = pipes["cpu"].family.augment_query(lm_c.lm_head_query().detach())
         bt = {"cpu": pipes["cpu"].next_batch(query=q, draws=dr),
               "cuda": pipes["cuda"].next_batch(
-                  query=q.to(dev), draws=SampleDraws(*(x.to(dev)
-                                                       for x in dr)))}
+                  query=q.to(dev), draws=dr.to(dev))}
         for kk in ("tokens", "targets", "example_ids"):
             if not torch.equal(bt["cuda"][kk].cpu(), bt["cpu"][kk]):
                 fail(f"SMOKE LGD batch {kk} on the card differ from the CPU's")
@@ -1539,66 +1991,74 @@ def main() -> int:
     # -- 4. the main path ---------------------------------------------------
     expect = {0: ("simhash", "bucket_probe"), 2: ("simhash",
                                                   "bucket_probe_multi")}
+
+    def lgd_path(family, mp):
+        """init + STEPS lgd_step + STEPS sgd_step at N_TRAIN for one
+        family and multiprobe: its report entry (with whether the LGD
+        loss fell), its checks and launches.  Returns the report key."""
+        before = dict(kernels.launches)
+        g = torch.Generator(device=dev).manual_seed(2)
+        problem, opt = make_problem(family, mp, "sgd")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, xt, yt, xa = init(g, problem, ds.x_train, ds.y_train, opt)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        s_lgd = s_sgd = state
+        losses = {"lgd": [], "sgd": []}
+        t_lgd, t_sgd = [], []
+        for step in range(STEPS + 1):
+            if step in (0, STEPS // 2, STEPS):
+                losses["lgd"].append(float(full_loss(s_lgd.theta, xt, yt,
+                                                     problem)))
+                losses["sgd"].append(float(full_loss(s_sgd.theta, xt, yt,
+                                                     problem)))
+            if step == STEPS:
+                break
+            t0 = time.perf_counter()
+            s_lgd, m = lgd_step(g, s_lgd, xt, yt, xa, problem, opt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            s_sgd, _ = sgd_step(g, s_sgd, xt, yt, problem, opt)
+            torch.cuda.synchronize()
+            t_lgd.append((t1 - t0) * 1e3)
+            t_sgd.append((time.perf_counter() - t1) * 1e3)
+        used = {kname: kernels.launches[kname] - before[kname]
+                for kname in kernels.launches}
+        key = f"{family}/mp{mp}"
+        report["paths"][key] = dict(
+            build_s=build_s, lgd_loss=losses["lgd"],
+            sgd_loss=losses["sgd"],
+            lgd_step_ms_p50=float(np.median(t_lgd)),
+            sgd_step_ms_p50=float(np.median(t_sgd)),
+            fallback_frac_last=float(m["fallback_frac"]),
+            bucket_size_mean_last=float(m["bucket_size_mean"]),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=used)
+        print(f"path {key} " + json.dumps(report["paths"][key]), flush=True)
+        if not all(math.isfinite(v) for v in losses["lgd"] + losses["sgd"]):
+            fail(f"{key}: non-finite loss {losses}")
+        report["paths"][key]["lgd_loss_fell"] = (
+            losses["lgd"][-1] < losses["lgd"][0])
+        want = (("bucket_probe_codes",)
+                if family in ("quadratic", "mips_banded") else expect[mp])
+        for kname in want:
+            if used[kname] < (STEPS if family == "mips_banded" else 1):
+                fail(f"{key}: kernel {kname} launched {used[kname]} times")
+        if used["draw_assemble"] != STEPS:
+            fail(f"{key}: draw_assemble launched "
+                 f"{used['draw_assemble']} times, expected {STEPS}")
+        return key
+
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     for family in FAMILIES:
         for mp in (0, 2):
-            before = dict(kernels.launches)
-            g = torch.Generator(device=dev).manual_seed(2)
-            problem, opt = make_problem(family, mp, "sgd")
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            state, xt, yt, xa = init(g, problem, ds.x_train, ds.y_train, opt)
-            torch.cuda.synchronize()
-            build_s = time.perf_counter() - t0
-            s_lgd = s_sgd = state
-            losses = {"lgd": [], "sgd": []}
-            t_lgd, t_sgd = [], []
-            for step in range(STEPS + 1):
-                if step in (0, STEPS // 2, STEPS):
-                    losses["lgd"].append(float(full_loss(s_lgd.theta, xt, yt,
-                                                         problem)))
-                    losses["sgd"].append(float(full_loss(s_sgd.theta, xt, yt,
-                                                         problem)))
-                if step == STEPS:
-                    break
-                t0 = time.perf_counter()
-                s_lgd, m = lgd_step(g, s_lgd, xt, yt, xa, problem, opt)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                s_sgd, _ = sgd_step(g, s_sgd, xt, yt, problem, opt)
-                torch.cuda.synchronize()
-                t_lgd.append((t1 - t0) * 1e3)
-                t_sgd.append((time.perf_counter() - t1) * 1e3)
-            used = {kname: kernels.launches[kname] - before[kname]
-                    for kname in kernels.launches}
-            key = f"{family}/mp{mp}"
-            report["paths"][key] = dict(
-                build_s=build_s, lgd_loss=losses["lgd"],
-                sgd_loss=losses["sgd"],
-                lgd_step_ms_p50=float(np.median(t_lgd)),
-                sgd_step_ms_p50=float(np.median(t_sgd)),
-                fallback_frac_last=float(m["fallback_frac"]),
-                bucket_size_mean_last=float(m["bucket_size_mean"]),
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                launches=used)
-            print(f"path {key} " + json.dumps(report["paths"][key]),
-                  flush=True)
-            if not all(math.isfinite(v) for v in
-                       losses["lgd"] + losses["sgd"]):
-                fail(f"{key}: non-finite loss {losses}")
-            if not losses["lgd"][-1] < losses["lgd"][0]:
-                fail(f"{key}: LGD loss did not fall {losses['lgd']}")
-            want = (("bucket_probe_codes",) if family == "quadratic"
-                    else expect[mp])
-            for kname in want:
-                if used[kname] <= 0:
-                    fail(f"{key}: kernel {kname} was never launched")
-            if used["draw_assemble"] != STEPS:
-                fail(f"{key}: draw_assemble launched "
-                     f"{used['draw_assemble']} times, expected {STEPS}")
-            del state, s_lgd, s_sgd, xt, yt, xa
+            key = lgd_path(family, mp)
+            if not report["paths"][key]["lgd_loss_fell"]:
+                fail(f"{key}: LGD loss did not fall "
+                     f"{report['paths'][key]['lgd_loss']}")
     counts = dict(kernels.launches)
     for kname in LGD_KERNELS:
         if counts[kname] <= 0:
@@ -1695,6 +2155,7 @@ def main() -> int:
                  f"{c['ref_vs_gold']:.3g}")
     report["serve_check"] = check
     print("serve-check " + json.dumps(check), flush=True)
+    full_first = gen_out["tokens"][:, :2].clone()   # 4e compares with it
     del runs, gen_out
 
     # -- 5. where an LGD step's time goes (after the counts are read) -------
@@ -1728,7 +2189,27 @@ def main() -> int:
         report["profile"]["serve_decode"] = prof
     print("profile serve/decode " + json.dumps(
         report["profile"]["serve_decode"]), flush=True)
-    del cache, h, lm_f
+    del cache, h
+
+    # -- 4e. the serve path with --head lsh at full width (4b's model) ------
+    report["serve_lsh"] = serve_lsh_full_width(
+        torch, np, dev, cfg_f, lm_f, prompts, full_first, report["serve"])
+    print("serve-lsh " + json.dumps(report["serve_lsh"]), flush=True)
+    del lm_f, prompts
+    # mips_banded through phase 4's LGD path, its counts read on their own.
+    # Its loss trend is reported, not gated: on a pareto corpus the
+    # reference's own banded loss rises at both multiprobe settings where
+    # plain mips falls, and the port follows it step for step
+    # (tests/test_torch_banded.py::TestBandedDraws::
+    # test_quickstart_loss_trend_on_a_pareto_corpus).  Each of 300 card
+    # steps is held against the CPU's plain step from the same state
+    for mp in (0, 2):
+        lgd_path("mips_banded", mp)
+        report["paths"][f"mips_banded/mp{mp}"]["card_vs_cpu"] = \
+            banded_card_vs_cpu(torch, dev, ds, mp)
+        print(f"path mips_banded/mp{mp} card-vs-cpu " + json.dumps(
+            report["paths"][f"mips_banded/mp{mp}"]["card_vs_cpu"]),
+            flush=True)
 
     # -- 4c. the train path at full width -----------------------------------
     torch.cuda.synchronize()

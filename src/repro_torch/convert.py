@@ -13,9 +13,12 @@ cross bit for bit; numpy has no bf16 of its own, so they come back as
 f32, which holds every bf16 value exactly.
 
 Packed codes are uint32 in the reference and int64 in [0, 2^32) in the
-port; ``order`` is int32 there and int64 here.  Optimiser states of a
-single tensor map by class name (``SGDState``, ``AdaGradState``,
-``AdamState``) field by field.  An LM's Adam state — moments shaped
+port; ``order`` is int32 there and int64 here.  A banded family's
+``BandedScale`` maps field by field (``banded_scale_{from,to}_numpy``),
+and ``lm_head_index_from_numpy`` puts the reference's ``LMHeadIndex``
+state (scale, x_aug, index) into a port ``LMHeadIndex``.  Optimiser
+states of a single tensor map by class name (``SGDState``,
+``AdaGradState``, ``AdamState``) field by field.  An LM's Adam state — moments shaped
 like the parameter pytree there, dicts keyed by the port's parameter
 names here — maps with ``adam_state_{from,to}_numpy``.
 """
@@ -25,9 +28,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.families import BandedScale
 from repro_torch.core.lgd import LGDState
 from repro_torch.core.tables import LSHIndex
-from repro_torch.models import LM, ModelConfig
+from repro_torch.models import LM, LMHeadIndex, ModelConfig
 from repro_torch.optim import AdaGradState, AdamState, SGDState
 
 _OPT_STATES = {cls.__name__: cls for cls in (SGDState, AdaGradState,
@@ -68,6 +72,34 @@ def index_to_numpy(index: LSHIndex):
     return (index.projections.detach().cpu().numpy().astype(np.float32),
             codes_to_numpy(index.sorted_codes),
             index.order.detach().cpu().numpy().astype(np.int32))
+
+
+def banded_scale_from_numpy(scale, device="cpu") -> BandedScale:
+    """The reference's ``BandedScale`` (boundaries, scales) -> port."""
+    return BandedScale(*(tensor_from_numpy(np.asarray(f, np.float32), device)
+                         for f in scale))
+
+
+def banded_scale_to_numpy(scale: BandedScale):
+    """``BandedScale`` -> (boundaries, scales) as float32 numpy."""
+    return tuple(f.detach().cpu().numpy().astype(np.float32) for f in scale)
+
+
+def lm_head_index_from_numpy(head: LMHeadIndex, scale, x_aug, index,
+                             refreshes: int = 0) -> LMHeadIndex:
+    """Load the reference's ``LMHeadIndex`` state into ``head`` (built on
+    the same model and config): the pinned scale (a ``BandedScale``'s
+    fields, or M), ``x_aug``, the (projections, sorted_codes, order)
+    index and the refresh count the drift draw is keyed by.  Both sides
+    then hold the same index."""
+    dev = head.device
+    head.scale = (banded_scale_from_numpy(scale, dev)
+                  if isinstance(scale, tuple) else
+                  tensor_from_numpy(np.asarray(scale, np.float32), dev))
+    head.x_aug = tensor_from_numpy(np.asarray(x_aug, np.float32), dev)
+    head.index = index_from_numpy(*index, device=dev)
+    head.refreshes = refreshes
+    return head
 
 
 def opt_state_from_numpy(state, device="cpu"):

@@ -7,7 +7,10 @@ Chicken-and-egg Loop in Adaptive Stochastic Gradient Estimation"
 
 from .families import (  # noqa: F401
     FAMILIES,
+    BandedScale,
     LSHFamily,
+    NormRangedMIPSFamily,
+    family_names,
     get_family,
 )
 from .simhash import (  # noqa: F401
@@ -27,7 +30,9 @@ from .tables import (  # noqa: F401
     IndexMutation,
     LSHIndex,
     append_rows,
+    band_starts,
     bucket_bounds,
+    bucket_bounds_banded,
     bucket_bounds_batched,
     bucket_bounds_multi,
     evict_rows,

@@ -7,13 +7,13 @@ Registered families:
   ``srp``        alias of ``dense`` (the user-facing CLI name)
   ``quadratic``  SRP over the implicit quadratic expansion T(v)
   ``mips``       asymmetric Simple-LSH MIPS (un-normalised corpora)
-
-``mips_banded`` (norm-ranged MIPS) is not ported yet: ``get_family``
-names the ROADMAP queue it waits in.
+  ``mips_banded`` norm-ranged MIPS: banded sub-indexes with per-band
+                 scales M_j (heavy-tailed norm distributions)
 """
 
 from __future__ import annotations
 
+from .banded import BandedScale, NormRangedMIPSFamily  # noqa: F401
 from .base import LSHFamily, normalize_rows  # noqa: F401
 from .mips import SimpleLSHMIPSFamily
 from .quadratic import QuadraticSRPFamily, quadratic_collision_prob  # noqa: F401
@@ -28,9 +28,8 @@ FAMILIES = {
     "srp": _DENSE,            # CLI-facing alias
     "quadratic": QuadraticSRPFamily(),
     "mips": SimpleLSHMIPSFamily(),
+    "mips_banded": NormRangedMIPSFamily(),
 }
-
-NOT_PORTED = ("mips_banded",)
 
 
 def get_family(name: str) -> LSHFamily:
@@ -38,11 +37,10 @@ def get_family(name: str) -> LSHFamily:
     try:
         return FAMILIES[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise ValueError(
-                f"LSH family {name!r} is not ported to PyTorch yet; it is "
-                "ROADMAP.md queue 1, item 2 (banded family)"
-            ) from None
         raise ValueError(
             f"unknown LSH family {name!r}; registered: "
             f"{sorted(FAMILIES)}") from None
+
+
+def family_names() -> tuple:
+    return tuple(sorted(FAMILIES))

@@ -22,11 +22,19 @@ frozen dataclass singletons):
 * ``cp_law`` — the name of the collision law ``collision_prob``
   computes, for kernels that evaluate it themselves (``draw_assemble``
   knows "angle" and "quadratic"); empty for a law no kernel knows.
+  ``law_dim(aug_d)`` — how many leading coordinates of an augmented
+  vector that law reads (all of them but a banded family's band id).
+* ``num_bands()`` / ``code_tags(x_aug, k)`` / ``mask_projections(p)``
+  — the multi-index (norm-ranging) hooks.  A banded family partitions
+  the corpus into ``num_bands()`` sub-indexes that share ONE sorted-code
+  index: ``code_tags`` returns per-row high-bit tags ORed into the
+  packed codes at hash time (each band a contiguous slice of every
+  table) and ``mask_projections`` zeroes the projection rows of
+  coordinates that carry index layout rather than geometry.  Flat
+  families return 1 / ``None`` / the projections unchanged, so they
+  stay bitwise as they were.
 * ``aug_dim(d)``, ``proj_kind`` ("dense" | "sparse" | "quadratic") and
   ``asymmetric``.
-
-The norm-ranging hooks of the banded family (``num_bands``,
-``code_tags``, ``mask_projections``) come with that family's port.
 """
 
 from __future__ import annotations
@@ -78,6 +86,25 @@ class LSHFamily:
     def code_width(self, k: int) -> int:
         """Packed bits per table code (k sign bits for SRP families)."""
         return k
+
+    def law_dim(self, aug_d: int) -> int:
+        """Leading coordinates of an augmented vector the law reads."""
+        return aug_d
+
+    def num_bands(self) -> int:
+        """Number of norm bands (1 = flat family, no band routing)."""
+        return 1
+
+    def code_tags(self, x_aug: torch.Tensor, k: int):
+        """Per-row int64 high-bit tags ORed into packed codes at hash
+        time (``None`` = untagged; banded families return band << k)."""
+        del x_aug, k
+        return None
+
+    def mask_projections(self, proj: torch.Tensor) -> torch.Tensor:
+        """Post-draw projection adjustment (identity for flat families;
+        banded families zero the band coordinate's row)."""
+        return proj
 
 
 def normalize_rows(v: torch.Tensor) -> torch.Tensor:

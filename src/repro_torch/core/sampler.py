@@ -28,9 +28,18 @@ corrected for the walk:
 
     p = q_{r_j} * (1 - Q)^(l-1) / |S_b|,      Q = sum_{i<J} q_{r_i}.
 
+BANDED FAMILIES (``mips_banded``).  Every band is probed in one launch
+(``tables.bucket_bounds_banded``); each repetition draws a band with
+probability n_band / total from the device-side ``band_starts``, walks
+that band's buckets, and reports p = (n_band/total) · q_r ·
+(1 - Q)^(l-1) / |S_b|; its fallback is uniform over the live prefix
+with p = 1/total.  On a card this is ``draw_assemble``'s band mode, the
+same single launch.
+
 RANDOM DRAWS.  Every random number a call uses is in one
 ``SampleDraws``: the table drawn at each probe, the within-bucket
-uniform and the fallback id of every repetition.  By default they come
+uniform and the fallback id of every repetition, and for a banded
+family the band and fallback uniforms.  By default they come
 from the caller's ``torch.Generator``; a caller may pass them instead
 (``draws=``).  The parity tests do that with the reference's own draws,
 rebuilt from the same JAX key, because torch's Philox and JAX's
@@ -60,7 +69,13 @@ from repro_torch.kernels.gather_weight import (
 
 from .families import get_family
 from .simhash import LSHParams, probe_masks
-from .tables import LSHIndex, bucket_bounds_batched, bucket_bounds_multi
+from .tables import (
+    LSHIndex,
+    band_starts,
+    bucket_bounds_banded,
+    bucket_bounds_batched,
+    bucket_bounds_multi,
+)
 
 
 class SampleResult(NamedTuple):
@@ -92,23 +107,42 @@ class SampleDraws(NamedTuple):
 
     tables: torch.Tensor    # (..., m, max_probes) int64 in [0, L)
     slot_u: torch.Tensor    # (..., m) float32 in [0, 1)
-    fallback: torch.Tensor  # (..., m) int64 in [0, N): an id; with n_live
-    #                         in [0, n_live): a slot of order[0, :n_live]
+    fallback: Optional[torch.Tensor]  # (..., m) int64 in [0, N): an id;
+    #   with n_live in [0, n_live): a slot of order[0, :n_live]; None for
+    #   a banded family, whose fallback is ``fallback_u``
+    # banded families only: the live count is a device value there, so
+    # the band and the fallback slot are drawn as floor(u * total)
+    band_u: Optional[torch.Tensor] = None      # (..., m) float32 in [0, 1)
+    fallback_u: Optional[torch.Tensor] = None  # (..., m) float32 in [0, 1)
+
+    def map(self, fn) -> "SampleDraws":
+        """``fn`` applied to every field that is not None."""
+        return SampleDraws(*(None if f is None else fn(f) for f in self))
+
+    def to(self, device) -> "SampleDraws":
+        return self.map(lambda f: f.to(device))
 
 
 def draw_samples(generator: torch.Generator, shape: tuple, max_probes: int,
-                 n_tables: int, n_points: int, device) -> SampleDraws:
+                 n_tables: int, n_points: int, device,
+                 bands: bool = False) -> SampleDraws:
     """Draw ``SampleDraws`` for repetitions of the given ``shape``
-    ((m,) for ``sample``, (B, m) for ``sample_batched``)."""
+    ((m,) for ``sample``, (B, m) for ``sample_batched``); ``bands``
+    draws the banded draw's ``band_u`` and ``fallback_u`` in place of the
+    fallback id."""
     if generator is None:
         raise ValueError("sampling needs a torch.Generator or explicit draws")
     shape = tuple(shape)
+    tables = torch.randint(0, n_tables, shape + (max_probes,),
+                           generator=generator, device=device)
+    slot_u = torch.rand(shape, generator=generator, device=device)
+    if not bands:
+        return SampleDraws(tables, slot_u, torch.randint(
+            0, n_points, shape, generator=generator, device=device))
     return SampleDraws(
-        torch.randint(0, n_tables, shape + (max_probes,), generator=generator,
-                      device=device),
-        torch.rand(shape, generator=generator, device=device),
-        torch.randint(0, n_points, shape, generator=generator,
-                      device=device))
+        tables, slot_u, None,
+        band_u=torch.rand(shape, generator=generator, device=device),
+        fallback_u=torch.rand(shape, generator=generator, device=device))
 
 
 def _uniform_below(u: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
@@ -127,12 +161,18 @@ def popcounts(masks: tuple, device) -> torch.Tensor:
 
 
 def _check_draws(draws: SampleDraws, lo, n_tables: int, max_probes: int,
-                 j_codes: int) -> None:
+                 j_codes: int, starts=None) -> None:
     b, _, p = draws.tables.shape
-    if lo.shape != (b, j_codes, n_tables) or p != max_probes:
+    bands = () if starts is None else (starts.shape[0] - 1,)
+    if lo.shape != (b,) + bands + (j_codes, n_tables) or p != max_probes:
         raise ValueError(
             f"draws {tuple(draws.tables.shape)} do not match bounds "
             f"{tuple(lo.shape)} and max_probes={max_probes}")
+    if starts is not None and (draws.band_u is None
+                               or draws.fallback_u is None):
+        raise ValueError("a banded draw needs band_u and fallback_u")
+    if starts is None and draws.fallback is None:
+        raise ValueError("a flat draw needs fallback ids")
 
 
 def _live_count(n_live) -> Optional[int]:
@@ -149,7 +189,8 @@ def _live_count(n_live) -> Optional[int]:
 
 def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
                  params: LSHParams, max_probes: int,
-                 masks: tuple, n_live: Optional[int] = None) -> SampleResult:
+                 masks: tuple, n_live: Optional[int] = None,
+                 starts: Optional[torch.Tensor] = None) -> SampleResult:
     """Algorithm 1 for a batch of queries given their bucket bounds: the
     port's one plain version of it.
 
@@ -159,15 +200,37 @@ def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
     the first non-empty bucket in (table-draw, probe) order wins.  With
     ``n_live`` the fallback is ``order[0, draws.fallback]`` with
     p = 1/n_live.
+
+    BANDED (``starts``, the (nb + 1,) ``tables.band_starts``; ``lo``/``hi``
+    (B, nb, J, L)): each repetition first draws a band with probability
+    n_band / total, total = starts[-1] the live count, as the slot
+    floor(band_u · total) searched in ``starts``; walks that band's
+    bounds; and reports p = (n_band/total) · q_r · (1-Q)^(l-1) / |S_b|
+    (the multi-probe form at every J, as the reference's
+    ``_sample_one_banded``).  Its fallback is
+    ``order[0, floor(fallback_u · total)]`` with p = 1/total; ``n_live``
+    is not read.
     """
     n_tables, n_points = order.shape
     j_codes = len(masks)
-    _check_draws(draws, lo, n_tables, max_probes, j_codes)
-    sizes = hi - lo                                          # (B, J, L)
+    _check_draws(draws, lo, n_tables, max_probes, j_codes, starts)
     ts = draws.tables                                        # (B, m, P)
     b, m, p = ts.shape
-    # sz[b, r, j, i] = sizes[b, j, ts[b, r, i]]
-    sz = torch.gather(sizes[:, None].expand(b, m, j_codes, n_tables), 3,
+    bidx = torch.arange(b, device=ts.device)[:, None]
+    if starts is None:
+        # every repetition of a query walks its query's bounds
+        lo_r = lo[:, None].expand(b, m, j_codes, n_tables)
+        sizes_r = (hi - lo)[:, None].expand(b, m, j_codes, n_tables)
+    else:
+        starts = starts.to(torch.int64)
+        total = starts[-1]
+        u = _uniform_below(draws.band_u, total)
+        band = torch.searchsorted(starts[1:].contiguous(), u, right=True)
+        n_band = starts[band + 1] - starts[band]
+        lo_r = lo[bidx, band]                                # (B, m, J, L)
+        sizes_r = hi[bidx, band] - lo_r
+    # sz[b, r, j, i] = sizes_r[b, r, j, ts[b, r, i]]
+    sz = torch.gather(sizes_r, 3,
                       ts[:, :, None, :].expand(b, m, j_codes, p))
     nonempty = (sz > 0).transpose(2, 3).reshape(b, m, p * j_codes)
     pos = torch.arange(p * j_codes, device=ts.device)
@@ -179,14 +242,17 @@ def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
     t = torch.gather(ts, 2, i[..., None])[..., 0]
     l = i + 1
 
-    bidx = torch.arange(b, device=ts.device)[:, None]
-    size_raw = sizes[bidx, pj, t]
+    ridx = torch.arange(m, device=ts.device)[None, :]
+    size_raw = sizes_r[bidx, ridx, pj, t]
     size = torch.clamp(size_raw, min=1)
-    slot = lo[bidx, pj, t] + _uniform_below(draws.slot_u, size)
+    slot = lo_r[bidx, ridx, pj, t] + _uniform_below(draws.slot_u, size)
     # an unfound repetition's slot may sit past the end; its id is
     # replaced by the fallback below, so clamp only to keep it in range
     idx = order[t, torch.clamp(slot, max=n_points - 1)]
-    if n_live is None:
+    if starts is not None:
+        fb_idx = order[0, _uniform_below(draws.fallback_u, total)]
+        p_fb = 1.0 / total.to(torch.float32)
+    elif n_live is None:
         fb_idx, p_fb = draws.fallback, 1.0 / n_points
     else:
         fb_idx, p_fb = order[0, draws.fallback], 1.0 / n_live
@@ -194,7 +260,7 @@ def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
 
     fam = get_family(params.family)
     cp = fam.collision_prob(x_aug[idx], queries[:, None, :])  # (B, m)
-    if j_codes == 1:
+    if j_codes == 1 and starts is None:
         cpk = cp ** params.k
         p_lsh = cpk * (1.0 - cpk) ** (l - 1) / size.to(torch.float32)
     else:
@@ -203,8 +269,11 @@ def _sample_rows(draws: SampleDraws, lo, hi, order, x_aug, queries,
         q_all = fam.probe_class_probs(cp[..., None], params.k,
                                       popcounts(masks, cp.device))
         miss = torch.clamp(1.0 - q_all.sum(-1), min=0.0)
-        p_lsh = (torch.gather(q_all, -1, pj[..., None])[..., 0]
-                 * miss ** (l - 1) / size.to(torch.float32))
+        q_win = torch.gather(q_all, -1, pj[..., None])[..., 0]
+        if starts is not None:
+            p_band = n_band.to(torch.float32) / total.to(torch.float32)
+            q_win = p_band * q_win
+        p_lsh = q_win * miss ** (l - 1) / size.to(torch.float32)
     probs = torch.where(found, p_lsh, p_fb).to(torch.float32)
     return SampleResult(
         indices=idx,
@@ -220,12 +289,13 @@ def draw_assemble_plain(draws: SampleDraws, lo, hi, order, x_aug, queries,
                         params: LSHParams, max_probes: int, masks: tuple,
                         store: Optional[torch.Tensor] = None,
                         p_floor: float = 1e-8,
-                        n_live: Optional[int] = None):
+                        n_live: Optional[int] = None,
+                        starts: Optional[torch.Tensor] = None):
     """The plain version of ``draw_assemble`` on any device:
     ``_sample_rows``, then with a store ``gather_weight_ref``."""
     n_live = _live_count(n_live)
     res = _sample_rows(draws, lo, hi, order, x_aug, queries, params,
-                       max_probes, masks, n_live)
+                       max_probes, masks, n_live, starts)
     if store is None:
         return res, None, None
     rows, w = gather_weight_ref(store, res.indices.reshape(-1),
@@ -237,22 +307,31 @@ def draw_assemble_plain(draws: SampleDraws, lo, hi, order, x_aug, queries,
 def draw_assemble(draws: SampleDraws, lo, hi, order, x_aug, queries,
                   params: LSHParams, max_probes: int, masks: tuple,
                   store: Optional[torch.Tensor] = None,
-                  p_floor: float = 1e-8, n_live: Optional[int] = None):
+                  p_floor: float = 1e-8, n_live: Optional[int] = None,
+                  starts: Optional[torch.Tensor] = None):
     """Algorithm 1 after the probe for (B, m) repetitions, and with a
     token ``store`` (N, W) int32 also the (B·m, W) rows and their weights
     1/(max(p, p_floor)·N) — N = ``n_live`` on a streaming index.
 
-    Arguments as ``_sample_rows``.  Returns (``SampleResult`` with
-    fields (B, m), rows or None, weights or None).  CUDA tensors take
-    the ``draw_assemble`` kernel, one launch (a family whose collision
-    law the kernel does not know raises); CPU tensors take
+    Arguments as ``_sample_rows`` (``starts`` and (B, nb, J, L) bounds
+    for a banded family).  Returns (``SampleResult`` with fields (B, m),
+    rows or None, weights or None).  CUDA tensors take the
+    ``draw_assemble`` kernel, one launch (a family whose collision law
+    the kernel does not know raises); CPU tensors take
     ``draw_assemble_plain``."""
     n_live = _live_count(n_live)
     if not on_cuda(queries):
         return draw_assemble_plain(draws, lo, hi, order, x_aug, queries,
                                    params, max_probes, masks, store, p_floor,
-                                   n_live)
-    _check_draws(draws, lo, order.shape[0], max_probes, len(masks))
+                                   n_live, starts)
+    _check_draws(draws, lo, order.shape[0], max_probes, len(masks), starts)
+    fam = get_family(params.family)
+    band = {}
+    if starts is not None:
+        band = dict(starts=starts.to(torch.int32).contiguous(),
+                    band_u=draws.band_u.to(torch.float32).contiguous(),
+                    fallback_u=draws.fallback_u.to(torch.float32)
+                    .contiguous())
     out = draw_assemble_cuda(
         lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous(),
         order.contiguous(),
@@ -260,11 +339,12 @@ def draw_assemble(draws: SampleDraws, lo, hi, order, x_aug, queries,
         queries.to(torch.float32).contiguous(),
         draws.tables.to(torch.int64).contiguous(),
         draws.slot_u.to(torch.float32).contiguous(),
+        None if starts is not None else
         draws.fallback.to(torch.int64).contiguous(),
         tuple(bin(mk).count("1") for mk in masks), k=params.k,
-        law=law_code(get_family(params.family)),
+        law=law_code(fam), d_law=fam.law_dim(x_aug.shape[1]),
         p_fallback=1.0 / (order.shape[1] if n_live is None else n_live),
-        store=store, p_floor=p_floor, n_live=n_live)
+        store=store, p_floor=p_floor, n_live=n_live, **band)
     return SampleResult(*out[:6]), out[6], out[7]
 
 
@@ -283,8 +363,8 @@ def _draw_one(generator, index: LSHIndex, x_aug, query, params: LSHParams,
     """``draw_assemble`` for one query (d,): (result (m,), rows, w)."""
     res, rows, w = _draw_batch(
         generator, index, x_aug, query[None], params, m, max_probes,
-        multiprobe, None if draws is None else SampleDraws(
-            *(d[None] for d in draws)), store, p_floor, n_live)
+        multiprobe, None if draws is None else draws.map(lambda d: d[None]),
+        store, p_floor, n_live)
     return SampleResult(*(f[0] for f in res)), rows, w
 
 
@@ -292,17 +372,30 @@ def _draw_batch(generator, index: LSHIndex, x_aug, queries,
                 params: LSHParams, m: int, max_probes: Optional[int],
                 multiprobe: int, draws: Optional[SampleDraws], store=None,
                 p_floor=1e-8, n_live=None):
-    """``draw_assemble`` for queries (B, d): (result (B, m), rows, w)."""
+    """``draw_assemble`` for queries (B, d): (result (B, m), rows, w).
+
+    A banded family probes every band (``bucket_bounds_banded``, one
+    launch) and draws in band mode with ``band_starts``; the banded draw
+    reads no ``n_live`` (the starts' total is the live count), but the
+    weights' N stays ``n_live``, as in the reference."""
     n_live = _live_count(n_live)
     max_probes = max_probes or max(2 * params.l, 8)
     masks = probe_masks(params.k, 1 + multiprobe)
+    banded = get_family(params.family).num_bands() > 1
     if draws is None:
         draws = draw_samples(
             generator, (queries.shape[0], m), max_probes, index.n_tables,
-            index.n_points if n_live is None else n_live, x_aug.device)
-    lo, hi = _probe_bounds(index, queries, params, masks)   # (B, J, L)
+            index.n_points if n_live is None else n_live, x_aug.device,
+            bands=banded)
+    if banded:
+        lo, hi = bucket_bounds_banded(index, queries, params,
+                                      masks)               # (B, nb, J, L)
+        starts = band_starts(index, params)
+    else:
+        lo, hi = _probe_bounds(index, queries, params, masks)  # (B, J, L)
+        starts = None
     return draw_assemble(draws, lo, hi, index.order, x_aug, queries, params,
-                         max_probes, masks, store, p_floor, n_live)
+                         max_probes, masks, store, p_floor, n_live, starts)
 
 
 def sample(
@@ -378,7 +471,15 @@ def sample_drain(
     draws: Optional[SampleDraws] = None,
 ) -> SampleResult:
     """Appendix B.2: draw the whole minibatch from the first non-empty
-    bucket.  ``draws``: tables (max_probes,), slot_u (m,), fallback (m,)."""
+    bucket.  ``draws``: tables (max_probes,), slot_u (m,), fallback (m,).
+    Banded families are refused, as in the reference."""
+    if get_family(params.family).num_bands() > 1:
+        raise ValueError(
+            "sample_drain does not support banded (norm-ranged) families: "
+            "the drain scheme reuses ONE bucket for the whole minibatch, "
+            "which cannot compose the per-draw band-selection probability; "
+            "use sample()/sample_batched() with family "
+            f"{params.family!r}")
     max_probes = max_probes or max(2 * params.l, 8)
     n_tables, n_points = index.order.shape
     if draws is None:

@@ -68,7 +68,10 @@ def make_projections(generator: torch.Generator, params: LSHParams,
     fam = get_family(params.family)
     d, lk = params.dim, params.l * params.k
     if fam.proj_kind == "dense":
-        return torch.randn((d, lk), generator=generator, device=device)
+        # identity for flat families; the banded family zeroes the band
+        # coordinate's row
+        return fam.mask_projections(
+            torch.randn((d, lk), generator=generator, device=device))
     if fam.proj_kind == "sparse":
         signs = torch.randint(0, 2, (d, lk), generator=generator,
                               device=device).to(torch.float32) * 2.0 - 1.0

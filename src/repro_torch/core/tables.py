@@ -31,13 +31,19 @@ STREAMING / CAPACITY.  A streaming index has a power-of-two capacity C
 (``grow_index`` adds empty slots); an empty slot carries ``EMPTY_CODE``,
 which sorts after every live code (K <= 31), so the first ``n_live``
 entries of every table's ``order`` are exactly the live ids — what the
-sampler's live-count fallback draws from.  The banded helpers wait for
-the banded family (ROADMAP.md queue 1 item 2).
+sampler's live-count fallback draws from.
+
+BANDED FAMILIES.  A banded family (``num_bands() > 1``) ORs each row's
+band tag ``band << K`` into its codes where data codes are made
+(``_hash_points``), so every band is one contiguous region of every
+table.  ``band_starts`` recovers the regions on the device;
+``bucket_bounds_banded`` probes every band's buckets in one launch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -71,13 +77,22 @@ class LSHIndex(NamedTuple):
 
 def _hash_points(x: torch.Tensor, proj: torch.Tensor,
                  params: LSHParams) -> torch.Tensor:
-    """(N, d) augmented points -> (L, N) contiguous int64 codes."""
-    if get_family(params.family).proj_kind == "quadratic":
+    """(N, d) augmented points -> (L, N) contiguous int64 codes.
+
+    A banded family's per-row tags (``code_tags``) are ORed in here, the
+    one place data codes are made, so build, refresh, delta and append
+    all tag alike."""
+    fam = get_family(params.family)
+    if fam.proj_kind == "quadratic":
         codes = compute_codes(x, proj, k=params.k, l=params.l,
                               quadratic=True)
     else:
         codes = simhash_codes(x, proj, k=params.k, l=params.l)
-    return codes.T.contiguous()   # a no-op copy for the kernel's (L, N) layout
+    codes = codes.T.contiguous()  # a no-op copy for the kernel's (L, N) layout
+    tags = fam.code_tags(x, params.k)
+    if tags is not None:
+        codes |= tags[None, :]
+    return codes
 
 
 # Sentinel code of an EMPTY capacity slot: every live code is < 2^32 - 1
@@ -349,4 +364,60 @@ def bucket_bounds_multi(index: LSHIndex, queries: torch.Tensor,
     b, j, l = pcodes.shape
     lo, hi = bucket_probe_codes(pcodes.reshape(b * j, l), index.sorted_codes)
     lo, hi = lo.reshape(b, j, l), hi.reshape(b, j, l)
+    return (lo[0], hi[0]) if squeeze else (lo, hi)
+
+
+# -- banded (norm-ranged) probing ------------------------------------------
+
+
+def band_starts(index: LSHIndex, params: LSHParams) -> torch.Tensor:
+    """(num_bands + 1,) int32 start of each band's region in the sorted
+    order: ``starts[j] <= i < starts[j+1]`` iff sorted slot i holds a
+    band-j row, in every table (each sorts the same per-row tags), so a
+    search of table 0 for the edges ``j << K`` finds them.  ``starts[-1]``
+    is the live count: the last edge ``num_bands << K`` is at most
+    2^code_width <= 2^31, below the ``EMPTY_CODE`` tail.  Stays on the
+    index's device; nothing reads it on the host."""
+    nb = get_family(params.family).num_bands()
+    sc = index.sorted_codes
+    edges = torch.arange(1, nb + 1, dtype=sc.dtype, device=sc.device) \
+        << params.k
+    starts = torch.searchsorted(sc[0], edges).to(torch.int32)
+    return torch.cat([torch.zeros((1,), dtype=torch.int32,
+                                  device=sc.device), starts])
+
+
+@functools.lru_cache(maxsize=64)
+def _band_probe_bits(masks: tuple, nb: int, k: int, device: torch.device):
+    """(J,) probe masks and (nb,) band tags ``j << K`` as int64 on
+    ``device``, made once: a host-to-card copy every call would block
+    the host."""
+    return (torch.tensor(masks, dtype=torch.int64, device=device),
+            torch.arange(nb, dtype=torch.int64, device=device) << k)
+
+
+def bucket_bounds_banded(index: LSHIndex, queries: torch.Tensor,
+                         params: LSHParams, masks: tuple):
+    """Multi-probe bucket bounds in EVERY band of a banded index.
+
+    The query hashes untagged (its band coordinate is 0 and that
+    projection row is zeroed), so band j's probe codes are
+    ``(code(q)[t] ^ masks[p]) | (j << K)``.  All ``num_bands·J·L`` probe
+    codes of every query go through ``bucket_probe_codes`` in one
+    launch.
+
+    Returns (lo, hi) int32 of shape (B, num_bands, J, L), or
+    (num_bands, J, L) for a single (d,) query."""
+    nb = get_family(params.family).num_bands()
+    qcodes = query_codes(index, queries, params)            # (..., L)
+    squeeze = qcodes.dim() == 1
+    if squeeze:
+        qcodes = qcodes[None]
+    marr, tags = _band_probe_bits(tuple(masks), nb, params.k, qcodes.device)
+    pcodes = ((qcodes[:, None, None, :] ^ marr[None, None, :, None])
+              | tags[None, :, None, None])                  # (B, nb, J, L)
+    b, _, j, l = pcodes.shape
+    lo, hi = bucket_probe_codes(pcodes.reshape(b * nb * j, l),
+                                index.sorted_codes)
+    lo, hi = lo.reshape(b, nb, j, l), hi.reshape(b, nb, j, l)
     return (lo[0], hi[0]) if squeeze else (lo, hi)

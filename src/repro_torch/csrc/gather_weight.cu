@@ -56,6 +56,24 @@
 //   gather and weight: as gather_weight, when a store is given, with
 //          N = n_live when a live count is given
 //
+// Band mode (a banded family, src/repro/core/sampler.py
+// `_sample_one_banded`): the bounds are (B, nb, J, L), one plane per norm
+// band, and `starts` (nb + 1,) is the bands' partition of the sorted
+// order, on the device (its total starts[nb] is the live count, which the
+// host never reads).  Before the walk:
+//   band:  u = min(floor(band_u * (f32)total), total - 1), band = the
+//          number of starts[1..nb] <= u (a binary search), n_band =
+//          starts[band + 1] - starts[band]; the walk reads that band's plane
+//   p:     (n_band / total) q_pj miss^(l-1) / size, the multi-probe form at
+//          every J and in that order; fallback: the id
+//          order[0, min(floor(fallback_u * total), total - 1)] with
+//          p = 1 / total, both computed here
+// The law reads the first d_law coordinates of a row of d: a banded
+// row's last coordinate is its band id (up to nb - 1), which must not
+// enter |x|.  The band mode is a template flag (kBand), so the flat
+// instantiations (no starts, nb 1) run the flat path's instructions only,
+// with its arithmetic unchanged.
+//
 // Bound on an H100: bytes, and those are nanoseconds: a repetition reads
 // its walked table draws and bounds, one order entry, one row of x and
 // the query (364 B at d 91, 12 KB at d 3,072), and writes 25 B of result
@@ -135,14 +153,17 @@ constexpr float kPi = 3.14159265358979323846f;
 enum Law : int { kAngle = 0, kQuadratic = 1 };
 
 struct DrawArgs {
-  const int32_t* lo;          // (B, J, L) the probe's bucket bounds
+  const int32_t* lo;          // (B, nb, J, L) the probe's bucket bounds
   const int32_t* hi;
   const int64_t* order;       // (L, N) each table's sorted point ids
   const float* x;             // (N, d) hashed vectors
   const float* q;             // (B, d) hashed queries
   const int64_t* tables;      // (B, m, P) table draws
   const float* slot_u;        // (B, m) within-bucket uniforms
-  const int64_t* fb_ids;      // (B, m) fallback ids
+  const int64_t* fb_ids;      // (B, m) fallback ids, or null (band mode)
+  const int32_t* starts;      // (nb + 1,) band starts, or null (flat)
+  const float* band_u;        // (B, m) band uniforms (band mode)
+  const float* fb_u;          // (B, m) fallback uniforms (band mode)
   const int32_t* store;       // (N, W) token rows, or null
   int64_t* indices;           // (B, m) results
   float* probs;
@@ -153,17 +174,18 @@ struct DrawArgs {
   int32_t* rows;              // (B * m, W), or null
   float* w;                   // (B * m,), or null
   int64_t n, d, width;        // width in units of the copy type
+  int64_t d_law;              // leading coordinates the law reads
   int64_t n_live;             // 0, or the live count of a streaming index
-  int n_tables, m, p, j, k, law;
+  int n_tables, m, p, j, k, law, nb;
   float p_fallback, p_floor;
   uint8_t popc[kMaxMasks];    // popcount r of each probe mask
 };
 
-template <typename T>
+template <typename T, bool kBand>
 __global__ void __launch_bounds__(kDrawThreads)
 draw_assemble_kernel(const __grid_constant__ DrawArgs a) {
   __shared__ int64_t s_id;
-  __shared__ int s_first, s_size;
+  __shared__ int s_first, s_size, s_nband, s_total;
   __shared__ float s_part[3][kDrawWarps];
   const int64_t blk = blockIdx.x;                 // b * m + r
   const int64_t b = blk / a.m;
@@ -173,8 +195,25 @@ draw_assemble_kernel(const __grid_constant__ DrawArgs a) {
   if (warp == 0) {
     const int64_t* ts = a.tables + blk * a.p;
     const int64_t plane = static_cast<int64_t>(a.j) * a.n_tables;
-    const int32_t* lo = a.lo + b * plane;
-    const int32_t* hi = a.hi + b * plane;
+    int64_t band = 0;
+    int total = 0, n_band = 0;
+    if constexpr (kBand) {              // band mode: every lane alike
+      total = a.starts[a.nb];
+      assert(total > 0);
+      int64_t u = static_cast<int64_t>(floorf(
+          __fmul_rn(a.band_u[blk], static_cast<float>(total))));
+      if (u > total - 1) u = total - 1;
+      int lo_b = 0, hi_b = a.nb;        // count of starts[1..nb] <= u
+      while (lo_b < hi_b) {
+        const int mid = (lo_b + hi_b) >> 1;
+        if (a.starts[mid + 1] <= u) lo_b = mid + 1; else hi_b = mid;
+      }
+      band = lo_b;
+      n_band = a.starts[band + 1] - a.starts[band];
+    }
+    const int64_t at_b = (kBand ? b * a.nb + band : b) * plane;
+    const int32_t* lo = a.lo + at_b;
+    const int32_t* hi = a.hi + at_b;
     const int cands = a.p * a.j;
     const float u = a.slot_u[blk];
     int first = -1;
@@ -202,13 +241,22 @@ draw_assemble_kernel(const __grid_constant__ DrawArgs a) {
         }
       }
     }
+    if (kBand && lane == 0) {
+      s_nband = n_band;
+      s_total = total;
+    }
     if (first < 0 && lane == 0) {
-      const int64_t fb = a.fb_ids[blk];
-      if (a.n_live > 0) {               // a slot of table 0's live prefix
+      if (kBand) {                      // a slot of the bands' live prefix
+        int64_t slot = static_cast<int64_t>(floorf(
+            __fmul_rn(a.fb_u[blk], static_cast<float>(total))));
+        if (slot > total - 1) slot = total - 1;
+        s_id = a.order[slot];
+      } else if (a.n_live > 0) {        // a slot of table 0's live prefix
+        const int64_t fb = a.fb_ids[blk];
         assert(0 <= fb && fb < a.n_live);
         s_id = a.order[fb];
       } else {
-        s_id = fb;
+        s_id = a.fb_ids[blk];
       }
       s_first = -1;
       s_size = 0;
@@ -238,7 +286,7 @@ draw_assemble_kernel(const __grid_constant__ DrawArgs a) {
   const float* qr = a.q + b * a.d;
   float xq = 0.f, xx = 0.f, qq = 0.f;
 #pragma unroll 4
-  for (int64_t c = threadIdx.x; c < a.d; c += kDrawThreads) {
+  for (int64_t c = threadIdx.x; c < a.d_law; c += kDrawThreads) {
     const float xv = xr[c], qv = qr[c];
     xq = __fadd_rn(xq, __fmul_rn(xv, qv));
     xx = __fadd_rn(xx, __fmul_rn(xv, xv));
@@ -295,7 +343,8 @@ draw_assemble_kernel(const __grid_constant__ DrawArgs a) {
 
   const int first = s_first;
   const bool found = first >= 0;
-  float p = a.p_fallback;
+  float p = kBand ? __fdiv_rn(1.f, static_cast<float>(s_total))
+                  : a.p_fallback;
   int l = a.p, pj = -1, size = 0;
   if (found) {
     pj = first % a.j;
@@ -304,7 +353,7 @@ draw_assemble_kernel(const __grid_constant__ DrawArgs a) {
     const float lm1 = static_cast<float>(l - 1);
     const float fsize = static_cast<float>(size);
     const float fk = static_cast<float>(a.k);
-    if (a.j == 1) {
+    if (a.j == 1 && !kBand) {
       const float cpk = powf(cp, fk);
       p = __fdiv_rn(__fmul_rn(cpk, powf(__fsub_rn(1.f, cpk), lm1)), fsize);
     } else {
@@ -318,6 +367,9 @@ draw_assemble_kernel(const __grid_constant__ DrawArgs a) {
       }
       float miss = __fsub_rn(1.f, total);
       miss = miss < 0.f ? 0.f : miss;
+      if (kBand)                        // (n_band / total) q_pj, first
+        q_win = __fmul_rn(__fdiv_rn(static_cast<float>(s_nband),
+                                    static_cast<float>(s_total)), q_win);
       p = __fdiv_rn(__fmul_rn(q_win, powf(miss, lm1)), fsize);
     }
   }
@@ -365,7 +417,11 @@ extern "C" int gather_weight_launch(const int32_t* store, const int64_t* idx,
 // f32; q: (b, d) f32; tables: (b, m, p) int64; slot_u: (b, m) f32;
 // fb_ids: (b, m) int64; popc: (j,) popcounts; store: (n, width) int32 or
 // null.  n_live: 0, or the live count of a streaming index, which makes
-// fb_ids slots of order[0, :n_live] and the weights' N n_live.  Results:
+// fb_ids slots of order[0, :n_live] and the weights' N n_live.  Band mode:
+// starts (nb + 1,) int32 and band_u, fb_u (b, m) f32, with lo, hi
+// (b, nb, j, n_tables) and fb_ids null; without starts, nb is 1 and both
+// uniforms null.
+// The law reads the first d_law of x's d coordinates.  Results:
 // indices (b, m) int64, probs f32, n_probes, bucket_sizes and probe_code
 // int32, fallback bool; with a store rows (b * m, width) int32 and w
 // (b * m,) f32.  law: 0 angle, 1 quadratic.
@@ -374,37 +430,48 @@ extern "C" int draw_assemble_launch(
     const int32_t* lo, const int32_t* hi, const int64_t* order,
     const float* x, const float* q, const int64_t* tables,
     const float* slot_u, const int64_t* fb_ids, const uint8_t* popc,
+    const int32_t* starts, const float* band_u, const float* fb_u,
     const int32_t* store, int64_t* indices, float* probs, int32_t* n_probes,
     int32_t* bucket_sizes, bool* fallback, int32_t* probe_code,
     int32_t* rows, float* w, int64_t b, int64_t m, int64_t p, int64_t j,
     int64_t n_tables, int64_t n, int64_t d, int64_t width, int64_t k,
-    int64_t law, int64_t n_live, float p_fallback, float p_floor,
-    void* stream) {
+    int64_t law, int64_t n_live, int64_t nb, int64_t d_law,
+    float p_fallback, float p_floor, void* stream) {
   if (b < 1 || m < 1 || b * m > 0x7fffffffLL || p < 1 || j < 1 ||
       j > kMaxMasks || p * j > 0x7fffffffLL - 32 || n_tables < 1 ||
       n_tables > 0x7fffffffLL || n < 1 || d < 1 || k < 1 || k > 32 ||
-      n_live < 0 || n_live > n ||
+      n_live < 0 || n_live > n || d_law < 1 || d_law > d || nb < 1 ||
+      nb > 0x7fffffffLL / (j * n_tables) ||
+      (starts == nullptr && (fb_ids == nullptr || nb != 1 ||
+                             band_u != nullptr || fb_u != nullptr)) ||
+      (starts != nullptr &&
+       (fb_ids != nullptr || band_u == nullptr || fb_u == nullptr)) ||
       (law != kAngle && law != kQuadratic) ||
       (store != nullptr && (width < 1 || rows == nullptr || w == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  DrawArgs a = {lo, hi, order, x, q, tables, slot_u, fb_ids, store,
+  DrawArgs a = {lo, hi, order, x, q, tables, slot_u, fb_ids, starts,
+                band_u, fb_u, store,
                 indices, probs, n_probes, bucket_sizes, fallback, probe_code,
                 store ? rows : nullptr, store ? w : nullptr,
-                n, d, store ? width : 0, n_live,
+                n, d, store ? width : 0, d_law, n_live,
                 static_cast<int>(n_tables), static_cast<int>(m),
                 static_cast<int>(p), static_cast<int>(j), static_cast<int>(k),
-                static_cast<int>(law), p_fallback, p_floor, {}};
+                static_cast<int>(law), static_cast<int>(nb), p_fallback,
+                p_floor, {}};
   for (int64_t i = 0; i < j; ++i) a.popc[i] = popc[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = static_cast<unsigned>(b * m);
   const bool vec = store != nullptr && width % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(store) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(rows) % 16 == 0;
-  if (vec) {
-    a.width = width / 4;
-    draw_assemble_kernel<int4><<<blocks, kDrawThreads, 0, s>>>(a);
-  } else {
-    draw_assemble_kernel<int32_t><<<blocks, kDrawThreads, 0, s>>>(a);
-  }
+  if (vec) a.width = width / 4;
+  if (vec && starts)
+    draw_assemble_kernel<int4, true><<<blocks, kDrawThreads, 0, s>>>(a);
+  else if (vec)
+    draw_assemble_kernel<int4, false><<<blocks, kDrawThreads, 0, s>>>(a);
+  else if (starts)
+    draw_assemble_kernel<int32_t, true><<<blocks, kDrawThreads, 0, s>>>(a);
+  else
+    draw_assemble_kernel<int32_t, false><<<blocks, kDrawThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

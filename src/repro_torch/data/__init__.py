@@ -6,6 +6,13 @@ from .synthetic import (  # noqa: F401
     make_token_corpus,
     uniform_batches,
 )
+from .health import (  # noqa: F401
+    HEALTHY,
+    STALE_INDEX,
+    UNIFORM_FALLBACK,
+    HealthConfig,
+    HealthMonitor,
+)
 from .lsh_pipeline import (  # noqa: F401
     LSHPipelineConfig,
     LSHSampledPipeline,

@@ -45,10 +45,10 @@ def make_problem(family: str, multiprobe: int, optimizer: str):
         multiprobe=multiprobe,
         # the MIPS family trains on UN-normalised rows: bound the rare
         # tiny-p draws
-        p_floor=1e-7 if family == "mips" else 0.0,
+        p_floor=1e-7 if family in ("mips", "mips_banded") else 0.0,
     )
     lr = 5e-2 if optimizer != "adam" else 5e-3
-    if family == "mips":
+    if family in ("mips", "mips_banded"):
         # un-normalised rows: ||x_i||^2 ~ d instead of 1, so the stable
         # LR of the quadratic loss scales by ~1/d
         lr /= D_RAW
@@ -80,10 +80,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--multiprobe", type=int, default=0,
                     help="extra Hamming-ball probe codes per table")
     ap.add_argument("--family", default="quadratic",
-                    choices=["quadratic", "srp", "mips"],
+                    choices=["quadratic", "srp", "mips", "mips_banded"],
                     help="LSH family: quadratic matches |<q,x>|; srp is "
                          "cosine SimHash; mips is the asymmetric "
-                         "no-normalisation Simple-LSH")
+                         "no-normalisation Simple-LSH; mips_banded its "
+                         "norm-ranged (banded) variant")
     ap.add_argument("--n-train", type=int, default=8000,
                     help="training rows (463715 = YearPredictionMSD train)")
     ap.add_argument("--device", default="cuda",

@@ -11,14 +11,24 @@ the prompts are random token ids.
 The first new token is the argmax of the prompt's last position; each
 of the ``--new-tokens`` decode steps then feeds the last token and
 takes the argmax of its logits, so the cache ends at prompt-len +
-new-tokens positions.  Timing is per phase, as the reference prints
+new-tokens positions.
+
+Head (``--head``): ``full`` is the O(V·d) logits matmul and argmax;
+``lsh`` the LSH-shortlisted head (``models.sampled_softmax``): a banded
+MIPS index over the lm_head rows (``mips_banded``, K sized so a band's
+mean bucket holds about 8 rows, L 8, multiprobe 2, 8 candidates a
+probed bucket — the reference's recipe) is probed with the hidden state
+of every emitted token, the first one included, and the argmax runs
+over that static shortlist.  On the card the index is built by the
+``simhash`` kernel and every token's probe is one ``bucket_probe_codes``
+launch.  Timing is per phase, as the reference prints
 it: prefill seconds (prompt forward + first token), and the decode
 p10/p50 ms/token over the per-step latencies, the first step timed
 apart.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve [--arch phi4_mini_3_8b]
           [--size smoke|full] [--batch 4] [--prompt-len 32]
-          [--new-tokens 32] [--device cuda]
+          [--new-tokens 32] [--head full|lsh] [--device cuda]
 """
 
 from __future__ import annotations
@@ -31,10 +41,10 @@ import torch
 
 from repro_torch import configs
 from repro_torch.kernels import resolve_device
-from repro_torch.models import LM, ModelConfig
-
-ROADMAP_LSH_HEAD = ("ROADMAP.md queue 1, item 2 (mips_banded and "
-                    "lsh_decode_step)")
+from repro_torch.core.families import get_family
+from repro_torch.models import (
+    LM, LMHeadIndex, ModelConfig, SampledSoftmaxConfig, lsh_decode_step)
+from repro_torch.models.sampled_softmax import lsh_head_tokens
 
 
 def load_model(arch: str, size: str = "smoke", *, device="cuda",
@@ -44,6 +54,23 @@ def load_model(arch: str, size: str = "smoke", *, device="cuda",
     cfg = configs.get(arch) if size == "full" else configs.get_smoke(arch)
     cfg = cfg.with_(attn_impl="pallas")
     return cfg, LM.init(cfg, seed=seed, device=device)
+
+
+def lsh_head_config(cfg: ModelConfig) -> SampledSoftmaxConfig:
+    """The reference's serving head (examples/serve.py): the banded MIPS
+    family, K sized so each band's mean bucket stays within the 8
+    candidates a probed bucket gives, L 8, multiprobe 2."""
+    fam = get_family("mips_banded")
+    band_rows = max(1, cfg.vocab // fam.num_bands())
+    return SampledSoftmaxConfig(
+        family="mips_banded", k=max(3, band_rows.bit_length() - 3),
+        l=8, multiprobe=2, shortlist_per_table=8)
+
+
+def shortlist_size(scfg: SampledSoftmaxConfig) -> int:
+    """Candidates a token: bands x probe codes x tables x per bucket."""
+    return (get_family(scfg.family).num_bands() * (1 + scfg.multiprobe)
+            * scfg.l * scfg.shortlist_per_table)
 
 
 def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, device,
@@ -67,13 +94,18 @@ def percentiles(step_ms):
 
 
 @torch.inference_mode()
-def generate(lm: LM, prompts: torch.Tensor, new_tokens: int) -> dict:
+def generate(lm: LM, prompts: torch.Tensor, new_tokens: int,
+             head: LMHeadIndex = None) -> dict:
     """Prefill ``prompts`` (B, S), then ``new_tokens`` greedy decode steps.
 
-    Returns the tokens (B, new_tokens + 1), the prefill seconds, the
-    per-step ms, the prompt's last hidden state (B, d), the first decode
-    step's logits (B, V), and whether every logit was finite (one flag
-    kept on the device, read once at the end)."""
+    ``head``: None for the full head, or an ``LMHeadIndex`` whose
+    shortlist picks every emitted token, the first one (from the
+    prompt's last position) included.  Returns the tokens
+    (B, new_tokens + 1), the prefill seconds, the per-step ms, the
+    prompt's last hidden state (B, d), and with the full head the first
+    decode step's logits (B, V) and whether every logit was finite (one
+    flag kept on the device, read once at the end; None with ``head``,
+    which makes no logits)."""
     device = prompts.device
     b, s = prompts.shape
     cache = lm.init_cache(b, s + new_tokens)
@@ -81,29 +113,48 @@ def generate(lm: LM, prompts: torch.Tensor, new_tokens: int) -> dict:
     t0 = time.perf_counter()
     h, cache = lm.prefill({"tokens": prompts}, cache)
     last_hidden = h[:, -1]
-    logits = lm.embed_group.lm_logits(h[:, -1:])
-    tok = logits.argmax(dim=-1)                                  # (B, 1)
+    finite = None
+    if head is None:
+        logits = lm.embed_group.lm_logits(h[:, -1:])
+        tok = logits.argmax(dim=-1)                              # (B, 1)
+        finite = torch.isfinite(logits).all()
+    else:
+        tok = lsh_head_tokens(lm, h[:, -1:], head)
     _sync(device)
     prefill_s = time.perf_counter() - t0
-    finite = torch.isfinite(logits).all()
     tokens, step_ms, first_logits = [tok], [], None
     for t in range(new_tokens):
         step = {"tokens": tok,
                 "positions": torch.full((b, 1), s + t, dtype=torch.int32,
                                         device=device)}
         t0 = time.perf_counter()
-        logits, cache = lm.decode_step(step, cache)
-        tok = logits[:, -1:].argmax(dim=-1)
+        if head is None:
+            logits, cache = lm.decode_step(step, cache)
+            tok = logits[:, -1:].argmax(dim=-1)
+        else:
+            tok, cache = lsh_decode_step(lm, step, cache, head)
         _sync(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        finite &= torch.isfinite(logits).all()
-        if t == 0:
-            first_logits = logits[:, 0]
+        if head is None:
+            finite &= torch.isfinite(logits).all()
+            if t == 0:
+                first_logits = logits[:, 0]
         tokens.append(tok)
     return {"tokens": torch.cat(tokens, dim=1), "prefill_s": prefill_s,
             "step_ms": step_ms, "last_hidden": last_hidden,
             "first_logits": first_logits,
-            "finite": bool(finite)}
+            "finite": None if finite is None else bool(finite)}
+
+
+def build_head(lm: LM, scfg: SampledSoftmaxConfig = None):
+    """(``LMHeadIndex`` over ``lm``'s head with the serving recipe, build
+    seconds, synchronised)."""
+    scfg = lsh_head_config(lm.cfg) if scfg is None else scfg
+    _sync(lm.device)
+    t0 = time.perf_counter()
+    head = LMHeadIndex(lm, scfg)
+    _sync(lm.device)
+    return head, time.perf_counter() - t0
 
 
 def main(argv=None) -> dict:
@@ -115,26 +166,28 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--head", default="full", choices=["full", "lsh"],
-                    help="full: O(V) logits matmul per token (lsh is not "
-                         "ported yet)")
+                    help="full: O(V) logits matmul per token; lsh: "
+                         "LSH-shortlisted argmax over probed candidates")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (plain PyTorch)")
     args = ap.parse_args(argv)
-    if args.head == "lsh":
-        raise NotImplementedError(
-            f"--head lsh needs the banded MIPS family and the LSH decode "
-            f"head, which the port does not have yet.  See "
-            f"{ROADMAP_LSH_HEAD}")
     device = resolve_device(args.device)
 
     t0 = time.perf_counter()
     cfg, lm = load_model(args.arch, args.size, device=device)
     _sync(device)
     init_s = time.perf_counter() - t0
-    prompts = make_prompts(cfg, args.batch, args.prompt_len, device)
-    out = generate(lm, prompts, args.new_tokens)
-    b, s = prompts.shape
     print(f"[{cfg.name}] init {init_s:.2f}s on {device}")
+    head = None
+    if args.head == "lsh":
+        head, build_s = build_head(lm)
+        print(f"[{cfg.name}] head=lsh: {head.index.n_points} rows x "
+              f"{head.index.n_tables} tables, shortlist "
+              f"{shortlist_size(head.scfg)}/{cfg.vocab} candidates/token, "
+              f"index build {build_s:.2f}s")
+    prompts = make_prompts(cfg, args.batch, args.prompt_len, device)
+    out = generate(lm, prompts, args.new_tokens, head)
+    b, s = prompts.shape
     print(f"[{cfg.name}] prefill {b}x{s}: {out['prefill_s']:.2f}s")
     if args.new_tokens:
         p10, p50 = percentiles(out["step_ms"])
@@ -145,7 +198,7 @@ def main(argv=None) -> dict:
         print(f"decoded {args.new_tokens} tokens/seq in {dt:.2f}s "
               f"({b * args.new_tokens / dt:.1f} tok/s); sample row: "
               f"{out['tokens'][0][:12].tolist()}")
-    if not out["finite"]:
+    if out["finite"] is False:
         raise RuntimeError("non-finite logits")
     return out
 

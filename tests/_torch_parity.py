@@ -71,6 +71,33 @@ def jax_sample_draws(key, m, max_probes, n_tables, n_points, batch=None,
     return SampleDraws(t(ts, torch.int64), t(us), t(fbs, torch.int64))
 
 
+def _one_banded(k, max_probes, n_tables):
+    k_band, k_tables, k_slot, k_fb = jax.random.split(k, 4)
+    return (jax.random.randint(k_tables, (max_probes,), 0, n_tables),
+            jax.random.uniform(k_slot, ()), jax.random.uniform(k_band, ()),
+            jax.random.uniform(k_fb, ()))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def _banded_draws(key, m, max_probes, n_tables, batch):
+    keys = jax.random.split(key, m if batch is None else (batch, m))
+    fn = jax.vmap(lambda k: _one_banded(k, max_probes, n_tables))
+    if batch is not None:
+        fn = jax.vmap(fn)
+    return fn(keys)
+
+
+def jax_banded_draws(key, m, max_probes, n_tables, batch=None):
+    """The draws of a banded family's ``sample`` (``batch=None``) or
+    ``sample_batched`` (``batch=B``): the reference's four-way key split
+    in ``_sample_one_banded`` (band, tables, slot, fallback), its two
+    ``_uniform_below`` uniforms as ``band_u`` and ``fallback_u`` (no
+    fallback id)."""
+    ts, us, bu, fu = _banded_draws(key, m, max_probes, n_tables, batch)
+    return SampleDraws(t(ts, torch.int64), t(us), None,
+                       band_u=t(bu), fallback_u=t(fu))
+
+
 def jax_drain_draws(key, m, max_probes, n_tables, n_points):
     """The draws ``repro.core.sampler.sample_drain`` makes from ``key``."""
     k_tables, k_slot, k_fb = jax.random.split(key, 3)

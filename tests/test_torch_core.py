@@ -53,13 +53,17 @@ def _data(seed, n_pts=400, d=10):
 class TestFamilies:
     def test_registry(self):
         assert TF.get_family("srp") is TF.get_family("dense")
-        for name in ("dense", "sparse", "quadratic", "mips"):
+        for name in ("dense", "sparse", "quadratic", "mips", "mips_banded"):
             jf, tf = JF.get_family(name), TF.get_family(name)
             assert (tf.proj_kind, tf.asymmetric, tf.aug_dim(7),
-                    tf.code_width(5)) == (jf.proj_kind, jf.asymmetric,
-                                          jf.aug_dim(7), jf.code_width(5))
-        with pytest.raises(ValueError, match="ROADMAP"):
-            TF.get_family("mips_banded")
+                    tf.code_width(5), tf.num_bands()) == (
+                jf.proj_kind, jf.asymmetric, jf.aug_dim(7),
+                jf.code_width(5), jf.num_bands())
+        banded = TF.get_family("mips_banded")
+        assert (banded.n_bands, banded.band_bits()) == (
+            JF.get_family("mips_banded").n_bands,
+            JF.get_family("mips_banded").band_bits())
+        assert TF.family_names() == JF.family_names()
         with pytest.raises(ValueError, match="unknown LSH family"):
             T.LSHParams(k=4, l=2, dim=8, family="minhash")
 

@@ -348,7 +348,7 @@ def test_index_and_step_match_cpu(card):
                        opt_state=type(st.opt_state)(st.opt_state.step.to(
                            card), None))
     st_g, _ = lgd_step(None, st_g, xt.to(card), yt.to(card), xa.to(card),
-                       prob, opt, draws=type(dr)(*(t.to(card) for t in dr)))
+                       prob, opt, draws=dr.to(card))
     torch.testing.assert_close(st_g.theta.cpu(), st_c.theta, rtol=1e-4,
                                atol=1e-6)
 
@@ -530,7 +530,7 @@ def test_draw_assemble_edges(card, name):
     masks = _masks(5, j)
     dev = [torch.from_numpy(c[key]).to(card) for key in (
         "lo", "hi", "order", "x", "q", "store")]
-    draws = SampleDraws(*(t.to(card) for t in c["draws"]))
+    draws = c["draws"].to(card)
     got, want = _draw_twice((draws, *dev[:5], p,
                              draws.tables.shape[2], masks, dev[5], 0.5))
     _held(got, want)
@@ -548,14 +548,15 @@ def test_draw_assemble_edges(card, name):
 
 
 def test_draw_assemble_does_not_spill(card):
-    """Every draw_assemble instantiation of the build is spill-free."""
+    """Every draw_assemble instantiation of the build (4- and 16-byte row
+    copies, flat and band mode) is spill-free."""
     from repro_torch.kernels import build
 
     build.library("gather_weight")
     use = {name: u for name, u in build.ptxas_usage(
         build.build_log("gather_weight")).items()
         if "draw_assemble_kernel" in name}
-    assert len(use) == 2
+    assert len(use) == 4
     assert all(u["spill_stores"] == u["spill_loads"] == 0
                for u in use.values()), use
 
@@ -623,7 +624,7 @@ def test_draw_assemble_live_prefix(card, n_live, j):
     masks = _masks(5, j)
     dev = [torch.from_numpy(c[key]).to(card) for key in (
         "lo", "hi", "order", "x", "q", "store")]
-    draws = SampleDraws(*(t.to(card) for t in c["draws"]))
+    draws = c["draws"].to(card)
     got, want = _draw_twice((draws, *dev[:5], p, draws.tables.shape[2],
                              masks, dev[5], 1e-8, n_live))
     _held(got, want)
@@ -720,7 +721,7 @@ def test_streaming_pipeline_card_matches_cpu(card):
             same_index()
         dr = draw_samples(g, (8,), 16, 8, cpu.n_live, "cpu")
         bc = cpu.next_batch(draws=dr)
-        bg = gpu.next_batch(draws=SampleDraws(*(x.to(card) for x in dr)))
+        bg = gpu.next_batch(draws=dr.to(card))
         assert torch.equal(bg["example_ids"].cpu(), bc["example_ids"])
         torch.testing.assert_close(bg["loss_weights"].cpu(),
                                    bc["loss_weights"], rtol=1e-5, atol=0)
@@ -765,3 +766,171 @@ def test_async_refresh_reads_the_launch_time_weights(card):
     assert torch.equal(pipe.features, want)
     rec = pipe.refresh_records()[0]
     assert rec["ok"] and rec["async"] and rec["device_ms"] > 0
+
+
+# -- the banded slice: draw_assemble's band mode and the LSH decode head ------
+
+@pytest.mark.parametrize("j", [1, 3])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_draw_assemble_band_mode(card, seed, j):
+    """The band mode (starts on the card, band_u and fallback_u, the law
+    on d - 1 coordinates) against the plain composition with starts and
+    the numpy model of tests/test_torch_draw.py: ids, walk results and
+    rows bitwise, p and w within 1e-4; never a row of the empty band."""
+    from test_torch_draw import _band_case, _masks, model
+
+    c = _band_case(50 + seed, j=j, p=40, empty=0.8)
+    p = LSHParams(k=5, l=c["lo"].shape[3], dim=c["x"].shape[1],
+                  family="mips_banded")
+    masks = _masks(5, j)
+    dev = [torch.from_numpy(c[key]).to(card) for key in (
+        "lo", "hi", "order", "x", "q", "store", "starts")]
+    draws = c["draws"].to(card)
+    got, want = _draw_twice((draws, *dev[:5], p, draws.tables.shape[2],
+                             masks, dev[5], 1e-8, None, dev[6]))
+    _held(got, want)
+    fields, rows, w = model(c["draws"], c["lo"], c["hi"], c["order"], c["x"],
+                            c["q"], "angle", 5, masks, c["store"], 1e-8,
+                            starts=c["starts"], d_law=c["x"].shape[1] - 1)
+    for key, val in fields.items():
+        if key != "probs":
+            np.testing.assert_array_equal(
+                getattr(got[0], key).cpu().numpy(), val)
+    np.testing.assert_allclose(got[0].probs.cpu().numpy(), fields["probs"],
+                               rtol=1e-4)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), rows)
+    s = c["starts"]
+    assert not np.isin(got[0].indices.cpu().numpy(),
+                       c["order"][0, s[3]:s[4]]).any()
+
+
+def test_draw_assemble_flat_path_is_unchanged(card):
+    """Without starts (nb 1) the kernel is the flat path: the law's
+    d_law given as d or left out gives the same bits, and both the plain
+    composition's integers."""
+    from repro_torch.kernels.gather_weight import draw_assemble_cuda
+    from test_torch_draw import _case
+
+    c = _case(71, b=3, m=6, j=3, p=30, empty=0.7)
+    dev = [torch.from_numpy(c[key]).to(card) for key in (
+        "lo", "hi", "order", "x", "q")]
+    draws = c["draws"].to(card)
+    args = (*dev, draws.tables, draws.slot_u, draws.fallback, (0, 1, 1))
+    kw = dict(k=5, law=0, p_fallback=1 / 300)
+    a = draw_assemble_cuda(*args, **kw)
+    b = draw_assemble_cuda(*args, d_law=c["x"].shape[1], **kw)
+    for x, y in zip(a[:6], b[:6]):
+        assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32
+                           else x, y.view(torch.int32)
+                           if y.dtype == torch.float32 else y)
+    with pytest.raises(ValueError, match="need starts"):
+        draw_assemble_cuda(*args, band_u=draws.slot_u, **kw)
+
+
+def _banded_problem(card):
+    from repro_torch.data import make_regression
+    from repro_torch.quickstart import make_problem
+
+    g = torch.Generator(device=card).manual_seed(5)
+    ds = make_regression(g, "yearmsd-like", n_train=3000, d=90,
+                         noise="pareto", device=card)
+    problem, opt = make_problem("mips_banded", 2, "sgd")
+    state, xt, yt, xa = init(g, problem, ds.x_train, ds.y_train, opt)
+    return g, problem, opt, state, xt, yt, xa
+
+
+def test_banded_lgd_step_has_no_host_sync(card):
+    """A banded LGD step on the card is one bucket_probe_codes launch
+    (every band's probe codes) and one draw_assemble launch, and runs
+    under torch.cuda.set_sync_debug_mode("error")."""
+    g, problem, opt, state, xt, yt, xa = _banded_problem(card)
+    state, _ = lgd_step(g, state, xt, yt, xa, problem, opt)   # warm-up
+    torch.cuda.synchronize()
+    before = dict(launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, _ = lgd_step(g, state, xt, yt, xa, problem, opt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ran = {k: launches[k] - before[k] for k in launches}
+    assert ran["draw_assemble"] == 3 and ran["bucket_probe_codes"] == 3
+    assert ran["bucket_probe"] == ran["bucket_probe_multi"] == 0
+    assert bool(torch.isfinite(state.theta).all())
+
+
+def test_banded_draw_matches_the_cpu(card):
+    """The banded sample on the card against the CPU's plain path on the
+    same index and draws: ids bitwise, p within 1e-4."""
+    from repro_torch.core import LSHIndex, sample_batched
+
+    g, problem, _, state, _, _, xa = _banded_problem(card)
+    q = problem.query_fn()(0.1 * torch.randn(
+        (4, 90), generator=g, device=card)).contiguous()
+    dr = draw_samples(torch.Generator().manual_seed(1), (4, 16), 200, 100,
+                      3000, "cpu", bands=True)
+    got = sample_batched(None, state.index, xa, q, problem.lsh, m=16,
+                         multiprobe=2, draws=dr.to(card))
+    idx_c = LSHIndex(*(x.cpu() for x in state.index))
+    want = sample_batched(None, idx_c, xa.cpu(), q.cpu(), problem.lsh, m=16,
+                          multiprobe=2, draws=dr)
+    for key in ("indices", "n_probes", "bucket_sizes", "fallback",
+                "probe_code"):
+        assert torch.equal(getattr(got, key).cpu(), getattr(want, key)), key
+    torch.testing.assert_close(got.probs.cpu(), want.probs, rtol=1e-4,
+                               atol=0)
+
+
+def test_lsh_decode_step_has_no_host_sync(card):
+    """SMOKE serving with the LSH head on the card: the index built by
+    simhash, every token one bucket_probe_codes launch, the tokens the
+    masked argmax over their own candidates, no host sync in a step."""
+    from repro_torch import serve
+    from repro_torch.models import lsh_decode_step
+    from repro_torch.models.sampled_softmax import (
+        shortlist_candidates, shortlist_logits)
+
+    cfg, lm = serve.load_model("phi4_mini_3_8b", device=card)
+    before = launches["simhash"]
+    head, _ = serve.build_head(lm)
+    assert launches["simhash"] == before + 1
+    prompts = serve.make_prompts(cfg, 2, 16, card)
+    with torch.inference_mode():
+        cache = lm.init_cache(2, 24)
+        h, cache = lm.prefill({"tokens": prompts}, cache)
+        tok = prompts[:, -1:]
+        step = {"tokens": tok, "positions": torch.full(
+            (2, 1), 16, dtype=torch.int32, device=card)}
+        lsh_decode_step(lm, step, cache, head)
+        torch.cuda.synchronize()
+        probes = launches["bucket_probe_codes"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(3):
+                step = {"tokens": tok, "positions": torch.full(
+                    (2, 1), 17 + i, dtype=torch.int32, device=card)}
+                h, cache = lm.decode_hidden(step, cache)
+                tok = serve.lsh_head_tokens(lm, h, head)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert launches["bucket_probe_codes"] == probes + 3
+        q = lm.embed_group.final_norm(h)[:, 0].float()
+        ids, valid = shortlist_candidates(
+            head.index, head._fam.augment_query(q), head.lsh, head.scfg)
+        lg = shortlist_logits(lm.embed_group.lm_head.T, q, ids, valid)
+        want = torch.gather(ids, 1, lg.argmax(-1)[:, None])
+    assert torch.equal(tok, want)
+    assert bool(((tok >= 0) & (tok < cfg.vocab)).all())
+
+
+def test_serve_lsh_head_on_the_card(card, capsys):
+    from repro_torch import serve
+
+    out = serve.main(["--head", "lsh", "--batch", "2", "--prompt-len", "16",
+                      "--new-tokens", "4"])
+    text = capsys.readouterr().out
+    assert "head=lsh:" in text and "decode head=lsh" in text
+    toks = out["tokens"]
+    assert toks.shape == (2, 5) and toks.is_cuda
+    assert bool(((toks >= 0) & (toks < 128)).all())

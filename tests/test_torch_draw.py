@@ -19,7 +19,12 @@ sampler's plain version (``_sample_rows`` and ``gather_weight_ref``):
     same bits on every call;
   * the streaming fallback (``n_live``): the draw a slot of table 0's
     live prefix, the id ``order[0, slot]``, p = 1/n_live and the weights
-    1/(p n_live), on walks that mostly miss.
+    1/(p n_live), on walks that mostly miss;
+  * the band mode of a banded family (``starts``): the band drawn as
+    floor(band_u · total) against the starts, the walk in that band's
+    plane, p = (n_band/total) · q_r · miss^(l-1) / size, the fallback
+    ``order[0, floor(fallback_u · total)]`` with p = 1/total; and the law
+    on the first ``d_law`` coordinates only (the band id is not geometry).
 
 It also checks that every ported family maps to a collision law the
 kernel knows, and that the model's constants are the source's.
@@ -117,13 +122,14 @@ def law_cp(law, xq, xx, qq):
     return F32(F32(1.0) - F32(np.arccos(cs)) / PI)
 
 
-def prob(cp, first, size, j, k, popc, p_fallback):
-    """p of one repetition from its cp and its walk."""
+def prob(cp, first, size, j, k, popc, p_fallback, p_band=None):
+    """p of one repetition from its cp and its walk; ``p_band`` (band
+    mode) n_band/total, which takes the multi-probe form at every J."""
     if first < 0:
         return F32(p_fallback)
     pj, l = first % j, first // j + 1
     lm1, fsize, fk = F32(l - 1), F32(size), F32(k)
-    if j == 1:
+    if j == 1 and p_band is None:
         cpk = F32(np.power(cp, fk))
         return F32(cpk * F32(np.power(F32(1) - cpk, lm1))) / fsize
     total, q_win = F32(0), F32(0)
@@ -135,6 +141,8 @@ def prob(cp, first, size, j, k, popc, p_fallback):
             q_win = q_r
     miss = F32(1) - total
     miss = F32(0) if miss < 0 else miss
+    if p_band is not None:
+        q_win = F32(p_band * q_win)
     return F32(q_win * F32(np.power(miss, lm1))) / fsize
 
 
@@ -143,13 +151,31 @@ def weight(p, p_floor, n):
     return F32(1) / F32(pf * F32(n))
 
 
+def band_of(u, starts):
+    """The band mode's draw: the slot min(floor(u·total), total-1), then
+    the count of starts[1..nb] <= slot (the kernel's binary search)."""
+    total = int(starts[-1])
+    slot = slot_of(u, total)
+    lo_b, hi_b = 0, len(starts) - 1
+    while lo_b < hi_b:
+        mid = (lo_b + hi_b) >> 1
+        if starts[mid + 1] <= slot:
+            lo_b = mid + 1
+        else:
+            hi_b = mid
+    return lo_b
+
+
 def model(draws, lo, hi, order, x, queries, law, k, masks, store=None,
-          p_floor=1e-8, n_live=None):
+          p_floor=1e-8, n_live=None, starts=None, d_law=None):
     """Every block of one draw_assemble launch: the result fields (B, m),
     and with a store the rows (B·m, W) and weights (B·m,).  With
     ``n_live`` the fallback draw is a slot of order[0, :n_live] and the
-    fallback p and the weights' N are n_live's."""
-    tables, slot_u, fb = (np.asarray(a) for a in draws)
+    fallback p and the weights' N are n_live's.  With ``starts`` (band
+    mode) ``lo``/``hi`` are (B, nb, J, L) and each block draws its band
+    first.  The law reads the first ``d_law`` coordinates."""
+    tables, slot_u = (np.asarray(a) for a in draws[:2])
+    fb = None if draws.fallback is None else np.asarray(draws.fallback)
     b, m, p = tables.shape
     j = len(masks)
     n = order.shape[1]
@@ -159,20 +185,33 @@ def model(draws, lo, hi, order, x, queries, law, k, masks, store=None,
         ("bucket_sizes", np.int32), ("fallback", bool),
         ("probe_code", np.int32))}
     rows, w = [], []
+    d_law = x.shape[1] if d_law is None else d_law
     for bi in range(b):
         for r in range(m):
-            first, t, lov, size, _ = walk(tables[bi, r], lo[bi], hi[bi], j)
+            lo_q, hi_q, p_band = lo[bi], hi[bi], None
+            if starts is not None:
+                band = band_of(np.asarray(draws.band_u)[bi, r], starts)
+                total = int(starts[-1])
+                lo_q, hi_q = lo[bi, band], hi[bi, band]
+                p_band = F32(F32(starts[band + 1] - starts[band])
+                             / F32(total))
+            first, t, lov, size, _ = walk(tables[bi, r], lo_q, hi_q, j)
             if first >= 0:
                 idx = int(order[t, lov + slot_of(slot_u[bi, r], size)])
+            elif starts is not None:
+                idx = int(order[0, slot_of(
+                    np.asarray(draws.fallback_u)[bi, r], total)])
             elif n_live is not None:
                 assert 0 <= fb[bi, r] < n_live
                 idx = int(order[0, fb[bi, r]])
             else:
                 idx = int(fb[bi, r])
             assert 0 <= idx < n
-            cp = law_cp(law, *block_sums(x[idx], queries[bi]))
-            pr = prob(cp, first, size, j, k, popc,
-                      F32(1.0 / (n if n_live is None else n_live)))
+            cp = law_cp(law, *block_sums(x[idx, :d_law],
+                                         queries[bi, :d_law]))
+            p_fb = (F32(1) / F32(total) if starts is not None else
+                    F32(1.0 / (n if n_live is None else n_live)))
+            pr = prob(cp, first, size, j, k, popc, p_fb, p_band)
             found = first >= 0
             vals = dict(indices=idx, probs=pr,
                         n_probes=first // j + 1 if found else p,
@@ -430,6 +469,150 @@ def test_sum_order(d):
     for s, w in zip(got, want):
         assert abs(float(s) - float(w)) <= 2 * gamma * float(
             torch.sum((tx.abs() + tq.abs()) ** 2))
+
+
+# -- the band mode ------------------------------------------------------------
+
+NB = 8
+
+
+def _band_case(seed, b=2, m=6, j=1, p=20, l=12, n=300, d=11, empty=0.6,
+               empty_band=3):
+    """A banded draw: a random partition of the n sorted slots into NB
+    bands (band ``empty_band`` empty), (B, NB, J, L) bounds inside each
+    band's region, rows whose last coordinate is their band id, and the
+    band and fallback uniforms."""
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(np.arange(1, n), NB - 2, replace=False))
+    counts = np.diff(np.concatenate([[0], cuts, [n]]))
+    counts = np.insert(counts, empty_band, 0)            # NB bands
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    lo = np.zeros((b, NB, j, l), np.int32)
+    hi = np.zeros((b, NB, j, l), np.int32)
+    for band in range(NB):
+        a_, z_ = starts[band], starts[band + 1]
+        size = np.minimum(rng.integers(1, 30, (b, j, l)), z_ - a_)
+        size[rng.random((b, j, l)) < empty] = 0
+        start = a_ + rng.integers(0, z_ - a_ - size + 1)
+        lo[:, band], hi[:, band] = start, start + size
+    order = np.stack([rng.permutation(n) for _ in range(l)]).astype(np.int64)
+    band_of_row = np.searchsorted(starts[1:], np.argsort(order[0]),
+                                  side="right")
+    x = rng.standard_normal((n, d)).astype(F32)
+    x[:, -1] = band_of_row                       # the band coordinate
+    q = rng.standard_normal((b, d)).astype(F32)
+    q[:, -1] = 0.0
+    draws = SampleDraws(
+        torch.from_numpy(rng.integers(0, l, (b, m, p))),
+        torch.from_numpy(rng.random((b, m)).astype(F32)), None,
+        band_u=torch.from_numpy(rng.random((b, m)).astype(F32)),
+        fallback_u=torch.from_numpy(rng.random((b, m)).astype(F32)))
+    store = rng.integers(0, 50_000, (n, 9)).astype(np.int32)
+    return dict(draws=draws, lo=lo, hi=hi, order=order, x=x, q=q,
+                store=store, starts=starts)
+
+
+def _hold_band(c, k, j, p_floor=1e-8, n_live=None):
+    """The model's band mode against the plain composition with
+    ``starts``, for the banded family; integer fields and rows bitwise,
+    p and w within RTOL."""
+    fam = get_family("mips_banded")
+    masks = _masks(k, j)
+    params = LSHParams(k=k, l=c["lo"].shape[3], dim=c["x"].shape[1],
+                       family="mips_banded")
+    t = torch.from_numpy
+    want, rows_w, w_w = draw_assemble_plain(
+        c["draws"], t(c["lo"]), t(c["hi"]), t(c["order"]), t(c["x"]),
+        t(c["q"]), params, c["draws"].tables.shape[2], masks,
+        t(c["store"]), p_floor, n_live, t(c["starts"]))
+    got, rows, w = model(c["draws"], c["lo"], c["hi"], c["order"], c["x"],
+                         c["q"], fam.cp_law, k, masks, c["store"], p_floor,
+                         n_live, starts=c["starts"],
+                         d_law=fam.law_dim(c["x"].shape[1]))
+    for key in ("indices", "n_probes", "bucket_sizes", "fallback",
+                "probe_code"):
+        np.testing.assert_array_equal(got[key], getattr(want, key).numpy(),
+                                      err_msg=key)
+    np.testing.assert_array_equal(rows, rows_w.numpy())
+    np.testing.assert_allclose(got["probs"], want.probs.numpy(), rtol=RTOL)
+    np.testing.assert_allclose(w, w_w.numpy(), rtol=RTOL)
+    return got, w
+
+
+@pytest.mark.parametrize("j", [1, 3])
+@pytest.mark.parametrize("p,empty", [(20, 0.6), (40, 0.97), (200, 0.99)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_band_draw_matches_the_plain_version(seed, p, empty, j):
+    """The band, the walk in its plane, the slot, the id and p = (n_band /
+    total) · q_r · miss^(l-1) / size; never a row of the empty band."""
+    c = _band_case(10 * seed + p, j=j, p=p, empty=empty)
+    got, _ = _hold_band(c, 5, j)
+    s = c["starts"]
+    empty_ids = set(c["order"][0, s[3]:s[4]].tolist())
+    assert not empty_ids & set(got["indices"].reshape(-1).tolist())
+
+
+@pytest.mark.parametrize("u", [0.0, 0.37, 1 - 2 ** -24])
+def test_band_of_the_draw(u):
+    """band_of is the plain version's searchsorted(starts[1:], slot,
+    right=True) of its _uniform_below slot; an empty band is never
+    drawn, and u -> 1 draws the last band."""
+    starts = np.array([0, 5, 5, 9, 20, 20, 21, 40, 40], np.int32)
+    total = torch.tensor(int(starts[-1]))
+    slot = _uniform_below(torch.tensor([u], dtype=torch.float32), total)
+    want = torch.searchsorted(torch.from_numpy(starts[1:]).long(), slot,
+                              right=True)
+    band = band_of(F32(u), starts)
+    assert band == int(want[0])
+    assert starts[band + 1] > starts[band]
+    if u > 0.9:
+        assert band == 6
+
+
+def test_band_fallback():
+    """Every bucket of every band empty: the fallback is order[0,
+    floor(fallback_u · total)] with p = 1/total, and the weights are
+    1/(p · N) with N the store height (no n_live), or n_live."""
+    c = _band_case(5, m=8, empty=1.0)
+    total = int(c["starts"][-1])
+    for n_live in (None, 300):
+        got, w = _hold_band(c, 5, 1, n_live=n_live)
+        assert got["fallback"].all() and (got["probe_code"] == -1).all()
+        slots = [slot_of(u, total) for u in
+                 c["draws"].fallback_u.numpy().reshape(-1)]
+        np.testing.assert_array_equal(got["indices"].reshape(-1),
+                                      c["order"][0, slots])
+        np.testing.assert_array_equal(got["probs"], F32(1) / F32(total))
+
+
+def test_band_mode_reads_only_d_law():
+    """The law reads d_law = d - 1 coordinates: with the band id (up to 7)
+    in |x| the collision probabilities, and so p, would differ."""
+    c = _band_case(6, j=3, empty=0.3)
+    got, _ = _hold_band(c, 5, 3)
+    wrong, _, _ = model(c["draws"], c["lo"], c["hi"], c["order"], c["x"],
+                        c["q"], "angle", 5, _masks(5, 3), c["store"],
+                        starts=c["starts"])
+    found = ~got["fallback"]
+    assert found.any()
+    np.testing.assert_array_equal(wrong["indices"], got["indices"])
+    assert not np.allclose(wrong["probs"][found], got["probs"][found],
+                           rtol=RTOL)
+
+
+def test_band_mode_needs_the_uniforms():
+    c = _band_case(7)
+    c["draws"] = c["draws"]._replace(band_u=None)
+    with pytest.raises(ValueError, match="band_u and fallback_u"):
+        _hold_band(c, 5, 1)
+
+
+def test_flat_mode_needs_the_fallback_ids():
+    """A banded draw carries no fallback id: the flat walk refuses it."""
+    c = _case(7)
+    c["draws"] = c["draws"]._replace(fallback=None)
+    with pytest.raises(ValueError, match="needs fallback ids"):
+        _hold(c, "srp", 5, 1)
 
 
 # -- laws, constants and dispatch ---------------------------------------------

@@ -266,6 +266,18 @@ class TestServe:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--new-tokens", "1"])
 
-    def test_lsh_head_names_the_roadmap(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            serve.main(["--device", "cpu", "--head", "lsh"])
+    def test_lsh_head_on_cpu(self, capsys):
+        """``--head lsh`` at SMOKE: the head line (rows, tables, the
+        shortlist a token, the build time) and in-vocabulary tokens, the
+        first one from the prompt's last position included."""
+        out = serve.main(["--device", "cpu", "--head", "lsh", "--batch",
+                          "2", "--prompt-len", "16", "--new-tokens", "4"])
+        text = capsys.readouterr().out
+        cfg = configs.get_smoke("phi4_mini_3_8b")
+        assert re.search(
+            rf"head=lsh: {cfg.vocab} rows x 8 tables, shortlist 1536/"
+            rf"{cfg.vocab} candidates/token, index build [\d.]+s", text), text
+        assert "decode head=lsh" in text
+        toks = out["tokens"]
+        assert toks.shape == (2, 5) and out["finite"] is None
+        assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
