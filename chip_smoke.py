@@ -151,6 +151,37 @@ The banded slice (the mips_banded family and the LSH decode head) adds:
       banded steps on the card, each from the CPU's state, held against
       the CPU's plain step on the same data, index and draws.
 
+The training-stack slice (checkpoints, Adam8bit, gradient compression,
+the step hook) adds:
+  3f. a small-input check, card against CPU (``training_stack_card_vs_
+      cpu``): phi4-mini SMOKE (f32), the same weights and injected draws
+      as 3c; 5 LGD trainer steps with Adam8bit and grad_compress, each
+      from the CPU's state (losses within SMOKE_TRAIN_RTOL; compressed
+      gradients and int8 moments equal but for values one apart at a
+      rounding edge, counted; params within rtol 1e-4, atol 1e-6 outside
+      the blocks whose compressed gradient differs); the card trainer's
+      checkpoint passing the CPU's verify and restoring bitwise on the
+      CPU; 4 steps of the LSH head's sampled loss through
+      TrainerConfig(step_hook=head.step_hook) with a refresh every 2
+      (refreshes at the same steps, losses within SMOKE_TRAIN_RTOL);
+  4f. the slice at full width after 4d, on its model
+      (``training_stack_full_width``): phi4-mini FULL in bf16, batch 8 x
+      512, corpus 2,048, 4c's LGD sampler (its async refresh switched off
+      by 5c, so none in these 10 steps), Adam8bit.  Run A trains 5
+      steps and checkpoints asynchronously at step 5 (keep 1); runs B
+      and C, fresh trainers with resume=True on the same model and
+      sampler, restore step 5 through latest_valid_step, restore_at(5)
+      and train steps 6-10.  Checked: every manifest CRC32 on the
+      restored tensors, B's and C's ids bitwise at every step, their
+      losses (step 6 bitwise, then within RESUME_RTOL), every loss
+      finite, draw_assemble 5 a run, simhash >= 1 a restore; then a
+      flipped manifest byte fails verify, latest_valid_step is None and
+      a fourth trainer starts at step 0.  A disk too small for the
+      checkpoint fails the run.  Printed: the checkpoint's bytes against
+      the free disk, snapshot / serialisation / verify / restore /
+      restore_at seconds, the step p50 beside 4c's Adam p50, the peak
+      memory; then the script's total seconds.
+
 Imports torch, numpy and repro_torch only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
 result.  The last line is the JSON result; the lines before it carry
@@ -209,6 +240,9 @@ TRAIN_REFRESH = 10
 # tokens and weights within 1e-6: sums in another order, compounded
 # over 5 Adam steps
 SMOKE_TRAIN_RTOL = 1e-4
+# 4f: losses of two trainers resumed from one checkpoint, steps 7-10 (step
+# 6, a forward from bitwise-equal state, must be bitwise equal)
+RESUME_RTOL = 1e-3
 
 # the LM serve path (phases 2b, 4b, 5b): phi4-mini's attention shapes
 SERVE_ARCH = "phi4_mini_3_8b"
@@ -831,6 +865,462 @@ def serve_lsh_full_width(torch, np, dev, cfg_f, lm_f, prompts, full_first,
         sample_row=toks[0, :12].tolist())
 
 
+def _same_state(torch, src, dst):
+    """Copy trainer ``src``'s parameters, optimiser state and
+    error-feedback residual into trainer ``dst`` (another device)."""
+    from repro_torch.train import checkpoint as ckpt
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(ckpt.flatten(src._state_tree()),
+                                  ckpt.flatten(dst._state_tree())):
+            b.copy_(a)
+        for k, r in (src._ef_residual or {}).items():
+            dst._ef_residual[k].copy_(r)
+
+
+def _max(t) -> float:
+    """The largest element of ``t``, 0 for an empty one."""
+    return float(t.max()) if t.numel() else 0.0
+
+
+def _blocks(t, block: int):
+    """``t`` flattened and zero-padded into rows of ``block`` values."""
+    import torch
+    flat = t.detach().reshape(-1)
+    pad = (-flat.numel()) % block
+    return torch.nn.functional.pad(flat, (0, pad)).reshape(-1, block)
+
+
+def training_stack_card_vs_cpu(torch, np, dev, cfg_t) -> dict:
+    """3f: the training stack at phi4-mini SMOKE (f32), card against CPU,
+    with the same weights and the same injected draws, as in 3c.
+
+    (a) 5 LGD trainer steps with Adam8bit (peak lr 1e-6, below) and
+    ``grad_compress``, each from the CPU's state (params, int8 moments, residual copied to the
+    card first), on bitwise-equal batches.  A compressed gradient's int8
+    value may differ by one where the two devices' f32 gradients
+    straddle a rounding edge (the backward sums in another order); its
+    256-value block (the same partition for the moments) then carries a
+    one-quantum gradient difference into the moments and the update, and
+    is exempt below (counted).  Elsewhere the int8 moments may differ by
+    one (a rounding edge) and their scales by rtol 1e-5, the params by
+    rtol 1e-4, atol 1e-6; the losses by SMOKE_TRAIN_RTOL.  (b) 4 steps of
+    the LSH head's sampled loss through ``TrainerConfig(step_hook=
+    head.step_hook)``, refresh every 2: the refreshes at the same steps
+    on both (the card then takes the CPU's refreshed index, as 3e does,
+    so both sample the same negatives with the same draws), the losses
+    within SMOKE_TRAIN_RTOL.  (c) the card trainer's checkpoint passes
+    ``verify`` and restores on the CPU bitwise."""
+    import shutil
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.core import LSHIndex
+    from repro_torch.core.sampler import draw_samples
+    from repro_torch.data import (
+        LSHPipelineConfig, LSHSampledPipeline, lm_head_query_fn,
+        make_token_corpus, mean_pool_feature_fn)
+    from repro_torch.models import (
+        LM, LMHeadIndex, SampledSoftmaxConfig, make_sampled_loss)
+    from repro_torch.optim import Adam, Adam8bit, compression, schedules
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import checkpoint as ckpt
+
+    out = {}
+    lm_c = LM.init(cfg_t, seed=0, device="cpu")
+    lm_g = LM(cfg_t, device=dev)
+    lm_g.load_state_dict(lm_c.state_dict())
+    toks = make_token_corpus(0, 256, 64, cfg_t.vocab).tokens
+    pcfg = LSHPipelineConfig(minibatch=TRAIN_BATCH)
+    pipes = {"cpu": LSHSampledPipeline(
+        2, toks, mean_pool_feature_fn(cfg_t), lm_head_query_fn(), pcfg,
+        params=lm_c, device="cpu")}
+    pipes["cuda"] = LSHSampledPipeline(
+        2, toks, mean_pool_feature_fn(cfg_t), lm_head_query_fn(), pcfg,
+        params=lm_g, device=dev,
+        projections=pipes["cpu"].index.projections.to(dev))
+    # both sample the CPU's index (3c holds the card's own build)
+    pipes["cuda"].features = pipes["cpu"].features.to(dev)
+    pipes["cuda"].index = LSHIndex(*(x.to(dev) for x in pipes["cpu"].index))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_3f_")
+    # 3c's schedule at a 1e-6 peak: at 3c's 1e-3, Adam8bit's jumps where a
+    # compressed gradient rounds to 0 over a stored v of 0 (ROADMAP queue
+    # 3; tests/test_torch_optim_stack.py::test_adam8bit_zero_gradient_
+    # jump) drive the SMOKE loss up by orders of magnitude within these 5
+    # steps, and there the softmax turns the two devices' last-bit logit
+    # differences into 1e-3-relative differences of the largest gradients:
+    # a measure of that blow-up, not of the port
+    opt = Adam8bit(lr=schedules.warmup_cosine(1e-6, 2, 5))
+    trainers = {
+        "cpu": Trainer(cfg_t, lm_c, opt, tcfg=TrainerConfig(
+            grad_compress=True, log_every=100), sampler=pipes["cpu"]),
+        "cuda": Trainer(cfg_t, lm_g, opt, tcfg=TrainerConfig(
+            grad_compress=True, log_every=100, ckpt_dir=tmp,
+            ckpt_every=10 ** 9), resume=False, sampler=pipes["cuda"])}
+    captured = []                 # each train_step's compressed gradients
+    compress = compression.compress_with_feedback
+
+    def capture(grads, residual, block=compression.BLOCK):
+        q, r = compress(grads, residual, block)
+        captured.append(q)
+        return q, r
+
+    lsh_t = pipes["cpu"].lsh
+    gd = torch.Generator().manual_seed(4)
+    stats = dict(losses_cpu=[], losses_cuda=[], grad_q_diff=0,
+                 grad_q_values=0, grad_q_max_diff=0,
+                 grad_scale_max_rel_diff=0.0, exempt_blocks=0,
+                 moment_q_diff=0, moment_q_values=0, moment_q_max_diff=0,
+                 moment_scale_max_rel_diff=0.0, param_max_abs_diff=0.0,
+                 param_worst_of_tol=0.0, exempt_param_max_abs_diff=0.0)
+    bad = []                      # every violation, reported together
+
+    def worst(key, value, limit, what):
+        stats[key] = max(stats[key], value)
+        if value > limit:
+            bad.append(f"{what}: {value:.4g} > {limit:.4g}")
+
+    kernels.reset_launch_counts()
+    compression.compress_with_feedback = capture
+    try:
+        for step in range(5):
+            _same_state(torch, trainers["cpu"], trainers["cuda"])
+            dr = draw_samples(gd, (TRAIN_BATCH,), max(2 * lsh_t.l, 8),
+                              lsh_t.l, toks.shape[0], "cpu")
+            q = pipes["cpu"].family.augment_query(
+                lm_c.lm_head_query().detach())
+            bt = {"cpu": pipes["cpu"].next_batch(query=q, draws=dr),
+                  "cuda": pipes["cuda"].next_batch(query=q.to(dev),
+                                                   draws=dr.to(dev))}
+            if not torch.equal(bt["cuda"]["tokens"].cpu(),
+                               bt["cpu"]["tokens"]):
+                fail("3f: the LGD batch on the card differs from the CPU's")
+            captured.clear()
+            for where in ("cpu", "cuda"):
+                loss, _, ok = trainers[where].train_step(bt[where])
+                if ok is False or not math.isfinite(float(loss)):
+                    fail(f"3f: a non-finite step on {where}")
+                stats[f"losses_{where}"].append(float(loss))
+            flips = {}
+            for k, qc in captured[0].items():
+                qg = captured[1][k]
+                d = (qg.q.cpu().int() - qc.q.int()).abs()
+                rel = (qg.scale.cpu() - qc.scale).abs() / qc.scale
+                worst("grad_q_max_diff", int(d.max()), 1,
+                      f"step {step} {k} compressed-gradient int8 diff")
+                worst("grad_scale_max_rel_diff", float(rel.max()),
+                      SMOKE_TRAIN_RTOL, f"step {step} {k} gradient scale")
+                flips[k] = (d > 0).any(dim=1)
+                stats["grad_q_diff"] += int((d > 0).sum())
+                stats["grad_q_values"] += d.numel()
+                stats["exempt_blocks"] += int(flips[k].sum())
+            st = {w: trainers[w].opt_state for w in trainers}
+            for field in ("m", "v"):
+                for k, qc in getattr(st["cpu"], field).items():
+                    qg, keep = getattr(st["cuda"], field)[k], ~flips[k]
+                    d = (qg.q.cpu().int() - qc.q.int()).abs()
+                    rel = (qg.scale.cpu() - qc.scale).abs() / qc.scale
+                    stats["moment_q_diff"] += int((d > 0).sum())
+                    stats["moment_q_values"] += d.numel()
+                    worst("moment_q_max_diff", int(_max(d[keep])), 1,
+                          f"step {step} {k} int8 {field} diff")
+                    worst("moment_scale_max_rel_diff", _max(rel[keep]),
+                          SMOKE_TRAIN_RTOL, f"step {step} {k} {field} scale")
+            for k, pc in trainers["cpu"].named_params.items():
+                pg = trainers["cuda"].named_params[k]
+                a, b = _blocks(pg.cpu(), 256), _blocks(pc, 256)
+                keep = ~flips[k]
+                err = (a - b).abs()
+                stats["param_max_abs_diff"] = max(
+                    stats["param_max_abs_diff"], _max(err[keep]))
+                stats["exempt_param_max_abs_diff"] = max(
+                    stats["exempt_param_max_abs_diff"], _max(err[~keep]))
+                # |a - b| <= atol + rtol |b| as a share of its bound
+                worst("param_worst_of_tol", _max(
+                    (err / (1e-6 + 1e-4 * b.abs()))[keep]), 1.0,
+                    f"step {step} params {k}")
+    finally:
+        compression.compress_with_feedback = compress
+    lc, lg = stats["losses_cpu"], stats["losses_cuda"]
+    stats["loss_max_rel_diff"] = max(abs(a - b) / abs(b)
+                                     for a, b in zip(lg, lc))
+    if stats["loss_max_rel_diff"] > SMOKE_TRAIN_RTOL:
+        bad.append(f"losses {lc} vs {lg}")
+    print("small-input check train-stack adam8bit " + json.dumps(stats),
+          flush=True)
+    if bad:
+        fail("3f: Adam8bit + grad_compress, card against CPU: "
+             + "; ".join(bad[:8]))
+    stats["launches"] = {k: kernels.launches[k] for k in ("draw_assemble",)}
+    if stats["launches"]["draw_assemble"] != 5:
+        fail(f"3f: the LGD steps on the card did not draw through the "
+             f"kernel: {stats['launches']}")
+    out["adam8bit_compress"] = stats
+
+    # (c) the card's checkpoint on the CPU
+    tg = trainers["cuda"]
+    tg.step = 5
+    tg.save()
+    tg.finalize()
+    ok, reason = ckpt.verify(tmp, 5)
+    if not ok:
+        fail(f"3f: the card's checkpoint fails the CPU's verify: {reason}")
+    tree, extra = ckpt.restore(tmp, 5, trainers["cpu"]._state_tree())
+    n_leaves = 0
+    for (path, a), (_, b) in zip(ckpt.flatten(tree),
+                                 ckpt.flatten(tg._state_tree())):
+        n_leaves += 1
+        if a.device.type != "cpu" or not torch.equal(a, b.detach().cpu()):
+            fail(f"3f: leaf {path} restored on the CPU is not the card's")
+    out["checkpoint"] = dict(verify=reason, leaves=n_leaves,
+                             step=extra.get("step"))
+    shutil.rmtree(tmp)
+    del trainers, pipes, lm_c, lm_g, tree
+
+    # (b) the LSH head through the step hook
+    lm_c = LM.init(cfg_t, seed=1, device="cpu")
+    lm_g = LM(cfg_t, device=dev)
+    lm_g.load_state_dict(lm_c.state_dict())
+    scfg = SampledSoftmaxConfig(k=3, l=4, n_samples=16, multiprobe=1,
+                                refresh_every=2, refresh_mode="delta")
+    heads = {"cpu": LMHeadIndex(lm_c, scfg)}
+    heads["cuda"] = LMHeadIndex(lm_g, scfg, projections=heads[
+        "cpu"].index.projections.to(dev))
+
+    def take_cpu_index():
+        heads["cuda"].index = LSHIndex(*(x.to(dev)
+                                         for x in heads["cpu"].index))
+        heads["cuda"].x_aug = heads["cpu"].x_aug.to(dev)
+
+    take_cpu_index()
+    rng = np.random.default_rng(60)
+    gh = torch.Generator().manual_seed(61)
+    rows = [torch.from_numpy(rng.integers(0, cfg_t.vocab, (2, 17)))
+            for _ in range(4)]
+    draws = [draw_samples(gh, (2 * 16, scfg.n_samples), max(2 * scfg.l, 8),
+                          scfg.l, cfg_t.vocab, "cpu") for _ in range(4)]
+
+    def stream(where):
+        to = "cpu" if where == "cpu" else dev
+        plain = ({"tokens": r[:, :-1].to(to), "targets": r[:, 1:].to(to)}
+                 for r in rows)
+        for i, b in enumerate(heads[where].wrap_batches(plain)):
+            b["head_draws"] = draws[i].to(to)
+            yield b
+
+    trainers = {w: Trainer(cfg_t, lm, Adam(lr=1e-3), stream(w), TrainerConfig(
+            log_every=100, step_hook=heads[w].step_hook),
+        loss_fn=make_sampled_loss(cfg_t, scfg))
+        for w, lm in (("cpu", lm_c), ("cuda", lm_g))}
+    hl = {"cpu": [], "cuda": []}
+    refreshed = {"cpu": [], "cuda": []}
+    kernels.reset_launch_counts()
+    for _ in range(4):
+        for w in ("cpu", "cuda"):
+            before = heads[w].refreshes
+            hl[w] += trainers[w].run(1)["losses"]
+            if heads[w].refreshes != before:
+                refreshed[w].append(trainers[w].step)
+        take_cpu_index()
+    head = dict(losses_cpu=hl["cpu"], losses_cuda=hl["cuda"],
+                refresh_steps=refreshed,
+                launches={k: kernels.launches[k]
+                          for k in ("draw_assemble", "simhash")})
+    head["loss_max_rel_diff"] = max(abs(a - b) / abs(b)
+                                    for a, b in zip(hl["cuda"], hl["cpu"]))
+    if refreshed["cpu"] != [2, 4] or refreshed["cuda"] != refreshed["cpu"]:
+        fail(f"3f: the head's refresh steps differ: {refreshed}")
+    if not all(map(math.isfinite, hl["cpu"] + hl["cuda"])) or \
+            head["loss_max_rel_diff"] > SMOKE_TRAIN_RTOL:
+        fail(f"3f: sampled-head losses on the card differ from the CPU's: "
+             f"{hl}")
+    if head["launches"] != {"draw_assemble": 4, "simhash": 2}:
+        fail(f"3f: the head's draws and refreshes on the card did not run "
+             f"the kernels: {head['launches']}")
+    out["lsh_head"] = head
+    return out
+
+
+def training_stack_full_width(torch, np, dev, cfg_f, model, sampler,
+                              adam_p50: float) -> dict:
+    """4f: checkpoint, resume and corruption at full width on ``model``
+    (phi4-mini FULL, bf16), with 4c's LGD sampler (async refresh, which
+    5c switched off, so none falls in these 10 steps) and Adam8bit.
+
+    Run A trains 5 steps and checkpoints asynchronously at step 5; runs B
+    and C are fresh trainers with ``resume=True`` on the same model and
+    sampler objects (the restore overwrites them in place), each
+    restoring step 5 through ``latest_valid_step`` and ``restore_at(5)``
+    and training steps 6-10.  Then the manifest is corrupted and a fourth
+    trainer must start at step 0."""
+    import shutil
+    import tempfile
+    import zlib
+    from repro_torch import kernels
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import Adam8bit, schedules
+    from repro_torch.testing import flip_manifest_byte
+    from repro_torch.train import TrainerConfig
+    from repro_torch.train import checkpoint as ckpt
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if sampler.cfg.refresh_every:
+        fail("4f: 4c's sampler still refreshes")
+    out = {}
+    drawn = []
+    next_batch = sampler.next_batch
+
+    def kept_batch(*a, **kw):
+        b = next_batch(*a, **kw)
+        drawn.append(b["example_ids"].clone())
+        return b
+
+    sampler.next_batch = kept_batch
+    opt = Adam8bit(lr=schedules.warmup_cosine(1e-3, 10, 10))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4f_")
+
+    def trainer(resume: bool, every: int):
+        return launch_train.make_trainer(
+            cfg_f, model, steps=10, lr=1e-3, sampler=sampler, optimizer=opt,
+            tcfg=TrainerConfig(ckpt_dir=tmp, ckpt_every=every, keep_ckpts=1,
+                               log_every=10), resume=resume)
+
+    def run(tr, tag):
+        starts, step = [], tr.train_step
+
+        def timed_step(batch):
+            starts.append(time.perf_counter())
+            return step(batch)
+
+        tr.train_step = timed_step
+        kernels.reset_launch_counts()
+        losses = tr.run(5)["losses"]
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        del tr.train_step
+        used = kernels.launches["draw_assemble"]
+        if used != 5:
+            fail(f"4f {tag}: draw_assemble launched {used} times, not 5")
+        if len(losses) != 5 or not all(map(math.isfinite, losses)):
+            fail(f"4f {tag}: losses {losses}")
+        return losses, [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+
+    timers: dict = {}
+
+    def timing(fn, name):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                timers.setdefault(name, []).append(time.perf_counter() - t1)
+        return wrapper
+
+    verify, restore = ckpt.verify, ckpt.restore
+    try:
+        # -- run A: 5 steps, the async checkpoint at step 5
+        state_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        blocks = sum(-(-p.numel() // opt.block) for p in model.parameters())
+        need = state_bytes + 2 * blocks * (opt.block + 4) + 4
+        free = shutil.disk_usage(tmp).free
+        out.update(checkpoint_bytes_predicted=need, disk_free_bytes=free)
+        if free < need * 1.05:
+            fail(f"4f: the disk under {tmp} has {free / 1e9:.2f} GB free, "
+                 f"too small for the {need / 1e9:.2f} GB checkpoint")
+        ta = trainer(False, 5)
+        la, dts_a = run(ta, "A")
+        ta.finalize()                 # waits for the write
+        if ckpt.latest_step(tmp) != 5:
+            fail("4f A: no checkpoint at step 5")
+        d5 = os.path.join(tmp, "step_00000005")
+        out.update(
+            checkpoint_bytes=sum(os.path.getsize(os.path.join(d5, f))
+                                 for f in os.listdir(d5)),
+            snapshot_s=ta._ckpt.snapshot_s, write_s=ta._ckpt.write_s)
+        del ta
+        gc.collect()
+
+        # -- runs B and C: resume, restore_at(5), steps 6-10
+        ckpt.verify = timing(verify, "verify")
+        ckpt.restore = timing(restore, "restore")
+        sampler.restore_at = timing(sampler.restore_at, "restore_at")
+        res = {}
+        for tag in ("B", "C"):
+            kernels.reset_launch_counts()
+            tr = trainer(True, 10 ** 9)
+            hashed = kernels.launches["simhash"]
+            if tr.step != 5 or hashed < 1:
+                fail(f"4f {tag}: resumed at step {tr.step} with {hashed} "
+                     f"simhash launches")
+            if tag == "B":
+                # every manifest CRC32 on the restored tensors
+                with open(os.path.join(d5, "manifest.json")) as f:
+                    crcs = {leaf["path"]: leaf["crc32"]
+                            for leaf in json.load(f)["leaves"]}
+                host = ckpt.snapshot(tr._state_tree())
+                flat = ckpt.flatten(host)
+                bad = [p for p, a in flat if zlib.crc32(np.ascontiguousarray(
+                    a).reshape(-1).view(np.uint8)) != crcs.pop(p, None)]
+                if bad or crcs:
+                    fail(f"4f: restored leaves fail their manifest CRC32: "
+                         f"{bad[:3]}, missing {list(crcs)[:3]}")
+                out["crc_leaves_checked"] = len(flat)
+                del host, flat
+            first = len(drawn)
+            losses, dts = run(tr, tag)
+            res[tag] = dict(losses=losses, dts=dts, simhash=hashed,
+                            ids=drawn[first:])
+            tr.finalize()
+            del tr
+            gc.collect()
+    finally:
+        ckpt.verify, ckpt.restore = verify, restore
+        sampler.__dict__.pop("restore_at", None)
+        sampler.__dict__.pop("next_batch", None)
+    for s_, (a, b) in enumerate(zip(res["B"]["ids"], res["C"]["ids"])):
+        if not torch.equal(a, b):
+            fail(f"4f: B and C drew different ids at step {6 + s_}")
+    lb, lc = res["B"]["losses"], res["C"]["losses"]
+    bitwise = lb == lc
+    # step 6 is a forward from bitwise-equal restored state; steps 7-10
+    # follow a backward
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lb, lc))
+    if lb[0] != lc[0] or rel > RESUME_RTOL:
+        fail(f"4f: B's and C's losses differ: {lb} vs {lc}")
+
+    # -- corruption: the newest (only) checkpoint's manifest bit-rots
+    flip_manifest_byte(tmp, 5)
+    ok, reason = verify(tmp, 5)
+    if ok or "manifest" not in reason:
+        fail(f"4f: a flipped manifest byte passed verify ({reason})")
+    if ckpt.latest_valid_step(tmp) is not None:
+        fail("4f: latest_valid_step found a valid step after the flip")
+    td = trainer(True, 10 ** 9)
+    if td.step != 0:
+        fail(f"4f: the trainer after the flip starts at step {td.step}")
+    del td
+    sampler.finalize()
+    shutil.rmtree(tmp)
+    steady = dts_a[:-1] + res["B"]["dts"] + res["C"]["dts"]
+    out.update(
+        arch=cfg_f.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        corpus=TRAIN_CORPUS, optimizer="adam8bit",
+        verify_s=timers["verify"], restore_s=timers["restore"],
+        restore_at_s=timers["restore_at"], corrupt_verify=reason,
+        losses_a=la, losses_b=lb, losses_c=lc, losses_bitwise=bitwise,
+        loss_max_rel_diff=rel,
+        simhash_per_restore=[res["B"]["simhash"], res["C"]["simhash"]],
+        step_ms_all=dts_a + res["B"]["dts"] + res["C"]["dts"],
+        step_ms_p50=float(np.percentile(steady, 50)),
+        adam_step_ms_p50_4c=adam_p50,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
 def banded_card_vs_cpu(torch, dev, ds, mp: int) -> dict:
     """Phase 4e: the mips_banded LGD step at N_TRAIN on the card against
     the CPU's plain path, STEPS times, each step from the CPU's state with
@@ -911,6 +1401,7 @@ def banded_card_vs_cpu(torch, dev, ds, mp: int) -> dict:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1988,6 +2479,12 @@ def main() -> int:
     print("small-input check stream " + json.dumps(report["smoke_stream"]),
           flush=True)
 
+    # -- 3f. small input: the training stack on the card against the CPU --
+    report["smoke_train_stack"] = training_stack_card_vs_cpu(
+        torch, np, dev, cfg_t)
+    print("small-input check train-stack " + json.dumps(
+        report["smoke_train_stack"]), flush=True)
+
     # -- 4. the main path ---------------------------------------------------
     expect = {0: ("simhash", "bucket_probe"), 2: ("simhash",
                                                   "bucket_probe_multi")}
@@ -2354,15 +2851,24 @@ def main() -> int:
     print("profile train/step " + json.dumps(
         report["profile"]["train_step"]), flush=True)
     feature_batch = sampler.feature_batch
-    # every reference to the trainer (its Adam moments: ~36 GB) goes
-    del tr, sampler, train_step, timed_step, next_batch, kept_batch
+    sampler.__dict__.pop("next_batch", None)
+    # every reference to the trainer (its Adam moments: ~36 GB) goes; 4f
+    # reuses the sampler
+    del tr, train_step, timed_step, next_batch, kept_batch
     gc.collect()
 
     # -- 4d. the streaming path at full width (the same model) --------------
     report["stream"] = streaming_full_width(torch, np, dev, cfg_f, model,
                                             feature_batch)
     print("stream " + json.dumps(report["stream"]), flush=True)
-    del model
+
+    # -- 4f. the training stack at full width (the same model) --------------
+    report["train_stack"] = training_stack_full_width(
+        torch, np, dev, cfg_f, model, sampler, report["train"]["step_ms_p50"])
+    print("train-stack " + json.dumps(report["train_stack"]), flush=True)
+    del model, sampler
+    print(f"chip_smoke total: {time.perf_counter() - t_script:.1f} s",
+          flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

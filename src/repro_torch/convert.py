@@ -18,9 +18,20 @@ port; ``order`` is int32 there and int64 here.  A banded family's
 and ``lm_head_index_from_numpy`` puts the reference's ``LMHeadIndex``
 state (scale, x_aug, index) into a port ``LMHeadIndex``.  Optimiser
 states of a single tensor map by class name (``SGDState``,
-``AdaGradState``, ``AdamState``) field by field.  An LM's Adam state — moments shaped
-like the parameter pytree there, dicts keyed by the port's parameter
-names here — maps with ``adam_state_{from,to}_numpy``.
+``AdaGradState``, ``AdamState``, ``Adam8bitState``, ``AdafactorState``)
+field by field; a ``QTensor`` crosses as (q, scale, shape).  An LM's
+states — slots shaped like the parameter pytree there, dicts keyed by
+the port's parameter names here — map with ``adam_state_{from,to}_numpy``,
+``adam8bit_state_{from,to}_numpy`` and ``adafactor_state_{from,to}_numpy``.
+
+The reference quantises (Adam8bit) and factors (Adafactor) each
+STACKED leaf — (repeats, ...) over a block pattern's layers — where the
+port has one leaf a layer.  The two are the same state only where a
+stacked leaf splits exactly: a QTensor when each layer's size is a whole
+number of blocks (or there is one repeat); Adafactor's ≥ 2-D leaves
+always, and a layer's 1-D leaf (a norm scale) only at one repeat, where
+the reference's one-row factoring is the port's unfactored moment.
+Elsewhere these functions raise.
 """
 
 from __future__ import annotations
@@ -32,10 +43,17 @@ from repro_torch.core.families import BandedScale
 from repro_torch.core.lgd import LGDState
 from repro_torch.core.tables import LSHIndex
 from repro_torch.models import LM, LMHeadIndex, ModelConfig
-from repro_torch.optim import AdaGradState, AdamState, SGDState
+from repro_torch.optim import (
+    AdafactorState,
+    AdaGradState,
+    Adam8bitState,
+    AdamState,
+    QTensor,
+    SGDState,
+)
 
-_OPT_STATES = {cls.__name__: cls for cls in (SGDState, AdaGradState,
-                                             AdamState)}
+_OPT_STATES = {cls.__name__: cls for cls in (
+    SGDState, AdaGradState, AdamState, Adam8bitState, AdafactorState)}
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -102,18 +120,42 @@ def lm_head_index_from_numpy(head: LMHeadIndex, scale, x_aug, index,
     return head
 
 
+def qtensor_from_numpy(q, scale, shape, device="cpu") -> QTensor:
+    """A reference ``QTensor``'s (q, scale, shape) -> port."""
+    return QTensor(tensor_from_numpy(np.asarray(q, np.int8), device),
+                   tensor_from_numpy(np.asarray(scale, np.float32), device),
+                   tuple(shape))
+
+
+def qtensor_to_numpy(qt: QTensor) -> tuple:
+    """Port ``QTensor`` -> (int8 q, f32 scale, shape)."""
+    return (qt.q.detach().cpu().numpy(), qt.scale.detach().cpu().numpy(),
+            tuple(qt.shape))
+
+
+def _field_from_numpy(f, device):
+    if f is None:
+        return None
+    if hasattr(f, "q") and hasattr(f, "scale"):      # a reference QTensor
+        return qtensor_from_numpy(f.q, f.scale, f.shape, device)
+    return tensor_from_numpy(f, device)
+
+
 def opt_state_from_numpy(state, device="cpu"):
-    """A reference optimiser state (NamedTuple of arrays / None) -> port."""
+    """A reference optimiser state of one tensor (NamedTuple of arrays,
+    QTensors or None) -> port."""
     cls = _OPT_STATES.get(type(state).__name__)
     if cls is None:
         raise TypeError(f"no port of optimiser state {type(state).__name__}")
-    return cls(*(None if f is None else tensor_from_numpy(f, device)
-                 for f in state))
+    return cls(*(_field_from_numpy(f, device) for f in state))
 
 
 def opt_state_to_numpy(state) -> dict:
-    """Port optimiser state -> {field: numpy array or None}."""
-    return {name: None if f is None else f.detach().cpu().numpy()
+    """Port optimiser state -> {field: numpy array, (q, scale, shape) of a
+    QTensor, or None}."""
+    return {name: None if f is None else
+            qtensor_to_numpy(f) if isinstance(f, QTensor) else
+            f.detach().cpu().numpy()
             for name, f in zip(state._fields, state)}
 
 
@@ -234,3 +276,144 @@ def adam_state_to_numpy(state: AdamState, cfg: ModelConfig) -> dict:
     return {"step": state.step.detach().cpu().numpy(),
             "m": lm_tree_to_numpy(state.m, cfg),
             "v": lm_tree_to_numpy(state.v, cfg)}
+
+
+def _stacked(name: str, cfg: ModelConfig):
+    """(repeat r, repeats R) of a block parameter, None for the embed
+    group's."""
+    where = _where(name, cfg)
+    if where[0] is None:
+        return None
+    return where[1], cfg.n_layers // len(cfg.block_pattern)
+
+
+def _ref_leaf(tree, name: str, cfg: ModelConfig):
+    """The reference's leaf (whole stack) holding the port's ``name``."""
+    where = _where(name, cfg)
+    if where[0] is None:
+        return _leaf(tree["embed_group"], where[1])
+    return _leaf(tree["blocks"][where[0]], where[2])
+
+
+def _set_ref(out: dict, name: str, cfg: ModelConfig, value) -> None:
+    where = _where(name, cfg)
+    if where[0] is None:
+        _set(out["embed_group"], where[1], value)
+    else:
+        _set(out["blocks"][where[0]], where[2], value)
+
+
+def _blocks_of(shape, block: int, name: str, repeats: int) -> int:
+    """Blocks one layer's slice of a stacked QTensor takes; raises where
+    the layers share a block."""
+    size = int(np.prod(shape, dtype=np.int64))
+    if repeats > 1 and size % block:
+        raise ValueError(
+            f"{name}: {size} values a layer is not a whole number of "
+            f"{block}-value blocks, so the reference's stacked QTensor "
+            f"shares blocks between layers")
+    return -(-size // block)
+
+
+def adam8bit_state_from_numpy(state, lm: LM) -> Adam8bitState:
+    """The reference's ``Adam8bitState`` over LM params -> the port's,
+    with dicts of ``QTensor`` keyed by ``lm``'s parameter names."""
+    cfg, dev = lm.cfg, lm.device
+
+    def slot(tree):
+        out = {}
+        for name, p in lm.named_parameters():
+            ref = _ref_leaf(tree, name, cfg)
+            q, scale = np.asarray(ref.q), np.asarray(ref.scale)
+            st = _stacked(name, cfg)
+            if st is not None:
+                n = _blocks_of(p.shape, q.shape[1], name, st[1])
+                q, scale = (q[st[0] * n:(st[0] + 1) * n],
+                            scale[st[0] * n:(st[0] + 1) * n])
+            out[name] = qtensor_from_numpy(q, scale, p.shape, dev)
+        return out
+
+    return Adam8bitState(tensor_from_numpy(state.step, dev),
+                         slot(state.m), slot(state.v))
+
+
+def adam8bit_state_to_numpy(state: Adam8bitState, cfg: ModelConfig) -> dict:
+    """The port's dict ``Adam8bitState`` -> {"step", "m", "v"} in the
+    reference's layout: each leaf (q, scale, shape), layers' blocks
+    concatenated into the stacked leaf's."""
+    def slot(named):
+        out = {"embed_group": {}, "blocks": [{} for _ in cfg.block_pattern]}
+        stacks: dict = {}
+        for name, qt in named.items():
+            q, scale, shape = qtensor_to_numpy(qt)
+            st = _stacked(name, cfg)
+            if st is None:
+                _set_ref(out, name, cfg, (q, scale, shape))
+                continue
+            _blocks_of(shape, q.shape[1], name, st[1])
+            where = _where(name, cfg)
+            stacks.setdefault((where[0], where[2]), []).append(
+                (q, scale, shape))
+        for (j, dotted), parts in stacks.items():
+            _set(out["blocks"][j], dotted, (
+                np.concatenate([p[0] for p in parts]),
+                np.concatenate([p[1] for p in parts]),
+                (len(parts),) + tuple(parts[0][2])))
+        return out
+
+    return {"step": state.step.detach().cpu().numpy(),
+            "m": slot(state.m), "v": slot(state.v)}
+
+
+def adafactor_state_from_numpy(state, lm: LM) -> AdafactorState:
+    """The reference's ``AdafactorState`` over LM params -> the port's."""
+    cfg, dev = lm.cfg, lm.device
+    vr, vc = {}, {}
+    for name, p in lm.named_parameters():
+        r_, c_ = (np.asarray(_ref_leaf(t_, name, cfg))
+                  for t_ in (state.vr, state.vc))
+        st = _stacked(name, cfg)
+        if st is not None and p.dim() >= 2:
+            r_, c_ = r_[st[0]], c_[st[0]]
+        elif st is not None:
+            if st[1] != 1:
+                raise ValueError(
+                    f"{name}: the reference factors the stacked "
+                    f"({st[1]}, ...) leaf of this 1-D parameter")
+            r_, c_ = c_, np.zeros((0,), np.float32)
+        vr[name] = tensor_from_numpy(r_, dev)
+        vc[name] = tensor_from_numpy(c_, dev)
+    return AdafactorState(tensor_from_numpy(state.step, dev), vr, vc)
+
+
+def adafactor_state_to_numpy(state: AdafactorState,
+                             cfg: ModelConfig) -> dict:
+    """The port's dict ``AdafactorState`` -> {"step", "vr", "vc"} in the
+    reference's layout.  A 1-D layer parameter at one repeat becomes the
+    reference's one-row factoring: vc the port's moment, vr its mean
+    (what the row statistic holds, since both are running means of the
+    same squares)."""
+    vr = {"embed_group": {}, "blocks": [{} for _ in cfg.block_pattern]}
+    vc = {"embed_group": {}, "blocks": [{} for _ in cfg.block_pattern]}
+    stacks: dict = {}
+    for name in state.vr:
+        r_, c_ = (_to_numpy(state.vr[name]), _to_numpy(state.vc[name]))
+        st = _stacked(name, cfg)
+        if st is None:
+            _set_ref(vr, name, cfg, r_)
+            _set_ref(vc, name, cfg, c_)
+            continue
+        if c_.size == 0 and r_.ndim == 1:          # a 1-D parameter
+            if st[1] != 1:
+                raise ValueError(
+                    f"{name}: the reference factors the stacked "
+                    f"({st[1]}, ...) leaf of this 1-D parameter")
+            _set_ref(vr, name, cfg, np.mean(r_, keepdims=True))
+            _set_ref(vc, name, cfg, r_)
+            continue
+        where = _where(name, cfg)
+        stacks.setdefault((where[0], where[2]), []).append((r_, c_))
+    for (j, dotted), parts in stacks.items():
+        _set(vr["blocks"][j], dotted, np.stack([p[0] for p in parts]))
+        _set(vc["blocks"][j], dotted, np.stack([p[1] for p in parts]))
+    return {"step": state.step.detach().cpu().numpy(), "vr": vr, "vc": vc}

@@ -2,7 +2,8 @@
 ``python -m repro.launch.train``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi4_mini_3_8b \\
-      --steps 50 [--full] [--lgd] [--batch 8] [--seq 64] [--device cuda]
+      --steps 50 [--full] [--lgd] [--ckpt DIR] [--batch 8] [--seq 64] \\
+      [--device cuda]
 
 Without ``--full`` it trains the arch's SMOKE config.  Weights are
 random from seed 0 and the corpus is ``make_token_corpus(0, ...)``, as
@@ -10,13 +11,15 @@ in the reference.  With ``--lgd`` batches come from one
 ``LSHSampledPipeline`` over the whole corpus — one card is one shard,
 which is what the reference's one-shard ``ShardedLSHPipeline``
 computes — with the refresh asynchronous (``refresh_async=True``), as
-the reference launcher builds it.  Runs on the card unless ``--device
-cpu``.
+the reference launcher builds it.  ``--ckpt DIR`` checkpoints every 50
+steps into DIR and resumes from its newest valid checkpoint, as the
+reference launcher does.  Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 from repro_torch import configs
 from repro_torch.data import (
@@ -69,11 +72,18 @@ def make_batches(cfg, model, *, lgd: bool, batch: int, seq: int, corpus: int,
 
 
 def make_trainer(cfg, model, *, steps: int, lr: float, sampler=None,
-                 batches=None, log_every: int = 10) -> Trainer:
-    """Adam under ``warmup_cosine(lr, 10, steps)``, as in the reference."""
-    return Trainer(cfg, model,
-                   Adam(lr=schedules.warmup_cosine(lr, 10, steps)), batches,
-                   TrainerConfig(log_every=log_every), sampler=sampler)
+                 batches=None, log_every: int = 10, optimizer=None,
+                 tcfg: Optional[TrainerConfig] = None,
+                 resume: bool = True) -> Trainer:
+    """The launcher's trainer: ``optimizer`` defaults to the reference's
+    Adam under ``warmup_cosine(lr, 10, steps)``, ``tcfg`` to
+    ``TrainerConfig(log_every=log_every)``."""
+    if optimizer is None:
+        optimizer = Adam(lr=schedules.warmup_cosine(lr, 10, steps))
+    if tcfg is None:
+        tcfg = TrainerConfig(log_every=log_every)
+    return Trainer(cfg, model, optimizer, batches, tcfg, resume=resume,
+                   sampler=sampler)
 
 
 def main(argv=None):
@@ -97,9 +107,6 @@ def main(argv=None):
         raise NotImplementedError(
             "meshes are not ported: the port runs on one device "
             "(ROADMAP.md queue 1 item 6)")
-    if args.ckpt is not None:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md queue 1 item 5)")
 
     device = resolve_device(args.device)
     cfg, model = load_model(args.arch, args.full, device)
@@ -110,7 +117,11 @@ def main(argv=None):
         cfg, model, lgd=args.lgd, batch=args.batch, seq=args.seq,
         corpus=args.corpus, device=device)
     tr = make_trainer(cfg, model, steps=args.steps, lr=args.lr,
-                      sampler=sampler, batches=batches)
+                      sampler=sampler, batches=batches,
+                      tcfg=TrainerConfig(ckpt_dir=args.ckpt, ckpt_every=50,
+                                         log_every=10))
+    if tr.step:
+        print(f"resumed at step {tr.step} from {args.ckpt}")
     out = tr.run(args.steps)
     tr.finalize()
     for m in tr.metrics_history[-5:]:

@@ -22,10 +22,10 @@ rows seen since the last refresh plus a seeded ``drift_sample`` of the
 rest at the PINNED scale, and every ``full_every``-th refresh a full
 warm refresh that re-pins it.  Probabilities are evaluated on the stored
 ``x_aug`` (the vectors the tables were built from), so staleness costs
-variance, not bias.  The port's ``TrainerConfig`` has no ``step_hook``
-yet (it comes with the training stack), so a training loop calls
-``note_targets`` / ``maybe_refresh`` / ``inject`` itself; ``step_hook``
-and ``wrap_batches`` keep the reference's adapters for when it does.
+variance, not bias.  ``wrap_batches`` marks each batch's targets and
+injects the index, and ``step_hook`` is the trainer's attachment point
+(``TrainerConfig(step_hook=head.step_hook)``); a hand-written loop calls
+``note_targets`` / ``maybe_refresh`` / ``inject`` itself.
 
 SERVING (``lsh_decode_step``).  The probe as an approximate top-k
 shortlist: up to ``shortlist_per_table`` candidates from each probed
@@ -204,8 +204,8 @@ class LMHeadIndex:
     and refresh, for the decode shortlist.
 
     ``projections`` (the build's, e.g. the reference's) replaces the
-    seeded draw.  The port's trainer has no ``step_hook`` yet: call
-    ``note_targets`` / ``maybe_refresh`` / ``inject`` from the loop.
+    seeded draw.  Attach it to a ``Trainer`` with ``wrap_batches`` and
+    ``TrainerConfig(step_hook=head.step_hook)``.
     """
 
     def __init__(self, lm: LM, scfg: SampledSoftmaxConfig =
@@ -321,7 +321,7 @@ class LMHeadIndex:
         return True
 
     def step_hook(self, trainer) -> None:
-        """A trainer step-hook adapter (optimizer-step-keyed)."""
+        """``TrainerConfig.step_hook`` adapter (optimizer-step-keyed)."""
         self.maybe_refresh(trainer.step, trainer.params)
 
     # -- batch plumbing ------------------------------------------------------

@@ -1,0 +1,76 @@
+"""Gradient compression with error feedback (PyTorch port of
+``repro.optim.compression``).
+
+int8 block quantisation cuts a data-parallel gradient all-reduce's wire
+traffic 4x against bf16 (one f32 scale per 256-value block: 2.06 bytes a
+value), and ERROR FEEDBACK keeps convergence: each step's quantisation
+residual is added to the next step's gradient instead of discarded, so
+the long-run compression error stays O(1) rather than O(T).
+
+    residual = init_error_feedback(params)
+    q, residual = compress_with_feedback(grads, residual)  # before the reduce
+    grads_hat = decompress(q, like=grads)                  # after it
+
+``grads`` and ``params`` are a tensor or a dict of named tensors, as in
+``repro_torch.optim``; a compressed tree is a ``QTensor`` or a dict of
+them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+from .optimizers import _dequantize_blockwise, _quantize_blockwise
+
+BLOCK = 256
+
+
+def _map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def compress(grads: Any, block: int = BLOCK) -> Any:
+    """Quantise every gradient leaf to an int8 ``QTensor``."""
+    return _map(lambda g: _quantize_blockwise(g.to(torch.float32), block),
+                grads)
+
+
+def decompress(qtree: Any, like: Any = None) -> Any:
+    """Inverse of ``compress``; casts back to ``like``'s dtypes if given."""
+    if like is None:
+        return _map(_dequantize_blockwise, qtree)
+    return _map(lambda q, l: _dequantize_blockwise(q).to(l.dtype), qtree,
+                like)
+
+
+def init_error_feedback(params: Any) -> Any:
+    """The residual accumulator: f32 zeros shaped like the gradients."""
+    return _map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+
+
+def compress_with_feedback(grads: Any, residual: Any,
+                           block: int = BLOCK) -> Tuple[Any, Any]:
+    """Quantise (grads + residual) and carry the quantisation error
+    forward.  Returns (qtree, new_residual)."""
+    def one(g, r):
+        corrected = g.to(torch.float32) + r
+        q = _quantize_blockwise(corrected, block)
+        return q, corrected - _dequantize_blockwise(q)
+
+    if isinstance(grads, dict):
+        pairs = {k: one(g, residual[k]) for k, g in grads.items()}
+        return ({k: q for k, (q, _) in pairs.items()},
+                {k: r for k, (_, r) in pairs.items()})
+    return one(grads, residual)
+
+
+def wire_bytes(qtree: Any) -> int:
+    """Bytes a compressed gradient tree puts on the wire."""
+    leaves = qtree.values() if isinstance(qtree, dict) else [qtree]
+    return sum(q.q.numel() * q.q.element_size()
+               + q.scale.numel() * q.scale.element_size() for q in leaves)

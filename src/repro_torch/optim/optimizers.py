@@ -22,28 +22,32 @@ transient memory.  Each optimiser therefore splits its update into
 ``_scalars(step)`` (the per-step learning rate and bias corrections,
 computed once) and ``_leaf`` (one tensor's update and new slots).
 
-``Adam8bit``, ``Adafactor``, the optax adapter and ``compression`` come
-with the training-stack slice (ROADMAP.md queue 1).
+``Adam8bit`` keeps its moments as ``QTensor`` slots (int8 blocks and one
+f32 scale a block), which ``update_in_place`` overwrites through their
+``q`` and ``scale``; ``Adafactor`` keeps factored row and column second
+moments.  Both are the reference's plain array code, op for op.  The
+reference's optax adapter is not planned: the port has no optax.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
-_NOT_PORTED = ("adam8bit", "adafactor")
-
 
 def make_optimizer(name: str, lr: Optional[Schedule] = None, **kwargs):
     """Build an optimiser by CLI-friendly name.
 
-    ``sgd`` (plain), ``momentum`` (heavy-ball 0.9), ``adagrad``, ``adam``
-    or ``adamw``; ``lr`` defaults to 3e-2 for sgd/momentum/adagrad and
-    3e-3 for the Adam family.  ``kwargs`` go to the dataclass.
+    ``sgd`` (plain), ``momentum`` (heavy-ball 0.9), ``adagrad``, ``adam``,
+    ``adamw``, ``adam8bit`` or ``adafactor``; ``lr`` defaults to 3e-2 for
+    sgd/momentum/adagrad and 3e-3 for the Adam family and Adafactor.
+    ``kwargs`` go to the dataclass.  The reference's ``optax:<name>``
+    adapter is not planned (the port has no optax).
     """
     key = name.lower()
     makers = {
@@ -55,11 +59,15 @@ def make_optimizer(name: str, lr: Optional[Schedule] = None, **kwargs):
         "adam": lambda lr, **kw: Adam(lr=3e-3 if lr is None else lr, **kw),
         "adamw": lambda lr, **kw: Adam(
             lr=3e-3 if lr is None else lr, **{"weight_decay": 0.01, **kw}),
+        "adam8bit": lambda lr, **kw: Adam8bit(
+            lr=3e-3 if lr is None else lr, **kw),
+        "adafactor": lambda lr, **kw: Adafactor(
+            lr=3e-3 if lr is None else lr, **kw),
     }
-    if key in _NOT_PORTED or key.startswith("optax:"):
+    if key.startswith("optax:"):
         raise ValueError(
-            f"optimizer {name!r} is not ported to PyTorch yet; it comes "
-            "with the training-stack slice (ROADMAP.md queue 1)")
+            f"optimizer {name!r}: the optax adapter is not planned for the "
+            "PyTorch port, which has no optax; choose a built-in name")
     if key not in makers:
         raise ValueError(
             f"unknown optimizer {name!r}; choose from {sorted(makers)}")
@@ -135,9 +143,10 @@ def update_in_place(optimizer: _Optimizer, params: dict, grads: dict, state):
         old = tuple(None if s is None else s[k] for s in state[1:])
         upd, new = optimizer._leaf(grads[k], old, p, sc)
         p.add_(upd.to(p.dtype))
+        del upd
         for o, ns in zip(old, new):
-            if o is not None:
-                o.copy_(ns)
+            if o is not None and o is not ns:
+                o.copy_(ns)      # a QTensor copies its q and scale
     return state._replace(step=state.step + 1)
 
 
@@ -241,3 +250,166 @@ class Adam(_Optimizer):
             upd = upd - lr * self.weight_decay * p.to(torch.float32)
         # updates in the gradient's dtype, as the reference emits them
         return upd.to(g.dtype), (m, v)
+
+
+# ---------------------------------------------------------------------------
+# Adam with block-wise int8 moments (optimizer-state compression)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QTensor:
+    """Block-quantised tensor: int8 payload + per-block f32 scales.
+
+    ``q`` is (nblocks, block) int8 (the flattened tensor, zero-padded to
+    a whole block), ``scale`` (nblocks,) f32, ``shape`` the original
+    shape.  ``copy_`` overwrites ``q`` and ``scale`` in place.
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    shape: tuple
+
+    def copy_(self, other: "QTensor") -> "QTensor":
+        if tuple(other.shape) != tuple(self.shape):
+            raise ValueError(f"QTensor shape {tuple(other.shape)} != "
+                             f"{tuple(self.shape)}")
+        self.q.copy_(other.q)
+        self.scale.copy_(other.scale)
+        return self
+
+
+def _numel(shape) -> int:
+    size = 1
+    for s in shape:
+        size *= s
+    return size
+
+
+def _quantize_blockwise(x: torch.Tensor, block: int) -> QTensor:
+    flat = x.reshape(-1)
+    pad = (-flat.shape[0]) % block
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    blocks = flat.reshape(-1, block)
+    scale = torch.amax(torch.abs(blocks), dim=1) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale[:, None]), -127, 127).to(
+        torch.int8)
+    return QTensor(q, scale, tuple(x.shape))
+
+
+def _dequantize_blockwise(qt: QTensor) -> torch.Tensor:
+    flat = (qt.q.to(torch.float32) * qt.scale[:, None]).reshape(-1)
+    return flat[:_numel(qt.shape)].reshape(qt.shape)
+
+
+def _quantized_zeros(shape, block: int, device) -> QTensor:
+    """``_quantize_blockwise`` of f32 zeros, without the f32 temporary:
+    zero payload, every scale the 1e-12 floor."""
+    nblocks = -(-_numel(shape) // block)
+    return QTensor(torch.zeros((nblocks, block), dtype=torch.int8,
+                               device=device),
+                   torch.full((nblocks,), 1e-12, dtype=torch.float32,
+                              device=device), tuple(shape))
+
+
+class Adam8bitState(NamedTuple):
+    step: torch.Tensor
+    m: QTensor      # a QTensor, or a dict of them
+    v: QTensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam8bit(_Optimizer):
+    """Adam with int8 block-quantised first/second moments.
+
+    Optimiser state drops from 8 bytes a parameter (f32 m and v) to
+    ~2.03 (int8 m and v, one f32 scale per ``block`` values); the update
+    is computed in f32 after dequantisation, and its f32 updates are the
+    reference's.
+    """
+
+    lr: Schedule = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    block: int = 256
+
+    state_cls = Adam8bitState
+
+    def _slots(self, p):
+        return (_quantized_zeros(p.shape, self.block, p.device),
+                _quantized_zeros(p.shape, self.block, p.device))
+
+    def _scalars(self, step):
+        t = (step + 1).to(torch.float32)
+        return (_lr_at(self.lr, step), 1 - self.b1 ** t, 1 - self.b2 ** t)
+
+    def _leaf(self, g, slots, p, sc):
+        lr, c1, c2 = sc
+        b1, b2 = self.b1, self.b2
+        g32 = g.to(torch.float32)
+        m = b1 * _dequantize_blockwise(slots[0]) + (1 - b1) * g32
+        v = b2 * _dequantize_blockwise(slots[1]) + (1 - b2) * torch.square(
+            g32)
+        del g32
+        # the reference's -lr * (m / c1) / (sqrt(v / c2) + eps), in the
+        # same order, with in-place steps on this leaf's temporaries
+        u = (m / c1).mul_(-lr)
+        u.div_((v / c2).sqrt_().add_(self.eps))
+        return u, (_quantize_blockwise(m, self.block),
+                   _quantize_blockwise(v, self.block))
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment) — memory-lean alternative for giants
+# ---------------------------------------------------------------------------
+
+class AdafactorState(NamedTuple):
+    step: torch.Tensor
+    vr: torch.Tensor   # row second moment (the full v for < 2-D tensors)
+    vc: torch.Tensor   # column second moment ((0,) for < 2-D tensors)
+
+
+@dataclasses.dataclass(frozen=True)
+class Adafactor(_Optimizer):
+    lr: Schedule = 1e-2
+    decay: float = 0.8     # t^-decay running-average exponent
+    eps: float = 1e-30
+    clip_threshold: float = 1.0
+
+    state_cls = AdafactorState
+
+    def _slots(self, p):
+        z = functools.partial(torch.zeros, dtype=torch.float32,
+                              device=p.device)
+        if p.dim() >= 2:
+            return z(p.shape[:-1]), z(p.shape[:-2] + p.shape[-1:])
+        return z(p.shape), z((0,))
+
+    def _scalars(self, step):
+        t = (step + 1).to(torch.float32)
+        return _lr_at(self.lr, step), 1.0 - t ** (-self.decay)
+
+    def _leaf(self, g, slots, p, sc):
+        lr, beta = sc
+        vr, vc = slots
+        g32 = g.to(torch.float32)
+        g2 = torch.square(g32) + self.eps
+        if g.dim() >= 2:
+            vr_n = beta * vr + (1 - beta) * torch.mean(g2, dim=-1)
+            vc_n = beta * vc + (1 - beta) * torch.mean(g2, dim=-2)
+            r = vr_n / torch.clamp(torch.mean(vr_n, dim=-1, keepdim=True),
+                                   min=self.eps)
+            v = r[..., None] * vc_n[..., None, :]
+        else:
+            vr_n = beta * vr + (1 - beta) * g2
+            vc_n = vc
+            v = vr_n
+        del g2
+        u = g32 / torch.sqrt(torch.clamp(v, min=self.eps))
+        del v, g32
+        rms = torch.sqrt(torch.mean(torch.square(u)) + self.eps)
+        u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
+        # updates in the gradient's dtype, as the reference emits them
+        return (-lr * u).to(g.dtype), (vr_n, vc_n)

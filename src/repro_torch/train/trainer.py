@@ -1,21 +1,38 @@
 """Training loop: LGD-sampled or uniform batches, gradient clipping, the
-non-finite guard and metrics (PyTorch port of ``repro.train.trainer``).
+non-finite guard, checkpoints with resume and rollback, gradient
+compression and the step hook (PyTorch port of ``repro.train.trainer``).
 
-One step: loss -> backward -> global gradient norm -> clip to
-``grad_clip`` -> the non-finite guard -> the optimiser, applied leaf by
-leaf in place on the model's parameters (``optim.update_in_place``).
+One step: loss -> backward -> (``grad_compress``: int8 compression with
+error feedback, then decompression) -> global gradient norm -> the
+non-finite guard -> clip to ``grad_clip`` -> the optimiser, applied leaf
+by leaf in place on the model's parameters (``optim.update_in_place``).
 Parameters are the model's ``named_parameters()``, under the names
 ``repro_torch.convert`` maps to the reference's pytree.
 
 THE GUARD.  With ``skip_nonfinite`` a step whose loss or gradient norm
 is not finite applies NO update: the finiteness flag is read on the
-host before the optimiser runs, and a False flag skips it, so params
-and state stay bitwise unchanged.  (The reference selects the old
-buffers inside its jitted step instead; eagerly, a branch saves the
-three extra passes over every parameter and moment that a select
-costs.)  The batch is still consumed and ``step`` still advances,
-keeping the data stream aligned with the step counter.  Counted in
-``skipped_steps``.
+host before the optimiser runs, and a False flag skips it, so params,
+optimiser state and the error-feedback residual stay bitwise unchanged.
+(The reference selects the old buffers inside its jitted step instead;
+eagerly, a branch saves the extra passes over every parameter and
+moment that a select costs.)  The batch is still consumed and ``step``
+still advances, keeping the data stream aligned with the step counter.
+Counted in ``skipped_steps``.
+
+FAULT TOLERANCE (with ``ckpt_dir``), the reference's contract:
+  * every ``ckpt_every`` steps an asynchronous atomic checkpoint of
+    ``{"params", "opt_state"}`` (``train.checkpoint``), with the step and
+    a streaming sampler's mutation log in its manifest; the tree is
+    copied to host memory before the next step runs;
+  * ``resume=True`` restores the newest checkpoint that passes
+    ``verify()`` into the live tensors, in place, and drops newer ones
+    (an abandoned timeline); a sampler is then rewound with
+    ``restore_at(step)``, a plain iterator by skipping consumed batches;
+  * ``rollback_after`` consecutive skipped steps roll back to the newest
+    verified checkpoint (sampler mode; at most ``max_rollbacks`` times),
+    logged as a ``rollback`` event in ``metrics_history``.
+``step_hook(trainer)`` runs after every completed step, after its
+checkpoint (e.g. ``LMHeadIndex.step_hook``).
 
 ADAPTIVE OPTIMIZERS under LGD: the importance weights 1/(p_i N) enter
 the LOSS (``models.layers.chunked_cross_entropy``), so the gradient any
@@ -36,10 +53,6 @@ accumulates the host time spent drawing batches and
 
 Host syncs per step are the reference's: the finiteness flag and the
 loss are read once each (``bool``, ``float``).
-
-Not ported yet (ROADMAP.md queue 1 item 5): checkpoints (``ckpt_dir``,
-``resume``) and with them rollback, gradient compression and the
-``step_hook``; setting one raises.
 """
 
 from __future__ import annotations
@@ -50,15 +63,15 @@ from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
-from repro_torch.optim import update_in_place
+from repro_torch.optim import compression, update_in_place
+from . import checkpoint as ckpt
 
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The reference's config, field for field.  ``ckpt_every``,
-    ``keep_ckpts``, ``rollback_after`` and ``max_rollbacks`` act only
-    with checkpoints, and ``donate`` is a JAX buffer knob (the port
-    updates in place): kept so configs compare equal, and inert."""
+    """The reference's config, field for field.  ``donate`` is a JAX
+    buffer knob (the port updates in place): kept so configs compare
+    equal, and inert."""
 
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 100
@@ -70,21 +83,17 @@ class TrainerConfig:
     # split each batch into N equal slices along dim 0 and accumulate
     # their gradients in f32
     grad_accum: int = 1
+    # int8 gradient compression with error feedback (optim/compression.py)
     grad_compress: bool = False
     skip_nonfinite: bool = True
+    # consecutive skipped steps before a rollback to the newest verified
+    # checkpoint (sampler mode); 0 disables it
     rollback_after: int = 5
-    max_rollbacks: int = 3
+    max_rollbacks: int = 3        # lifetime cap on rollbacks
+    # called with the Trainer after every completed step (post-update,
+    # post-checkpoint); it may mutate the params (then push them with
+    # ``trainer.sampler.set_params``) or raise at this clean boundary
     step_hook: Optional[Callable] = None
-
-    def __post_init__(self):
-        later = {"ckpt_dir": self.ckpt_dir is not None,
-                 "grad_compress": self.grad_compress,
-                 "step_hook": self.step_hook is not None}
-        for what, asked in later.items():
-            if asked:
-                raise NotImplementedError(
-                    f"TrainerConfig.{what} is not ported to PyTorch yet; it "
-                    "comes with checkpointing (ROADMAP.md queue 1 item 5)")
 
 
 def _micro(x, accum: int, i: int):
@@ -105,9 +114,14 @@ class Trainer:
       batches: iterator of batch dicts (uniform mode); exclusive with
         ``sampler``.
       tcfg: loop policy knobs.
+      resume: restore the newest valid checkpoint in ``tcfg.ckpt_dir``.
       loss_fn: optional ``loss_fn(params, batch)``; default
         ``params.loss(batch)``.
       sampler: an ``LSHSampledPipeline`` (LGD mode).
+
+    Determinism: with a sampler, restoring at step t replays the batch
+    sequence of a run that reached step t; with ``batches``, restore
+    skips the consumed batches, so the iterator must be re-creatable.
     """
 
     def __init__(
@@ -117,6 +131,7 @@ class Trainer:
         optimizer,
         batches: Optional[Iterator[Dict[str, torch.Tensor]]] = None,
         tcfg: TrainerConfig = TrainerConfig(),
+        resume: bool = True,
         loss_fn: Optional[Callable] = None,
         sampler=None,
     ):
@@ -140,9 +155,21 @@ class Trainer:
         self._ewma_dt = None
         self.straggler_steps = 0
         self.skipped_steps = 0      # non-finite steps (no update applied)
+        self.rollbacks = 0          # checkpoint rollbacks taken
+        self._bad_streak = 0        # consecutive skipped steps
         self.data_seconds = 0.0     # host-blocking batch-draw time (total)
         self.loop_seconds = 0.0     # total run() wall time
         self._last_draw_dt = 0.0    # host-blocking time of the last draw
+        self._ckpt = ckpt.AsyncCheckpointer()
+        self._ef_residual = (compression.init_error_feedback(
+            {k: p.detach() for k, p in self.named_params.items()})
+            if tcfg.grad_compress else None)
+        if resume and tcfg.ckpt_dir:
+            # the newest checkpoint that passes verify(): a corrupt
+            # newest costs one interval, not the run
+            last = ckpt.latest_valid_step(tcfg.ckpt_dir)
+            if last is not None:
+                self.restore(last)
 
     # -- one step -------------------------------------------------------------
 
@@ -178,6 +205,12 @@ class Trainer:
         loss, grads = self._grads_of(batch)
         clip, guard = self.tcfg.grad_clip, self.tcfg.skip_nonfinite
         with torch.no_grad():
+            if self._ef_residual is not None:
+                # the quantised tree is what a data-parallel reduce sends
+                qtree, residual = compression.compress_with_feedback(
+                    grads, self._ef_residual)
+                grads = compression.decompress(qtree, like=grads)
+                del qtree
             if clip is not None or guard:
                 # one NaN/Inf anywhere propagates into the norm, so its
                 # finiteness checks the whole gradient
@@ -188,6 +221,10 @@ class Trainer:
             ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm)) \
                 if guard else None
             if ok is not False:
+                if self._ef_residual is not None:
+                    # a skipped step keeps the residual, as the reference's
+                    # select does
+                    self._ef_residual = residual
                 if clip is not None:
                     scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9),
                                         max=1.0)
@@ -214,8 +251,75 @@ class Trainer:
         return self.data_seconds / max(self.loop_seconds, 1e-12)
 
     def finalize(self):
+        self._ckpt.wait()
         if self._sampler is not None:
             self._sampler.finalize()
+
+    # -- checkpoint -----------------------------------------------------------
+
+    def _state_tree(self):
+        return {"params": self.named_params, "opt_state": self.opt_state}
+
+    def save(self):
+        """Checkpoint the step asynchronously (the tree is on the host
+        when this returns) and keep the newest ``keep_ckpts``."""
+        if not self.tcfg.ckpt_dir:
+            return
+        extra = {"step": self.step}
+        if self._sampler is not None and self._sampler.streaming:
+            # the explicit append/evict log: a restore replays membership
+            extra["mutation_log"] = self._sampler.mutation_log()
+        self._ckpt.save(self.tcfg.ckpt_dir, self.step, self._state_tree(),
+                        extra=extra)
+        ckpt.keep_last(self.tcfg.ckpt_dir, self.tcfg.keep_ckpts)
+
+    def restore(self, step: int):
+        """Load checkpoint ``step`` into the live parameters and optimiser
+        state, in place, and realign the data stream."""
+        _, extra = ckpt.restore(self.tcfg.ckpt_dir, step, self._state_tree(),
+                                in_place=True)
+        self.step = extra.get("step", step)
+        # newer checkpoints are an abandoned timeline (a corrupt newest,
+        # or the future a rollback rewound past)
+        ckpt.discard_after(self.tcfg.ckpt_dir, self.step)
+        if self._sampler is not None:
+            # rebuild the index from the restored params and rewind the
+            # key streams: O(refresh), bitwise the same on every restore
+            self._sampler.set_params(self.params)
+            if "mutation_log" in extra:
+                self._sampler.load_mutation_log(extra["mutation_log"])
+            self._sampler.restore_at(self.step)
+            return
+        for i in range(self.step):     # skip the consumed batches
+            try:
+                next(self.batches)
+            except StopIteration:
+                raise RuntimeError(
+                    f"batch iterator exhausted after {i} batches while "
+                    f"skipping to checkpoint step {self.step} — the "
+                    f"iterator is shorter than the checkpoint (it must be "
+                    f"re-creatable past the restore point)") from None
+
+    def _rollback(self) -> bool:
+        """Roll back to the newest VERIFIED checkpoint after a streak of
+        non-finite steps (sampler mode).  True on success."""
+        try:
+            self._ckpt.wait()           # surface a boxed async failure
+        except RuntimeError:
+            pass                        # an older checkpoint may be valid
+        step_v = ckpt.latest_valid_step(self.tcfg.ckpt_dir)
+        if step_v is None:
+            return False
+        prev = self.step
+        self.restore(step_v)
+        self.rollbacks += 1
+        self._bad_streak = 0
+        self.metrics_history.append({
+            "step": self.step, "event": "rollback",
+            "from_step": prev, "to_step": step_v,
+            "skipped_steps": self.skipped_steps,
+        })
+        return True
 
     def _draw(self):
         t0 = time.time()
@@ -243,10 +347,22 @@ class Trainer:
             loss, gnorm, ok = self.train_step(next_batch)
             if ok is False:
                 self.skipped_steps += 1
+                self._bad_streak += 1
+            else:
+                self._bad_streak = 0
             if self._sampler is not None:
                 # the ladder: a non-finite streak sends the pipeline to
                 # uniform-fallback
                 self._sampler.note_loss(ok is not False)
+                if ok is False and self.tcfg.rollback_after > 0 and \
+                        self._bad_streak >= self.tcfg.rollback_after and \
+                        self.tcfg.ckpt_dir and \
+                        self.rollbacks < self.tcfg.max_rollbacks and \
+                        self._rollback():
+                    # the prefetched batch belongs to the abandoned stream
+                    # position: draw again at the rolled-back step
+                    next_batch = self._draw()
+                    continue
                 # the next draw's query reads the post-step model; sync
                 # on the loss first, so data_seconds measures the draw
                 self._sampler.set_params(self.params)
@@ -273,6 +389,7 @@ class Trainer:
                     "data_dt": self._last_draw_dt,
                     "stragglers": self.straggler_steps,
                     "skipped_steps": self.skipped_steps,
+                    "rollbacks": self.rollbacks,
                 }
                 if self._sampler is not None:
                     st = self._sampler.sampler_stats()   # syncs
@@ -283,6 +400,12 @@ class Trainer:
                     entry["health_transitions"] = \
                         self._sampler.health_summary()["transitions"]
                 self.metrics_history.append(entry)
+            if self.tcfg.ckpt_dir and \
+                    self.step % self.tcfg.ckpt_every == 0:
+                self.save()
+            if self.tcfg.step_hook is not None:
+                # may mutate params or raise at this clean step boundary
+                self.tcfg.step_hook(self)
             if next_batch is None:
                 break
         self.loop_seconds += time.time() - t_loop

@@ -55,9 +55,10 @@ class TestOptimizers:
                 _close(got, want)
 
     def test_not_ported_names_raise(self):
-        for name in ("adam8bit", "adafactor", "optax:adam"):
-            with pytest.raises(ValueError, match="ROADMAP"):
-                TO.make_optimizer(name)
+        assert isinstance(TO.make_optimizer("adam8bit"), TO.Adam8bit)
+        assert isinstance(TO.make_optimizer("adafactor"), TO.Adafactor)
+        with pytest.raises(ValueError, match="not planned"):
+            TO.make_optimizer("optax:adam")
         with pytest.raises(ValueError, match="unknown optimizer"):
             TO.make_optimizer("lion")
 

@@ -20,8 +20,9 @@ against the JAX package, on the CPU.
 * The ladder: ``HealthMonitor`` against ``repro.data.HealthMonitor`` on
   the same event sequences (tests/test_chaos.py:297-356), transitions
   and summaries equal; and the three chaos scenarios of
-  tests/test_chaos.py:106-172 through the port's ``Trainer`` with a
-  local fault injector.
+  tests/test_chaos.py:106-172 through the port's ``Trainer`` with
+  ``repro_torch.testing.RefreshRaise`` (the watchdog case with a local
+  hang that the test releases).
 """
 
 import threading
@@ -54,6 +55,7 @@ from repro_torch.data.health import (
 )
 from repro_torch.models import LM, ModelConfig
 from repro_torch.optim import Adam
+from repro_torch.testing import FaultError, RefreshRaise
 from repro_torch.train import Trainer, TrainerConfig
 
 VOCAB, DIM, SEQ = 50, 16, 9
@@ -352,26 +354,11 @@ def test_health_monitor_matches_the_reference(name):
     assert got.transitions and got.transitions == want.transitions
 
 
-class Raise:
-    """Fail every attempt of the first ``cycles`` refresh cycles."""
-
-    def __init__(self, cycles):
-        self.cycles, self.seen, self.fired = cycles, set(), 0
-
-    def fire(self, event, **info):
-        if event != "refresh_compute":
-            return
-        r = info["refresh"]
-        if r in self.seen or len(self.seen) < self.cycles:
-            self.seen.add(r)
-            self.fired += 1
-            raise RuntimeError(f"injected refresh failure (cycle {r})")
-
-
-class Hang(Raise):
+class Hang(RefreshRaise):
     """Hang the first ``cycles`` refresh cycles' attempts until
     ``release`` is set (at most ``seconds``): past the watchdog however
-    slow the steps run."""
+    slow the steps run.  (``RefreshHang`` sleeps a fixed time; this one
+    lets the test end the abandoned worker.)"""
 
     def __init__(self, cycles, seconds):
         super().__init__(cycles)
@@ -381,7 +368,7 @@ class Hang(Raise):
     def fire(self, event, **info):
         try:
             super().fire(event, **info)
-        except RuntimeError:
+        except FaultError:
             self.release.wait(self.seconds)
 
 
@@ -414,7 +401,7 @@ def _chaos(fault, **pipe_kw):
 
 
 def test_three_failed_refresh_cycles_survive_as_stale_index():
-    fault = Raise(cycles=3)
+    fault = RefreshRaise(cycles=3)
     tr, states = _chaos(fault, refresh_retries=1)
     assert fault.fired == 3 * 2          # 3 cycles x (1 + 1 retry)
     assert states == [STALE_INDEX, HEALTHY]
@@ -423,7 +410,7 @@ def test_three_failed_refresh_cycles_survive_as_stale_index():
 
 
 def test_persistent_failure_degrades_to_uniform_and_recovers():
-    tr, states = _chaos(Raise(cycles=2), refresh_retries=0,
+    tr, states = _chaos(RefreshRaise(cycles=2), refresh_retries=0,
                         health=HealthConfig(max_stale_refreshes=1,
                                             recover_after=8,
                                             fallback_spike=1.1))

@@ -24,6 +24,7 @@ import contextlib
 import dataclasses
 import io
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -262,11 +263,22 @@ class TestTrainer:
         assert math.isfinite(losses[2]) and not math.isfinite(losses[1])
         assert int(tr.opt_state.step) == 2
 
-    def test_not_ported_knobs_raise(self):
-        for kw in ({"ckpt_dir": "/nonexistent"}, {"grad_compress": True},
-                   {"step_hook": print}):
-            with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-                TrainerConfig(**kw)
+    def test_not_ported_knobs_raise(self, model, tmp_path):
+        """The three knobs that raised before the training stack was
+        ported now construct and act: a checkpoint on disk, a compressed
+        step's residual, the hook's calls."""
+        cfg, _ = model
+        calls = []
+        tcfg = TrainerConfig(ckpt_dir=str(tmp_path), ckpt_every=2,
+                             grad_compress=True,
+                             step_hook=lambda tr: calls.append(tr.step))
+        tr = Trainer(cfg, _port(model), Adam(lr=1e-2),
+                     iter([_tb(_batch(cfg, 30 + i)) for i in range(2)]),
+                     tcfg)
+        assert tr.run(2)["losses"] and calls == [1, 2]
+        tr.finalize()
+        assert sorted(os.listdir(tmp_path)) == ["step_00000002"]
+        assert any(bool(r.abs().sum()) for r in tr._ef_residual.values())
 
 
 class TestData:
@@ -478,6 +490,29 @@ class TestLauncher:
         assert launch_train.feature_batch_for(configs.get(ARCH), 512) == 64
         assert launch_train.feature_batch_for(configs.get_smoke(ARCH),
                                               64) == 512
+
+    def test_ckpt_resumes_from_the_newest_checkpoint(self, tmp_path):
+        """``--ckpt DIR`` resumes from DIR's newest valid checkpoint (one
+        written here at step 2 by the launcher's own trainer) and trains
+        ``--steps`` more.  (The reference launcher cannot be run beside
+        it: it raises under JAX 0.9, ROADMAP.md queue 3.)"""
+        cfg, lm = launch_train.load_model(ARCH, False, "cpu")
+        _, batches = launch_train.make_batches(
+            cfg, lm, lgd=False, batch=8, seq=64, corpus=2048, device="cpu")
+        tr = launch_train.make_trainer(
+            cfg, lm, steps=2, lr=1e-3, batches=batches,
+            tcfg=TrainerConfig(ckpt_dir=str(tmp_path)))
+        tr.run(2)
+        tr.save()
+        tr.finalize()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = launch_train.main(["--arch", ARCH, "--steps", "2",
+                                     "--device", "cpu", "--ckpt",
+                                     str(tmp_path)])
+        assert f"resumed at step 2 from {tmp_path}" in out.getvalue()
+        assert len(res["losses"]) == 2
+        assert all(math.isfinite(v) for v in res["losses"])
 
     def test_mesh_flags_raise(self):
         with pytest.raises(NotImplementedError, match="queue 1 item 6"):
