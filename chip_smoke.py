@@ -51,7 +51,9 @@ The LM serving slice adds, each after the phase it extends:
       through the functions ``python -m repro_torch.serve --size full``
       calls, with the launch counts set to 0 just before and read just
       after (32 flash_attention, 16,384 flash_decode); then the prompt
-      and the first decode step again with attn_impl="ref" on the card;
+      and the first 32 decode steps again, teacher-forced, on the kernel
+      path (bitwise the timed call), with attn_impl="ref" in bf16 and in
+      f32 on the card (``serve_arch_full_width``, shared with 4g);
   5b. a torch.profiler trace of 20 steady decode steps at full width,
       with flash_decode's device ms per step.
 
@@ -182,6 +184,33 @@ the step hook) adds:
       restore_at seconds, the step p50 beside 4c's Adam p50, the peak
       memory; then the script's total seconds.
 
+The other-mixers slice (Mamba-2, mLSTM, sLSTM, MoE, cross-attention,
+shared attention, the embed_stub frontend) adds:
+  2g. 2b's rows at the other archs' head shapes (NEW_HEADS: Hkv 32, G 1,
+      D 64 for zamba2 and musicgen; Hkv 4, G 16, D 64 for qwen3; Hkv 8,
+      G 5 and G 8, D 128 for llama4 and llama-3.2-vision), B 4, prompt
+      2,048, cache 2,080 with kv_len [1, 777, 2048, 2080], f32 and bf16,
+      2b's limits, timed beside the plain version and SDPA (decode with
+      a cold L2); then the registers, spills and shared memory of every
+      D 64 instantiation from the build log, none of which may spill;
+  3g. a small-input check per arch (``other_arch_card_vs_cpu``): its
+      SMOKE config (f32) on the card and on the CPU with the same
+      weights, prefill of 2 x 64 tokens or embeddings (8 image patches
+      for the vision arch), 8 teacher-forced decode steps, logits within
+      3b's limits, the flash kernels once a self-attention layer a call;
+  4g. each arch served at full width through the functions ``python -m
+      repro_torch.serve --size full [--layers N]`` calls
+      (``serve_arch_full_width``): zamba2, xlstm and musicgen whole,
+      qwen3 at 4 of 94 layers, llama4 at 1 of 48, llama-3.2-vision at 5
+      of 100 with 1,024 image patches; B 4, prompt 2,048, 32 greedy
+      steps; counts set to 0 just before and read just after
+      (flash_attention 2 / 0 / 48 / 4 / 1 / 5, flash_decode 32 times
+      that); every logit finite; the agreement of 4b against an f32 run,
+      and against the plain bf16 path within KERNEL_VS_REF_LIMIT (zamba2
+      besides it, llama4 instead of it); prefill s, decode p10 / p50,
+      peak memory, layers run of the config's.  Each arch is freed
+      before the next is built.
+
 Imports torch, numpy and repro_torch only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
 result.  The last line is the JSON result; the lines before it carry
@@ -265,6 +294,40 @@ L2_SETS = 4
 # full width: the kernel path's distance from an f32 run may be at most
 # this multiple of the plain bf16 path's distance from it
 FULL_WIDTH_FACTOR = 1.25
+
+# the other archs (phases 2g, 3g, 4g).  2g: the (Hkv, G, D) each runs the
+# flash kernels at, B 4, prompt 2,048, a cache of 2,080 rows
+NEW_HEADS = {"zamba2/musicgen": (32, 1, 64), "qwen3": (4, 16, 64),
+             "llama4": (8, 5, 128), "llama-3.2-vision": (8, 8, 128)}
+NEW_CACHE_LENS = [1, 777, 2048, 2080]
+# 4g: each arch at full width, the layers run (a whole number of its
+# block pattern; None: all), B 4, prompt 2,048, NEW_STEPS greedy steps
+NEW_ARCHS = {"zamba2_1_2b": None, "xlstm_350m": None, "musicgen_large": None,
+             "qwen3_moe_235b_a22b": 4, "llama4_maverick_400b_a17b": 1,
+             "llama_3_2_vision_90b": 5}
+NEW_STEPS = 32
+# 4g: the relative L2 distance of the kernel path from the plain bf16
+# path, gated for these archs besides (or, for llama4, instead of) the
+# comparison with an f32 run.
+KERNEL_VS_REF_LIMIT = {
+    # one layer; its f32 copy, ~73 GB, does not fit beside the bf16 one.
+    # The two paths part where an f32 attention output rounds to another
+    # bf16 neighbour (one ulp, 2^-8 relative at most, on a share of the
+    # elements), which the residual and one MoE FFN carry on at about
+    # that size; the limit is 2^-6, four ulps.  A wrong mask or a dropped
+    # tile moves a row by O(1), and so would a token routed to another
+    # expert (reported, if it happens, by the argmax agreement).
+    "llama4_maverick_400b_a17b": 2 ** -6,
+    # 36 Mamba-2 layers carry a bf16 rounding into an O(1) change of their
+    # state, so both bf16 paths sit ~0.64 from the f32 run (this phase on
+    # an H100 SXM at 700 W) and FULL_WIDTH_FACTOR alone would pass the
+    # kernel path up to ~0.8.  The two bf16 paths stay 0.019-0.020 apart
+    # at the gated views (the same runs; the same seed reads the same to
+    # four digits); the limit, 2^-5, is 1.6x that, so an error of the
+    # D 64 kernels at the shared block's shape above ~1% of the hidden
+    # state fails the run.
+    "zamba2_1_2b": 2 ** -5,
+}
 
 
 # device-time classes of a trace, by substrings of the kernel's name
@@ -1400,6 +1463,237 @@ def banded_card_vs_cpu(torch, dev, ds, mp: int) -> dict:
     return out
 
 
+def _new_inputs(full: dict, lo: int, hi: int) -> dict:
+    """Positions [lo, hi) of a ``serve.make_inputs`` batch; image
+    embeddings whole."""
+    return {k: v if k == "image_embeds" else v[:, lo:hi]
+            for k, v in full.items()}
+
+
+def _attn_layers(lm) -> int:
+    """Self-attention layers: each runs flash_attention once a prefill
+    and flash_decode once a decode step (a cross_attn layer's memory
+    attention takes the plain path)."""
+    return sum(k in ("attn", "cross_attn", "shared_attn") for k in lm.kinds)
+
+
+def other_arch_card_vs_cpu(torch, dev, kernels, configs, serve, LM,
+                           arch: str) -> dict:
+    """Phase 3g for one arch: its SMOKE config (f32) with the same weights
+    on the card (the flash kernels) and on the CPU (the plain versions):
+    prefill of 2 x 64 tokens (or embeddings; llama-3.2-vision with 8
+    image patches), then 8 teacher-forced decode steps; logits within
+    3b's rtol = atol = 1e-4, and the kernels launched once a
+    self-attention layer a call."""
+    cfg = configs.get_smoke(arch).with_(attn_impl="pallas")
+    lm_c = LM.init(cfg, seed=0, device="cpu")
+    lm_g = LM(cfg, device=dev)
+    lm_g.load_state_dict(lm_c.state_dict())
+    full = serve.make_inputs(cfg, 2, 72, "cpu", seed=3)
+    out = {}
+    before = dict(kernels.launches)
+    with torch.inference_mode():
+        for where, lm in (("cpu", lm_c), ("cuda", lm_g)):
+            batch = {k: v.to(lm.device) for k, v in full.items()}
+            cache = lm.init_cache(2, 72)
+            h, cache = lm.prefill(_new_inputs(batch, 0, 64), cache)
+            got = [lm.embed_group.lm_logits(h[:, -1:])[:, 0]]
+            for i in range(64, 72):
+                step = _new_inputs(batch, i, i + 1)
+                step["positions"] = torch.full((2, 1), i, device=lm.device)
+                lg, cache = lm.decode_step(step, cache)
+                got.append(lg[:, 0])
+            out[where] = torch.stack(got).cpu()
+    n_attn = _attn_layers(lm_g)
+    ran = {kk: kernels.launches[kk] - before[kk]
+           for kk in ("flash_attention", "flash_decode")}
+    if ran != {"flash_attention": n_attn, "flash_decode": 8 * n_attn}:
+        fail(f"{cfg.name} on the card did not run the kernels once a "
+             f"self-attention layer ({n_attn}): {ran}")
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    if not (bool(torch.isfinite(out["cuda"]).all()) and torch.allclose(
+            out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)):
+        fail(f"{cfg.name} logits on the card differ from the CPU's: max "
+             f"|diff| {err:.3g}")
+    res = {"arch": cfg.name, "max_abs_diff": err, "launches": ran}
+    print(f"small-input check {cfg.name}: prefill 2x64 + 8 decode steps, "
+          f"logits max |diff| card vs CPU {err:.3g}, launches {ran}",
+          flush=True)
+    return res
+
+
+def serve_arch_full_width(torch, dev, kernels, serve, LM, arch: str,
+                          layers, steps: int = NEW_STEPS, keep: bool = False):
+    """Phases 4b and 4g for one arch: ``arch`` at full width (its first
+    ``layers`` layers, or all), bf16, B 4, a prompt of 2,048 tokens or
+    embeddings (llama-3.2-vision with its 1,024 image patches), ``steps``
+    greedy steps through ``serve.generate``, the counts set to 0 just
+    before and read just after: flash_attention once a self-attention
+    layer, flash_decode that times ``steps``.  Every logit finite.
+
+    Then the agreement, on the same card and the same weights: the prompt
+    and the first min(steps, NEW_STEPS) decode steps, teacher-forced with
+    the kernel path's greedy tokens (an ``embed_stub`` arch: generate's
+    own decode embeddings), run again on the kernel path, on the plain
+    path (attn_impl="ref") in bf16, and in f32 (the bf16 weights upcast
+    exactly).  The kernel rerun must equal the timed call bitwise at the
+    prompt's last hidden state and the first step's logits, so the
+    figures describe the timed run.  In bf16 the two paths part wherever
+    an f32 attention output sits near a bf16 rounding boundary, and deep
+    random residual stacks amplify that (phi4-mini's 32 layers: 3.5%
+    relative L2 between them), so no fixed kernel-vs-ref tolerance holds
+    for every arch.  The kernel path must instead be about as accurate as
+    the plain path: its relative L2 distance from the f32 run at most
+    FULL_WIDTH_FACTOR times the plain path's, at the prompt's last
+    position and the first step (an MoE arch: at every position and
+    step).  Where that comparison cannot carry the check alone (llama4,
+    no room for f32; zamba2, whose bf16 paths both sit far from f32),
+    the kernel path is also held against the plain bf16 path within
+    KERNEL_VS_REF_LIMIT.  A wrong mask or a dropped tile moves the hidden
+    state by O(1).
+
+    Returns (the report, None), or with ``keep`` (the report, a dict of
+    the config, the model, the inputs and generate's tokens) for the
+    phases that go on with the model."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, lm = serve.load_model(arch, "full", device=dev, seed=0,
+                               layers=layers)
+    inputs = serve.make_inputs(cfg, SERVE_B, SERVE_PROMPT, dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_attn = _attn_layers(lm)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen_out = serve.generate(lm, inputs, steps)
+    wall_s = time.perf_counter() - t0
+    served = {kk: kernels.launches[kk]
+              for kk in ("flash_attention", "flash_decode")}
+    want = {"flash_attention": n_attn, "flash_decode": n_attn * steps}
+    if served != want:
+        fail(f"{cfg.name}: the serve path launched {served}, expected {want}")
+    if not gen_out["finite"]:
+        fail(f"{cfg.name}: non-finite logits")
+    p10, p50 = serve.percentiles(gen_out["step_ms"])
+    decode_s = sum(gen_out["step_ms"]) / 1e3
+    full_layers = serve.configs.get(arch).n_layers
+    res = dict(arch=cfg.name, layers=cfg.n_layers, of_layers=full_layers,
+               params=sum(p.numel() for p in lm.parameters()),
+               batch=SERVE_B, prompt=SERVE_PROMPT, new_tokens=steps,
+               patches=(inputs["image_embeds"].shape[1]
+                        if "image_embeds" in inputs else 0),
+               init_s=init_s, prefill_s=gen_out["prefill_s"],
+               decode_ms_p10=p10, decode_ms_p50=p50,
+               first_step_ms=gen_out["step_ms"][0], decode_s=decode_s,
+               tokens_per_s=SERVE_B * steps / decode_s, wall_s=wall_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=served,
+               sample_row=gen_out["tokens"][0, :12].tolist())
+
+    forced = min(steps, NEW_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(serve.DECODE_EMBED_SEED)
+    fed = []
+    for t in range(forced):
+        st = {"positions": torch.full((SERVE_B, 1), SERVE_PROMPT + t,
+                                      dtype=torch.int32, device=dev)}
+        if cfg.frontend == "embed_stub":
+            st["embeds"] = (torch.zeros((SERVE_B, 1, cfg.d_model),
+                                        device=dev) if t == 0 else
+                            torch.randn((SERVE_B, 1, cfg.d_model),
+                                        generator=gen, device=dev))
+        else:
+            st["tokens"] = gen_out["tokens"][:, t:t + 1]
+        if "image_embeds" in inputs:
+            st["image_embeds"] = inputs["image_embeds"]
+        fed.append(st)
+
+    @torch.inference_mode()
+    def teacher_forced(model):
+        """(every prompt position's final hidden state, every fed step's
+        logits), f32; the cache as long as generate's."""
+        cache = model.init_cache(SERVE_B, SERVE_PROMPT + steps)
+        h_p, cache = model.prefill(inputs, cache)
+        lgs = []
+        for st in fed:
+            lg, cache = model.decode_step(st, cache)
+            lgs.append(lg[:, 0].float())
+        return {"hidden": h_p.float(), "logits": torch.stack(lgs, dim=1)}
+
+    runs = {"kernel": teacher_forced(lm)}
+    as_generate = {
+        "last_hidden": torch.equal(runs["kernel"]["hidden"][:, -1],
+                                   gen_out["last_hidden"].float()),
+        "first_logits": torch.equal(runs["kernel"]["logits"][:, 0],
+                                    gen_out["first_logits"].float())}
+    if not all(as_generate.values()):
+        fail(f"{cfg.name}: the teacher-forced rerun is not the timed "
+             f"generate call (bitwise equal: {as_generate})")
+    res["rerun_as_generate"] = as_generate
+    kept = (dict(cfg=cfg, lm=lm, inputs=inputs, tokens=gen_out["tokens"])
+            if keep else None)
+    sd = lm.state_dict()           # bf16 weights, f32 norms and constants
+    del lm, gen_out
+
+    def plain_run(dtype):
+        lm_p = LM(cfg.with_(attn_impl="ref", dtype=dtype), device="meta")
+        lm_p.load_state_dict(sd, assign=True)
+        return teacher_forced(lm_p)
+
+    def rel(a_, b_):
+        return float((a_ - b_).norm() / b_.norm())
+
+    runs["ref"] = plain_run(cfg.dtype)
+    if arch != "llama4_maverick_400b_a17b":
+        for kk in list(sd):            # bf16 -> f32 a leaf at a time
+            sd[kk] = sd[kk].float()
+        torch.cuda.empty_cache()
+        runs["gold"] = plain_run("float32")
+    del sd
+    # An MoE arch routes each token to its top-k experts, and where two
+    # experts' router logits lie within a bf16 rounding of each other
+    # the kernel path, the plain path and the f32 run may pick different
+    # ones (on an H100: 2 of 4 first-step argmaxes apart at
+    # qwen3), so four rows are a draw of such flips.  There the gate is
+    # over every prompt position (8,192 rows) and every fed step.
+    wide = cfg.is_moe and "gold" in runs
+    views = {"last_hidden": lambda r: r["hidden"][:, -1],
+             "first_logits": lambda r: r["logits"][:, 0],
+             "all_hidden": lambda r: r["hidden"],
+             "all_logits": lambda r: r["logits"]}
+    gated = ("all_hidden", "all_logits") if wide else ("last_hidden",
+                                                       "first_logits")
+    ref_limit = KERNEL_VS_REF_LIMIT.get(arch)
+    check = {}
+    for key, view in views.items():
+        got_t, ref_t = view(runs["kernel"]), view(runs["ref"])
+        c = check[key] = dict(
+            kernel_vs_ref=rel(got_t, ref_t), gated=key in gated,
+            max_abs_kernel_vs_ref=float((got_t - ref_t).abs().max()),
+            ref_max_abs=float(ref_t.abs().max()),
+            argmax_agree=float((got_t.argmax(-1) == ref_t.argmax(-1))
+                               .float().mean()))
+        if "gold" in runs:
+            gold_t = view(runs["gold"])
+            c.update(kernel_vs_gold=rel(got_t, gold_t),
+                     ref_vs_gold=rel(ref_t, gold_t))
+        if key not in gated:
+            continue
+        if "gold" in runs and not (c["kernel_vs_gold"]
+                                   <= FULL_WIDTH_FACTOR * c["ref_vs_gold"]):
+            fail(f"{cfg.name}: {key} of the kernel path is "
+                 f"{c['kernel_vs_gold']:.3g} from the f32 run, more than "
+                 f"{FULL_WIDTH_FACTOR} x the plain path's "
+                 f"{c['ref_vs_gold']:.3g}")
+        if ref_limit is not None and not c["kernel_vs_ref"] <= ref_limit:
+            fail(f"{cfg.name}: {key} of the kernel path is "
+                 f"{c['kernel_vs_ref']:.3g} from the plain bf16 path, more "
+                 f"than {ref_limit:.3g}")
+    res["check"] = check
+    res["peak_mem_gb_with_check"] = torch.cuda.max_memory_allocated() / 1e9
+    return res, kept
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -1698,13 +1992,6 @@ def main() -> int:
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     ga = torch.Generator(device=dev).manual_seed(5)
-    b_, hq, s_cache = SERVE_B, HKV * GROUP, CACHE_LENS[-1]
-    lens = torch.tensor(CACHE_LENS, dtype=torch.int32, device=dev)
-    valid = torch.arange(s_cache, device=dev)[None, :] < lens[:, None]
-    report["flash_rows"] = []
-    # decode's split-KV plan at these shapes, from the wrapper's rule
-    dec_chunk = decode_chunk(s_cache, b_ * HKV, sm_count(dev.index or 0))
-    dec_split = -(-s_cache // dec_chunk)
 
     def hold(name, tname, got, want, gold):
         """Readings of ``got`` against its plain version ``want`` and, in
@@ -1728,87 +2015,109 @@ def main() -> int:
                      f"version's {out['plain_err_vs_f32']:.3g}")
         return out
 
-    for dtype in (torch.float32, torch.bfloat16):
-        tname = str(dtype).split(".")[1]
-        bf16 = dtype == torch.bfloat16
-        esize = torch.finfo(dtype).bits // 8
-        peak = BF16_PEAK if bf16 else FP32_PEAK
-
-        def randn(*shape):
-            return torch.randn(shape, generator=ga, device=dev).to(dtype)
-
-        fq = randn(b_, HKV, GROUP, SERVE_PROMPT, D_HEAD)
-        fk = randn(b_, HKV, SERVE_PROMPT, D_HEAD)
-        fv = randn(b_, HKV, SERVE_PROMPT, D_HEAD)
-        got = flash_attention_cuda(fq, fk, fv, causal=True)
-        want = attention_ref(fq, fk, fv, causal=True)
-        gold = (attention_ref(fq.float(), fk.float(), fv.float(),
-                              causal=True) if bf16 else None)
-        readings = hold("flash_attention", tname, got, want, gold)
-        flops = 4.0 * b_ * hq * SERVE_PROMPT ** 2 * D_HEAD / 2   # causal half
-        nbytes = (2 * fq.numel() + fk.numel() + fv.numel()) * esize
-        nb, fl = bound(nbytes, flops, peak)
-        qh = fq.reshape(b_, hq, SERVE_PROMPT, D_HEAD)
-        row = dict(name="flash_attention", dtype=tname, **readings,
-                   bound_ms=nb, bound_by=fl, flops=flops, **timings(
-                       lambda: flash_attention_cuda(fq, fk, fv, causal=True),
-                       lambda: attention_ref(fq, fk, fv, causal=True),
-                       lambda: sdpa(qh, fk, fv, is_causal=True,
-                                    enable_gqa=True), 5))
-        if bf16:
-            # the tensor cores' work: every visited 64 x 64 tile (the
-            # diagonal ones whole), Q.K^T once and P.V twice (hi + lo)
-            nt = SERVE_PROMPT // 64
-            row["mma_flops"] = (b_ * hq * nt * (nt + 1) / 2
-                                * 3 * 2 * 64 * 64 * D_HEAD)
-            row["mma_tflops"] = row["mma_flops"] / row["ms"] / 1e9
-        report["flash_rows"].append(row)
-        del fq, fk, fv, qh, got, want, gold
-
-        # decode: set 0 is checked; the kernel, the plain version and
-        # SDPA are timed cycling through L2_SETS sets larger together
-        # than the L2, as the serve path's 32 layers' caches are (cold),
-        # and on set 0 alone (L2-warm, as earlier calls timed it)
-        sets = [(randn(b_, HKV, GROUP, D_HEAD), randn(b_, HKV, s_cache, D_HEAD),
-                 randn(b_, HKV, s_cache, D_HEAD)) for _ in range(L2_SETS)]
-        set_bytes = sum(tt.numel() * esize for tt in sets[0])
+    def flash_rows(hkv, group, d_head, cache_lens):
+        """Phase 2b's rows at one head shape (Hkv, G, D): the prefill and
+        the decode, f32 and bf16, B 4, prompt 2,048, a cache of
+        cache_lens[-1] rows valid up to cache_lens."""
+        b_, hq, s_cache = SERVE_B, hkv * group, cache_lens[-1]
+        lens = torch.tensor(cache_lens, dtype=torch.int32, device=dev)
+        valid = torch.arange(s_cache, device=dev)[None, :] < lens[:, None]
+        rows = []
+        # decode's split-KV plan at these shapes, from the wrapper's rule
+        dec_chunk = decode_chunk(s_cache, b_ * hkv, sm_count(dev.index or 0))
+        dec_split = -(-s_cache // dec_chunk)
         l2_bytes = torch.cuda.get_device_properties(dev).L2_cache_size
-        if L2_SETS * set_bytes <= l2_bytes:
-            fail(f"decode timing sets ({L2_SETS} x {set_bytes} bytes) fit "
-                 f"in the {l2_bytes}-byte L2")
-        fq, fk, fv = sets[0]
-        got = flash_decode_cuda(fq, fk, fv, lens)
-        want = decode_ref(fq, fk, fv, lens)
-        gold = (decode_ref(fq.float(), fk.float(), fv.float(), lens)
-                if bf16 else None)
-        readings = hold("flash_decode", tname, got, want, gold)
-        keys = sum(CACHE_LENS)             # the cache rows the data need
-        flops = 4.0 * hq * D_HEAD * keys
-        nbytes = (2 * keys * HKV * D_HEAD + 2 * fq.numel()) * esize
-        nb, fl = bound(nbytes, flops, peak)
-        mask = valid[:, None, None, :]
-        fns = {"kernel": lambda qq, kk, vv: flash_decode_cuda(qq, kk, vv, lens),
-               "plain": lambda qq, kk, vv: decode_ref(qq, kk, vv, lens),
-               "library": lambda qq, kk, vv: sdpa(
-                   qq.reshape(b_, hq, 1, D_HEAD), kk, vv, attn_mask=mask,
-                   enable_gqa=True)}
-        cold = timings(*(rotate([functools.partial(fn, *st) for st in sets])
-                         for fn in fns.values()), 12 * L2_SETS)
-        warm = timings(*(functools.partial(fn, *sets[0])
-                         for fn in fns.values()), 48)
-        row = dict(name="flash_decode", dtype=tname, **readings,
-                   bound_ms=nb, bound_by=fl, flops=flops, **cold,
-                   ms_l2_warm=warm["ms"], plain_ms_l2_warm=warm["plain_ms"],
-                   library_ms_l2_warm=warm["library_ms"], l2_sets=L2_SETS,
-                   l2_set_bytes=set_bytes, l2_bytes=l2_bytes,
-                   chunk=dec_chunk, splits=dec_split,
-                   blocks=b_ * HKV * dec_split,
-                   blocks_with_keys=HKV * sum(
-                       -(-min(n, s_cache) // dec_chunk) if n > 0
-                       else dec_split for n in CACHE_LENS))
-        row["bound_share_l2_warm"] = nb / row["ms_l2_warm"]
-        report["flash_rows"].append(row)
-        del fq, fk, fv, sets, got, want, gold
+        for dtype in (torch.float32, torch.bfloat16):
+            tname = str(dtype).split(".")[1]
+            bf16 = dtype == torch.bfloat16
+            esize = torch.finfo(dtype).bits // 8
+            peak = BF16_PEAK if bf16 else FP32_PEAK
+
+            def randn(*shape):
+                return torch.randn(shape, generator=ga, device=dev).to(dtype)
+
+            fq = randn(b_, hkv, group, SERVE_PROMPT, d_head)
+            fk = randn(b_, hkv, SERVE_PROMPT, d_head)
+            fv = randn(b_, hkv, SERVE_PROMPT, d_head)
+            got = flash_attention_cuda(fq, fk, fv, causal=True)
+            want = attention_ref(fq, fk, fv, causal=True)
+            gold = (attention_ref(fq.float(), fk.float(), fv.float(),
+                                  causal=True) if bf16 else None)
+            readings = hold("flash_attention", tname, got, want, gold)
+            # the causal half
+            flops = 4.0 * b_ * hq * SERVE_PROMPT ** 2 * d_head / 2
+            nbytes = (2 * fq.numel() + fk.numel() + fv.numel()) * esize
+            nb, fl = bound(nbytes, flops, peak)
+            qh = fq.reshape(b_, hq, SERVE_PROMPT, d_head)
+            row = dict(name="flash_attention", dtype=tname, **readings,
+                       bound_ms=nb, bound_by=fl, flops=flops, **timings(
+                           lambda: flash_attention_cuda(fq, fk, fv,
+                                                        causal=True),
+                           lambda: attention_ref(fq, fk, fv, causal=True),
+                           lambda: sdpa(qh, fk, fv, is_causal=True,
+                                        enable_gqa=True), 5))
+            if bf16:
+                # the tensor cores' work: every visited 64 x 64 tile (the
+                # diagonal ones whole), Q.K^T once and P.V twice (hi + lo)
+                nt = SERVE_PROMPT // 64
+                row["mma_flops"] = (b_ * hq * nt * (nt + 1) / 2
+                                    * 3 * 2 * 64 * 64 * d_head)
+                row["mma_tflops"] = row["mma_flops"] / row["ms"] / 1e9
+            rows.append(row)
+            del fq, fk, fv, qh, got, want, gold
+
+            # decode: set 0 is checked; the kernel, the plain version and
+            # SDPA are timed cycling through L2_SETS sets larger together
+            # than the L2, as the serve path's 32 layers' caches are (cold),
+            # and on set 0 alone (L2-warm, as earlier calls timed it)
+            set_bytes = (b_ * hkv * (group + 2 * s_cache) * d_head) * esize
+            # at least L2_SETS sets, and together twice the L2
+            n_sets = max(L2_SETS, -(-2 * l2_bytes // set_bytes))
+            sets = [(randn(b_, hkv, group, d_head),
+                     randn(b_, hkv, s_cache, d_head),
+                     randn(b_, hkv, s_cache, d_head)) for _ in range(n_sets)]
+            if n_sets * set_bytes <= l2_bytes:
+                fail(f"decode timing sets ({n_sets} x {set_bytes} bytes) fit "
+                     f"in the {l2_bytes}-byte L2")
+            fq, fk, fv = sets[0]
+            got = flash_decode_cuda(fq, fk, fv, lens)
+            want = decode_ref(fq, fk, fv, lens)
+            gold = (decode_ref(fq.float(), fk.float(), fv.float(), lens)
+                    if bf16 else None)
+            readings = hold("flash_decode", tname, got, want, gold)
+            keys = sum(cache_lens)             # the cache rows the data need
+            flops = 4.0 * hq * d_head * keys
+            nbytes = (2 * keys * hkv * d_head + 2 * fq.numel()) * esize
+            nb, fl = bound(nbytes, flops, peak)
+            mask = valid[:, None, None, :]
+            fns = {"kernel": lambda qq, kk, vv: flash_decode_cuda(
+                       qq, kk, vv, lens),
+                   "plain": lambda qq, kk, vv: decode_ref(qq, kk, vv, lens),
+                   "library": lambda qq, kk, vv: sdpa(
+                       qq.reshape(b_, hq, 1, d_head), kk, vv, attn_mask=mask,
+                       enable_gqa=True)}
+            cold = timings(*(rotate([functools.partial(fn, *st)
+                                     for st in sets])
+                             for fn in fns.values()), 12 * n_sets)
+            warm = timings(*(functools.partial(fn, *sets[0])
+                             for fn in fns.values()), 48)
+            row = dict(name="flash_decode", dtype=tname, **readings,
+                       bound_ms=nb, bound_by=fl, flops=flops, **cold,
+                       ms_l2_warm=warm["ms"],
+                       plain_ms_l2_warm=warm["plain_ms"],
+                       library_ms_l2_warm=warm["library_ms"], l2_sets=n_sets,
+                       l2_set_bytes=set_bytes, l2_bytes=l2_bytes,
+                       chunk=dec_chunk, splits=dec_split,
+                       blocks=b_ * hkv * dec_split,
+                       blocks_with_keys=hkv * sum(
+                           -(-min(n, s_cache) // dec_chunk) if n > 0
+                           else dec_split for n in cache_lens))
+            row["bound_share_l2_warm"] = nb / row["ms_l2_warm"]
+            rows.append(row)
+            del fq, fk, fv, sets, got, want, gold
+        return rows
+
+    report["flash_rows"] = flash_rows(HKV, GROUP, D_HEAD, CACHE_LENS)
     for row in report["flash_rows"]:
         row["tflops"] = row["flops"] / row["ms"] / 1e9
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -1852,6 +2161,35 @@ def main() -> int:
           flush=True)
     if dec[0]["spill_stores"] or dec[0]["spill_loads"]:
         fail(f"the bf16 decode kernel spills: {dec[0]}")
+
+    # -- 2g. the flash kernels at the other archs' head shapes -------------
+    report["flash_rows_2g"] = {}
+    for label, (hkv, group, d_head) in NEW_HEADS.items():
+        rows = flash_rows(hkv, group, d_head, NEW_CACHE_LENS)
+        for row in rows:
+            row.update(heads=label, hkv=hkv, group=group, d_head=d_head,
+                       tflops=row["flops"] / row["ms"] / 1e9,
+                       bound_share=row["bound_ms"] / row["ms"])
+            print("flash-2g " + json.dumps(row), flush=True)
+        report["flash_rows_2g"][label] = rows
+    # every D 64 instantiation (zamba2's, musicgen's and qwen3's head dim):
+    # registers, spills and shared memory from the build log; none may
+    # spill
+    d64 = {fn: u for fn, u in build.ptxas_usage(
+        build.build_log("flash_attention")).items() if "Li64E" in fn}
+    if not any("flash_prefill_mma" in fn for fn in d64) or not any(
+            "flash_decode" in fn for fn in d64):
+        fail(f"the build log lacks the D 64 flash kernels: {sorted(d64)}")
+    report["d64_ptxas"] = dict(
+        d64, prefill_bf16_dynamic_smem=prefill_bf16_smem_bytes(64),
+        decode_dynamic_smem={f"G{g}_{'bf16' if bf else 'f32'}":
+                             decode_smem_bytes(g, 64, bf)
+                             for g in (1, 16) for bf in (True, False)})
+    print("flash D64 ptxas " + json.dumps(report["d64_ptxas"]), flush=True)
+    spilled = {fn: u for fn, u in d64.items()
+               if u["spill_stores"] or u["spill_loads"]}
+    if spilled:
+        fail(f"D 64 flash instantiations spill: {spilled}")
 
     # -- 2c. gather_weight against its plain version, train shapes ---------
     report["gather_rows"] = []
@@ -2308,6 +2646,11 @@ def main() -> int:
     print(f"small-input check {cfg_s.name}: prefill 2x256 + 8 decode "
           f"steps, logits max |diff| card vs CPU {err:.3g}", flush=True)
 
+    # -- 3g. small input: the other archs on the card against the CPU ------
+    report["small_3g"] = {
+        arch: other_arch_card_vs_cpu(torch, dev, kernels, configs, serve, LM,
+                                     arch) for arch in NEW_ARCHS}
+
     # -- 3e. small input: the LSH head on the card against the CPU ---------
     from repro_torch.models import LMHeadIndex, lsh_decode_step
     from repro_torch.models.sampled_softmax import (
@@ -2563,97 +2906,18 @@ def main() -> int:
         report["kernels"][kname]["launches"] = counts[kname]
 
     # -- 4b. the serve path at full width -----------------------------------
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cfg_f, lm_f = serve.load_model(SERVE_ARCH, "full", device=dev, seed=0)
-    prompts = serve.make_prompts(cfg_f, SERVE_B, SERVE_PROMPT, dev, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    gen_out = serve.generate(lm_f, prompts, SERVE_NEW)
-    wall_s = time.perf_counter() - t0
-    served = dict(kernels.launches)
-    want = {"flash_attention": cfg_f.n_layers,
-            "flash_decode": cfg_f.n_layers * SERVE_NEW}
-    for kname, n_launch in want.items():
-        if served[kname] != n_launch:
-            fail(f"serve path launched {kname} {served[kname]} times, "
-                 f"expected {n_launch}")
-        report["kernels"][kname]["launches"] = served[kname]
-    if not gen_out["finite"]:
-        fail("serve path: non-finite logits")
-    p10, p50 = serve.percentiles(gen_out["step_ms"])
-    decode_s = sum(gen_out["step_ms"]) / 1e3
-    report["serve"] = dict(
-        arch=cfg_f.name, batch=SERVE_B, prompt=SERVE_PROMPT,
-        new_tokens=SERVE_NEW, params=sum(p.numel() for p in
-                                         lm_f.parameters()),
-        init_s=init_s, prefill_s=gen_out["prefill_s"],
-        decode_ms_p10=p10, decode_ms_p50=p50,
-        first_step_ms=gen_out["step_ms"][0], decode_s=decode_s,
-        tokens_per_s=SERVE_B * SERVE_NEW / decode_s, wall_s=wall_s,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches={kk: served[kk] for kk in want},
-        sample_row=gen_out["tokens"][0, :12].tolist())
+    report["serve"], kept = serve_arch_full_width(
+        torch, dev, kernels, serve, LM, SERVE_ARCH, None, steps=SERVE_NEW,
+        keep=True)
+    for kname, n_launch in report["serve"]["launches"].items():
+        report["kernels"][kname]["launches"] = n_launch
+    report["serve_check"] = report["serve"].pop("check")
     print("serve " + json.dumps(report["serve"]), flush=True)
-
-    # the kernel path against the plain path, same card, same weights.  The
-    # prompt and the first decode step (fed the kernel path's first token)
-    # run again with attn_impl="ref" in bf16, and once more in f32 (the
-    # same bf16 weights, upcast exactly) as the gold.  In bf16 the two
-    # paths part wherever an f32 attention output sits near a bf16
-    # rounding boundary, and 32 random residual layers amplify that (the
-    # first call measured 3.5% relative L2 between them), so no fixed
-    # kernel-vs-ref tolerance is justified.  The kernel path must instead
-    # be about as accurate as the plain path: its relative L2 distance
-    # from the gold at most FULL_WIDTH_FACTOR times the plain path's.  A
-    # wrong mask or a dropped tile moves the hidden state by O(1).
-    def plain_run(dtype):
-        lm_p = LM(cfg_f.with_(attn_impl="ref",
-                              dtype=str(dtype).split(".")[1]), device="meta")
-        sd = lm_f.state_dict()        # bf16 weights, f32 norm scales
-        if dtype == torch.float32:
-            sd = {kk: tt.float() for kk, tt in sd.items()}
-        lm_p.load_state_dict(sd, assign=True)
-        with torch.inference_mode():
-            cache = lm_p.init_cache(SERVE_B, SERVE_PROMPT + 1)
-            h_p, cache = lm_p.prefill({"tokens": prompts}, cache)
-            lg_p, _ = lm_p.decode_step(
-                {"tokens": gen_out["tokens"][:, :1],
-                 "positions": torch.full((SERVE_B, 1), SERVE_PROMPT,
-                                         device=dev)}, cache)
-        return {"last_hidden": h_p[:, -1].float(),
-                "first_logits": lg_p[:, 0].float()}
-
-    runs = {"ref": plain_run(torch.bfloat16), "gold": plain_run(torch.float32)}
-
-    def rel(a, b):
-        return float((a - b).norm() / b.norm())
-
-    check = {}
-    for key in ("last_hidden", "first_logits"):
-        got_t = gen_out[key].float()
-        ref_t, gold_t = runs["ref"][key], runs["gold"][key]
-        check[key] = dict(
-            kernel_vs_ref=rel(got_t, ref_t),
-            kernel_vs_gold=rel(got_t, gold_t),
-            ref_vs_gold=rel(ref_t, gold_t),
-            max_abs_kernel_vs_ref=float((got_t - ref_t).abs().max()),
-            ref_max_abs=float(ref_t.abs().max()),
-            argmax_agree=float((got_t.argmax(-1) == ref_t.argmax(-1))
-                               .float().mean()))
-        c = check[key]
-        if not c["kernel_vs_gold"] <= FULL_WIDTH_FACTOR * c["ref_vs_gold"]:
-            fail(f"full width: {key} of the kernel path is "
-                 f"{c['kernel_vs_gold']:.3g} from the f32 run, more than "
-                 f"{FULL_WIDTH_FACTOR} x the plain path's "
-                 f"{c['ref_vs_gold']:.3g}")
-    report["serve_check"] = check
-    print("serve-check " + json.dumps(check), flush=True)
-    full_first = gen_out["tokens"][:, :2].clone()   # 4e compares with it
-    del runs, gen_out
+    print("serve-check " + json.dumps(report["serve_check"]), flush=True)
+    cfg_f, lm_f = kept["cfg"], kept["lm"]
+    prompts = kept["inputs"]["tokens"]
+    full_first = kept["tokens"][:, :2].clone()   # 4e compares with it
+    del kept
 
     # -- 5. where an LGD step's time goes (after the counts are read) -------
     for family in FAMILIES:
@@ -2707,6 +2971,15 @@ def main() -> int:
         print(f"path mips_banded/mp{mp} card-vs-cpu " + json.dumps(
             report["paths"][f"mips_banded/mp{mp}"]["card_vs_cpu"]),
             flush=True)
+
+    # -- 4g. the other archs served at full width, one at a time -----------
+    report["serve_4g"] = {}
+    for arch, layers in NEW_ARCHS.items():
+        report["serve_4g"][arch], _ = serve_arch_full_width(
+            torch, dev, kernels, serve, LM, arch, layers)
+        print("serve-4g " + json.dumps(report["serve_4g"][arch]), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # -- 4c. the train path at full width -----------------------------------
     torch.cuda.synchronize()

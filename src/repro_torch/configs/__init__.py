@@ -1,10 +1,11 @@
 """Architecture registry of the port: the JAX package's ten archs by name.
 
 ``get(name)`` returns the FULL config, ``get_smoke(name)`` the reduced
-same-family one, as ``repro.configs`` does.  The port runs the four
-dense attention-only archs; the other six need a mixer or a frontend it
-does not have yet, and ``get`` / ``get_smoke`` raise for them, naming
-the ROADMAP item that ports it.
+same-family one, as ``repro.configs`` does; each module is a copy of
+``src/repro/configs/<arch>.py``.  The port builds every one of them:
+dense and MoE attention stacks, the Mamba-2 / shared-attention hybrid,
+xLSTM, the ``embed_stub`` audio frontend and the cross-attention
+vision stack.
 """
 
 from __future__ import annotations
@@ -13,7 +14,6 @@ import importlib
 from typing import List
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import ROADMAP_OTHER_MIXERS
 
 ARCHS: List[str] = [
     "xlstm_350m",
@@ -28,18 +28,6 @@ ARCHS: List[str] = [
     "zamba2_1_2b",
 ]
 
-PORTED: List[str] = ["phi4_mini_3_8b", "granite_3_8b", "starcoder2_15b",
-                     "nemotron_4_15b"]
-
-_NEEDS = {
-    "xlstm_350m": "the mLSTM / sLSTM mixers",
-    "qwen3_moe_235b_a22b": "the MoE FFN",
-    "llama4_maverick_400b_a17b": "the MoE FFN",
-    "musicgen_large": "the embed_stub frontend",
-    "llama_3_2_vision_90b": "cross-attention",
-    "zamba2_1_2b": "the Mamba-2 mixer and shared_attn",
-}
-
 
 def _canon(name: str) -> str:
     return name.replace("-", "_").replace(".", "_")
@@ -49,10 +37,6 @@ def _module(name: str):
     name = _canon(name)
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; one of {ARCHS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"{name} needs {_NEEDS[name]}, which the port does not have "
-            f"yet.  See {ROADMAP_OTHER_MIXERS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -7,10 +7,12 @@ index or a training state in one and continue it in the other.
 
 LM parameters: ``lm_params_from_numpy`` maps the reference's pytree
 (``embed_group`` plus ``blocks[j]`` stacked over repeats) into the port's
-``LM``, layer ``r * len(block_pattern) + j`` from slice ``r``;
-``lm_params_to_numpy`` maps back.  bf16 arrays (``ml_dtypes.bfloat16``)
-cross bit for bit; numpy has no bf16 of its own, so they come back as
-f32, which holds every bf16 value exactly.
+``LM``, layer ``r * len(block_pattern) + j`` from slice ``r``, and the
+one shared_attn block ``shared`` from ``params["shared"]`` (the
+reference keeps None at its ``blocks[j]``); ``lm_params_to_numpy`` maps
+back, None included, so a round trip gives the reference's tree.  bf16
+arrays (``ml_dtypes.bfloat16``) cross bit for bit; numpy has no bf16 of
+its own, so they come back as f32, which holds every bf16 value exactly.
 
 Packed codes are uint32 in the reference and int64 in [0, 2^32) in the
 port; ``order`` is int32 there and int64 here.  A banded family's
@@ -185,12 +187,13 @@ def _to_tensor(a) -> torch.Tensor:
 
 def _where(name: str, cfg: ModelConfig):
     """Where the reference keeps the port's parameter ``name``:
-    ``(None, dotted)`` in ``embed_group``, or ``(j, r, dotted)`` in slice
-    r of ``blocks[j]`` — port layer i is pattern position j, repeat r,
-    with ``r, j = divmod(i, len(block_pattern))``."""
+    ``(group, dotted)`` in the unstacked ``embed_group`` or ``shared``
+    (the one shared_attn block), or ``(j, r, dotted)`` in slice r of
+    ``blocks[j]`` — port layer i is pattern position j, repeat r, with
+    ``r, j = divmod(i, len(block_pattern))``."""
     head, rest = name.split(".", 1)
-    if head == "embed_group":
-        return None, rest
+    if head in ("embed_group", "shared"):
+        return head, rest
     i, dotted = rest.split(".", 1)
     r, j = divmod(int(i), len(cfg.block_pattern))
     return j, r, dotted
@@ -202,13 +205,23 @@ def _leaf(tree: dict, dotted: str):
     return tree
 
 
+def _empty_tree(cfg: ModelConfig) -> dict:
+    """The reference's LM pytree without leaves: ``blocks[j]`` is None at
+    a shared_attn position, and ``shared`` exists when one does."""
+    out = {"embed_group": {}, "blocks": [
+        None if kind == "shared_attn" else {} for kind in cfg.block_pattern]}
+    if "shared_attn" in cfg.block_pattern:
+        out["shared"] = {}
+    return out
+
+
 def lm_tree_from_numpy(tree, lm: LM) -> dict:
     """A pytree shaped like the reference's LM params (the params, or
     Adam's moments) -> {``lm``'s parameter name: tensor on its device}."""
     out = {}
     for name, _ in lm.named_parameters():
         where = _where(name, lm.cfg)
-        a = (_leaf(tree["embed_group"], where[1]) if where[0] is None
+        a = (_leaf(tree[where[0]], where[1]) if len(where) == 2
              else _leaf(tree["blocks"][where[0]], where[2])[where[1]])
         out[name] = _to_tensor(a).to(lm.device)
     return out
@@ -228,13 +241,14 @@ def _set(tree: dict, dotted: str, value) -> None:
 
 def lm_tree_to_numpy(named: dict, cfg: ModelConfig) -> dict:
     """{port parameter name: tensor} -> the reference's pytree layout
-    (stacked over repeats), as numpy; bf16 leaves come back as f32."""
-    out = {"embed_group": {}, "blocks": [{} for _ in cfg.block_pattern]}
+    (stacked over repeats, None at a shared_attn position), as numpy;
+    bf16 leaves come back as f32."""
+    out = _empty_tree(cfg)
     stacks: dict = {}       # (j, dotted name) -> the repeats, in order
     for name, t in named.items():
         where = _where(name, cfg)
-        if where[0] is None:
-            _set(out["embed_group"], where[1], _to_numpy(t))
+        if len(where) == 2:
+            _set(out[where[0]], where[1], _to_numpy(t))
         else:
             stacks.setdefault((where[0], where[2]), []).append(_to_numpy(t))
     for (j, dotted), arrs in stacks.items():
@@ -280,9 +294,9 @@ def adam_state_to_numpy(state: AdamState, cfg: ModelConfig) -> dict:
 
 def _stacked(name: str, cfg: ModelConfig):
     """(repeat r, repeats R) of a block parameter, None for the embed
-    group's."""
+    group's and the shared block's."""
     where = _where(name, cfg)
-    if where[0] is None:
+    if len(where) == 2:
         return None
     return where[1], cfg.n_layers // len(cfg.block_pattern)
 
@@ -290,15 +304,15 @@ def _stacked(name: str, cfg: ModelConfig):
 def _ref_leaf(tree, name: str, cfg: ModelConfig):
     """The reference's leaf (whole stack) holding the port's ``name``."""
     where = _where(name, cfg)
-    if where[0] is None:
-        return _leaf(tree["embed_group"], where[1])
+    if len(where) == 2:
+        return _leaf(tree[where[0]], where[1])
     return _leaf(tree["blocks"][where[0]], where[2])
 
 
 def _set_ref(out: dict, name: str, cfg: ModelConfig, value) -> None:
     where = _where(name, cfg)
-    if where[0] is None:
-        _set(out["embed_group"], where[1], value)
+    if len(where) == 2:
+        _set(out[where[0]], where[1], value)
     else:
         _set(out["blocks"][where[0]], where[2], value)
 
@@ -342,7 +356,7 @@ def adam8bit_state_to_numpy(state: Adam8bitState, cfg: ModelConfig) -> dict:
     reference's layout: each leaf (q, scale, shape), layers' blocks
     concatenated into the stacked leaf's."""
     def slot(named):
-        out = {"embed_group": {}, "blocks": [{} for _ in cfg.block_pattern]}
+        out = _empty_tree(cfg)
         stacks: dict = {}
         for name, qt in named.items():
             q, scale, shape = qtensor_to_numpy(qt)
@@ -393,8 +407,7 @@ def adafactor_state_to_numpy(state: AdafactorState,
     reference's one-row factoring: vc the port's moment, vr its mean
     (what the row statistic holds, since both are running means of the
     same squares)."""
-    vr = {"embed_group": {}, "blocks": [{} for _ in cfg.block_pattern]}
-    vc = {"embed_group": {}, "blocks": [{} for _ in cfg.block_pattern]}
+    vr, vc = _empty_tree(cfg), _empty_tree(cfg)
     stacks: dict = {}
     for name in state.vr:
         r_, c_ = (_to_numpy(state.vr[name]), _to_numpy(state.vc[name]))

@@ -5,7 +5,10 @@
       --steps 50 [--full] [--lgd] [--ckpt DIR] [--batch 8] [--seq 64] \\
       [--device cuda]
 
-Without ``--full`` it trains the arch's SMOKE config.  Weights are
+Without ``--full`` it trains the arch's SMOKE config; every arch of
+``repro_torch.configs`` builds, and an ``embed_stub`` arch (musicgen,
+which takes precomputed embeddings, not a token corpus) is refused with
+the reference launcher's message.  Weights are
 random from seed 0 and the corpus is ``make_token_corpus(0, ...)``, as
 in the reference.  With ``--lgd`` batches come from one
 ``LSHSampledPipeline`` over the whole corpus — one card is one shard,
@@ -113,6 +116,10 @@ def main(argv=None):
     n = sum(p.numel() for p in model.parameters())
     print(f"arch={cfg.name}  device={device}")
     print(f"params: {n / 1e6:.1f}M")
+    if cfg.frontend == "embed_stub":
+        raise SystemExit(
+            f"{cfg.name} takes precomputed embeddings; use "
+            "examples/serve.py or the dryrun for this arch")
     sampler, batches = make_batches(
         cfg, model, lgd=args.lgd, batch=args.batch, seq=args.seq,
         corpus=args.corpus, device=device)

@@ -38,7 +38,7 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
 
     # layer pattern, cycled to n_layers: attn | cross_attn | mamba2 |
-    # mlstm | slstm | shared_attn (the port runs attn only)
+    # mlstm | slstm | shared_attn
     block_pattern: Tuple[str, ...] = ("attn",)
 
     # sequence-mixer extras

@@ -1,13 +1,13 @@
-"""Shared layers: RMSNorm, RoPE, GQA self-attention with a KV cache, the
-dense FFN, the embedding, the LM head and the chunked LM loss.
+"""Shared layers: RMSNorm, RoPE, GQA attention (self-attention with a KV
+cache, and cross-attention over a memory), the dense FFN, the
+embedding, the LM head and the chunked LM loss.
 
 The port of src/repro/models/layers.py, as ``nn.Module``s.  Parameters
 keep the reference's names, shapes and dtypes (``wq`` (d, Hq, Dh),
 ``wo`` (Hq, Dh, d), norm scales in f32 whatever the model dtype), so
 ``repro_torch.convert`` maps a reference pytree across leaf for leaf.
 There is no mesh in the port, so the reference's ``logical(...)``
-sharding annotations have no counterpart.  Cross-attention (the
-reference's ``kv=`` memory) is not ported: see ``models.lm``.
+sharding annotations have no counterpart.
 
 The KV cache is a dict ``{"k", "v", "len"}`` per layer, with k/v
 (B, S_max, Hkv, Dh) and len (B,) int32.  Unlike the reference, which
@@ -35,12 +35,26 @@ def _param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
+# elements above which ``normal_`` draws a parameter a slice at a time
+NORMAL_SLICE = 1 << 30
+
+
 @torch.no_grad()
 def normal_(p: torch.Tensor, generator: torch.Generator, std: float) -> None:
     """The reference's init: a standard normal in f32, times ``std``,
-    cast to the parameter's dtype."""
-    p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
-                        dtype=torch.float32) * std)
+    cast to the parameter's dtype.  A parameter of more than
+    ``NORMAL_SLICE`` elements (an MoE layer's expert stack: 5.4 B at
+    llama4's full width) is drawn a slice of its first dimension at a
+    time, so its f32 draw never exists whole."""
+    if p.numel() <= NORMAL_SLICE or p.dim() == 0:
+        p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
+                            dtype=torch.float32).mul_(std))
+        return
+    step = max(1, NORMAL_SLICE // (p.numel() // p.shape[0]))
+    for i in range(0, p.shape[0], step):
+        part = p[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               device=p.device, dtype=torch.float32).mul_(std))
 
 
 # ---------------------------------------------------------------------------
@@ -122,28 +136,41 @@ class Attention(nn.Module):
             normal_(w, generator, std)
         normal_(self.wo, generator, std * 0.5)
 
-    def forward(self, x: torch.Tensor, rope_cs, cache: dict | None = None):
+    def forward(self, x: torch.Tensor, rope_cs, cache: dict | None = None,
+                *, kv: torch.Tensor | None = None, causal: bool = True):
         """x (B, S, d), rope_cs the step's ``rope_tables``.  Returns
-        (x + attention, new cache or None)."""
+        (x + attention, new cache or None).
+
+        ``kv`` (B, S_mem, d): cross-attention over that memory (image
+        patch embeddings): k and v are projected from it, unnormed and
+        without RoPE, q is not rotated either, the attention is
+        non-causal, and the cache is neither read nor written.  It takes
+        the plain path on every device, as the reference chooses
+        (src/repro/models/layers.py:101-103): the flash kernel needs
+        S_q = S_kv.  ``causal=False`` without ``kv`` is full
+        self-attention with RoPE on ``cfg.attn_impl``."""
         cfg = self.cfg
         b, s, d = x.shape
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         h = self.norm(x)
-        q = apply_rope((h @ self.wq.view(d, hq * dh)).view(b, s, hq, dh),
-                       *rope_cs)
-        k = apply_rope((h @ self.wk.view(d, hkv * dh)).view(b, s, hkv, dh),
-                       *rope_cs)
-        v = (h @ self.wv.view(d, hkv * dh)).view(b, s, hkv, dh)
-        use_kernel = cfg.attn_impl == "pallas"
+        src = h if kv is None else kv
+        q = (h @ self.wq.view(d, hq * dh)).view(b, s, hq, dh)
+        k = (src @ self.wk.view(d, hkv * dh)).view(b, -1, hkv, dh)
+        v = (src @ self.wv.view(d, hkv * dh)).view(b, -1, hkv, dh)
+        if kv is None:
+            q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
+            impl = cfg.attn_impl
+        else:
+            impl, cache, causal = "ref", None, False
         new_cache = None
         if cache is None or s > 1:
             # full sequence: training, or prefill writing the cache
-            if cfg.attn_impl == "chunked":
-                out = chunked_gqa_attention(q, k, v, causal=True,
+            if impl == "chunked":
+                out = chunked_gqa_attention(q, k, v, causal=causal,
                                             block_q=cfg.attn_block_q)
             else:
-                out = gqa_attention(q, k, v, causal=True,
-                                    use_kernel=use_kernel)
+                out = gqa_attention(q, k, v, causal=causal,
+                                    use_kernel=impl == "pallas")
             if cache is not None:
                 cache["k"][:, :s] = k
                 cache["v"][:, :s] = v
@@ -159,7 +186,7 @@ class Attention(nn.Module):
             cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
             cache["len"] = cache["len"] + 1
             out = gqa_decode(q, cache["k"], cache["v"], cache["len"],
-                             use_kernel=use_kernel)
+                             use_kernel=impl == "pallas")
             new_cache = cache
         out = out.reshape(b, s, hq * dh) @ self.wo.view(hq * dh, d)
         return x + out, new_cache

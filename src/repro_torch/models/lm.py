@@ -1,15 +1,32 @@
-"""Decoder-only LM: the port of src/repro/models/lm.py for dense
-attention-only configs.
+"""Decoder-only LM assembled from a block pattern: the port of
+src/repro/models/lm.py.
+
+The config's ``block_pattern``, cycled ``repeats`` times to n_layers,
+names each layer's kind:
+  attn         self-attention, then the FFN (dense MLP or MoE);
+  shared_attn  the same, with ONE set of weights shared by every
+               occurrence (Zamba-style), each occurrence with its own KV
+               cache;
+  cross_attn   self-attention, cross-attention over ``image_embeds``,
+               then the FFN;
+  mamba2, mlstm, slstm   the sub-quadratic mixers of ``models.ssm``, with
+               no FFN.
+The ``embed_stub`` frontend takes precomputed embeddings
+(``batch["embeds"]``, cast to the model dtype) in place of token ids.
 
 The reference stacks each pattern position's parameters over repeats
 and runs one ``lax.scan`` (with remat and sequence sharding); those are
 JAX execution knobs, and the port loops over its layers in Python.
 Layer ``r * len(block_pattern) + j`` of the port is slice ``r`` of the
-reference's ``params["blocks"][j]`` (``repro_torch.convert``).
+reference's ``params["blocks"][j]``; the shared block is ``shared``,
+the reference's ``params["shared"]``, registered once, so it appears
+once in ``named_parameters()`` (``repro_torch.convert``).
 
 Entry points, as methods, with the reference's batch dicts
-(``tokens`` (B, S) int32 or int64, ``targets`` and ``loss_weights`` (B,)
-for the loss, ``positions`` (B, 1) for a decode step):
+(``tokens`` (B, S) int32 or int64, or ``embeds`` (B, S, d) for an
+``embed_stub`` arch; ``image_embeds`` (B, P, d) for the cross-attention
+layers; ``targets`` and ``loss_weights`` (B,) for the loss;
+``positions`` (B, 1) for a decode step):
   forward(batch)             -> final hidden states (B, S, d)
   logits(batch)              -> (B, S, V)
   loss(batch)                -> scalar LM loss (chunked, LGD-weighted)
@@ -21,7 +38,10 @@ for the loss, ``positions`` (B, 1) for a decode step):
 With grad enabled and ``cfg.remat`` each block runs under
 ``torch.utils.checkpoint`` (the reference's remat'd scan body), so
 training keeps one block's activations at a time.  Prefill and decode
-run without autograd and update the cache in place (``models.layers``).
+run without autograd.  The cache is a list with one entry a layer:
+attention caches (``{"k", "v", "len"}``) are updated in place
+(``models.layers``); a mixer's state (``{"state": ...}``) is carried,
+and its list entry replaced by the new one.
 """
 
 from __future__ import annotations
@@ -31,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import resolve_device
+from . import ssm
 from .config import ModelConfig
 from .layers import (
     MLP,
@@ -40,42 +61,64 @@ from .layers import (
     init_attention_cache,
     rope_tables,
 )
+from .moe import MoE
 
-# where ROADMAP.md's module queue ports what this module refuses
-ROADMAP_OTHER_MIXERS = ("ROADMAP.md queue 1, item 3 (moe, ssm, "
-                        "cross-attention, shared_attn, embed_stub)")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: only dense self-attention
-    blocks over token ids."""
-    if tuple(cfg.block_pattern) != ("attn",):
-        raise NotImplementedError(
-            f"{cfg.name}: block pattern {cfg.block_pattern} is not ported; "
-            f"only ('attn',) is.  See {ROADMAP_OTHER_MIXERS}")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs are not ported.  See "
-            f"{ROADMAP_OTHER_MIXERS}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: frontend {cfg.frontend!r} is not ported.  See "
-            f"{ROADMAP_OTHER_MIXERS}")
+ATTN_KINDS = ("attn", "cross_attn", "shared_attn")
+MIXERS = {"mamba2": ("mamba", ssm.Mamba2), "mlstm": ("mlstm", ssm.MLSTM),
+          "slstm": ("slstm", ssm.SLSTM)}
+BLOCK_KINDS = ATTN_KINDS + tuple(MIXERS)
 
 
 class Block(nn.Module):
-    """``attn``: self-attention, then the dense FFN (when d_ff > 0)."""
+    """One layer of kind ``kind``, its parameters under the reference's
+    names (``attn``, ``xattn``, ``mamba``, ``mlstm``, ``slstm``,
+    ``ffn``)."""
 
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    def __init__(self, cfg: ModelConfig, kind: str, device, dtype):
         super().__init__()
-        self.attn = Attention(cfg, device, dtype)
-        self.ffn = MLP(cfg, device, dtype) if cfg.d_ff > 0 else None
+        if kind not in BLOCK_KINDS:
+            raise ValueError(f"unknown block kind {kind!r}; one of "
+                             f"{BLOCK_KINDS}")
+        self.kind = kind
+        self.ffn = None
+        if kind in ATTN_KINDS:
+            self.attn = Attention(cfg, device, dtype)
+            if kind == "cross_attn":
+                self.xattn = Attention(cfg, device, dtype)
+            # attention-style blocks carry the FFN; the mixers do not
+            # (Zamba puts its FFN in the shared block only)
+            if cfg.is_moe:
+                self.ffn = MoE(cfg, device, dtype)
+            elif cfg.d_ff > 0:
+                self.ffn = MLP(cfg, device, dtype)
+        else:
+            attr, cls = MIXERS[kind]
+            setattr(self, attr, cls(cfg, device, dtype))
 
-    def forward(self, x, rope_cs, cache=None):
-        x, cache = self.attn(x, rope_cs, cache)
-        if self.ffn is not None:
-            x = self.ffn(x)
-        return x, cache
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for m in self.children():
+            m.reset_parameters(generator)
+
+    def forward(self, x, rope_cs, image_mem=None, cache=None,
+                decode: bool = False):
+        """Returns (x, the layer's new cache entry or None)."""
+        kind = self.kind
+        if kind in ATTN_KINDS:
+            x, cache = self.attn(x, rope_cs, cache)
+            if kind == "cross_attn":
+                # no image memory: the reference's quirk, full
+                # self-attention with RoPE on cfg.attn_impl
+                x, _ = self.xattn(x, rope_cs, kv=image_mem, causal=False)
+            if self.ffn is not None:
+                x = self.ffn(x)
+            return x, cache
+        mixer = getattr(self, MIXERS[kind][0])
+        state = None if cache is None else cache["state"]
+        if decode and kind != "slstm":     # sLSTM decodes at S = 1
+            x, state = mixer.decode(x, state)
+        else:
+            x, state = mixer(x, state)
+        return x, None if cache is None else {"state": state}
 
 
 class LM(nn.Module):
@@ -83,13 +126,17 @@ class LM(nn.Module):
         """Uninitialised weights of type ``cfg.dtype`` on ``device``; see
         ``LM.init``."""
         super().__init__()
-        check_supported(cfg)
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
         self.dtype = dtype
+        self.kinds = tuple(cfg.block_pattern) * cfg.repeats
         self.embed_group = EmbedGroup(cfg, device, dtype)
+        # a shared_attn position holds None: its weights are ``shared``
         self.blocks = nn.ModuleList(
-            Block(cfg, device, dtype) for _ in range(cfg.n_layers))
+            None if kind == "shared_attn" else Block(cfg, kind, device, dtype)
+            for kind in self.kinds)
+        self.shared = (Block(cfg, "shared_attn", device, dtype)
+                       if "shared_attn" in self.kinds else None)
 
     @classmethod
     def init(cls, cfg: ModelConfig, *, seed: int = 0,
@@ -97,46 +144,64 @@ class LM(nn.Module):
         """Random weights from a generator seeded with ``seed`` on
         ``device`` (the card unless the caller asks for the CPU), drawn
         as the reference draws them: normals scaled by fan-in, norm
-        scales one.  The same seed gives the same weights on one device
-        type, not across devices or against JAX."""
+        scales one, the mixers' f32 constants as the reference sets them.
+        The same seed gives the same weights on one device type, not
+        across devices or against JAX."""
         device = resolve_device(device)
         lm = cls(cfg, device=device)
         gen = torch.Generator(device=device).manual_seed(seed)
         lm.embed_group.reset_parameters(gen)
-        for blk in lm.blocks:
-            blk.attn.reset_parameters(gen)
-            if blk.ffn is not None:
-                blk.ffn.reset_parameters(gen)
+        for blk in (*lm.blocks, lm.shared):
+            if blk is not None:
+                blk.reset_parameters(gen)
         return lm
 
     @property
     def device(self) -> torch.device:
         return self.embed_group.embed.device
 
-    def _run(self, x, positions, cache):
-        rope_cs = rope_tables(positions, self.cfg.d_head, self.cfg.rope_theta)
-        new_cache = None if cache is None else []
-        remat = cache is None and self.cfg.remat and torch.is_grad_enabled()
-        for i, blk in enumerate(self.blocks):
+    def _layer(self, i: int) -> Block:
+        return self.shared if self.kinds[i] == "shared_attn" else \
+            self.blocks[i]
+
+    def _run(self, x, positions, image_mem, cache, decode: bool):
+        cfg = self.cfg
+        rope_cs = (rope_tables(positions, cfg.d_head, cfg.rope_theta)
+                   if any(k in ATTN_KINDS for k in self.kinds) else None)
+        remat = cache is None and cfg.remat and torch.is_grad_enabled()
+        for i in range(len(self.kinds)):
+            blk = self._layer(i)
             if remat:
-                x, c = checkpoint(blk, x, rope_cs, use_reentrant=False,
+                x, _ = checkpoint(blk, x, rope_cs, image_mem,
+                                  use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, c = blk(x, rope_cs, None if cache is None else cache[i])
-            if cache is not None:
-                new_cache.append(c)
-        return x, new_cache
+                x, c = blk(x, rope_cs, image_mem,
+                           None if cache is None else cache[i], decode)
+                if cache is not None:
+                    cache[i] = c
+        return x, cache
+
+    def _image_mem(self, batch, dtype):
+        mem = batch.get("image_embeds")
+        return None if mem is None else mem.to(dtype)
+
+    def _embed(self, batch):
+        if self.cfg.frontend == "embed_stub":
+            return batch["embeds"].to(self.dtype)
+        return self.embed_group.embed_tokens(batch["tokens"])
 
     def _prompt(self, batch):
-        x = self.embed_group.embed_tokens(batch["tokens"])
+        """(x, image memory, positions) of a full sequence."""
+        x = self._embed(batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-        return x, positions
+        return x, self._image_mem(batch, x.dtype), positions
 
     def forward(self, batch) -> torch.Tensor:
-        x, positions = self._prompt(batch)
-        return self._run(x, positions, None)[0]
+        x, mem, positions = self._prompt(batch)
+        return self._run(x, positions, mem, None, False)[0]
 
     def logits(self, batch) -> torch.Tensor:
         return self.embed_group.lm_logits(self.forward(batch))
@@ -161,22 +226,33 @@ class LM(nn.Module):
         return self.embed_group.lm_head.float().mean(dim=1)
 
     def init_cache(self, batch: int, max_len: int) -> list:
-        """One ``{"k", "v", "len"}`` cache per layer."""
-        return [init_attention_cache(self.cfg, batch, max_len, self.device,
-                                     self.dtype)
-                for _ in range(self.cfg.n_layers)]
+        """One cache a layer, by kind: ``{"k", "v", "len"}`` for the
+        attention kinds (each shared_attn occurrence its own), else
+        ``{"state": ...}`` with the mixer's zero state."""
+        cfg, dev = self.cfg, self.device
+        states = {"mamba2": ssm.init_mamba2_state,
+                  "mlstm": ssm.init_mlstm_state,
+                  "slstm": ssm.init_slstm_state}
+        return [init_attention_cache(cfg, batch, max_len, dev, self.dtype)
+                if kind in ATTN_KINDS else
+                {"state": states[kind](cfg, batch, dev)}
+                for kind in self.kinds]
 
     @torch.no_grad()
     def prefill(self, batch, cache: list):
-        """Run the prompt, writing its K/V at offset 0; returns (h, cache)."""
-        x, positions = self._prompt(batch)
-        return self._run(x, positions, cache)
+        """Run the prompt, writing its K/V at offset 0 and the mixers'
+        states; returns (h, cache)."""
+        x, mem, positions = self._prompt(batch)
+        return self._run(x, positions, mem, cache, False)
 
     @torch.no_grad()
     def decode_hidden(self, batch, cache: list):
-        """One-token decode up to (not including) the lm head."""
-        x = self.embed_group.embed_tokens(batch["tokens"])
-        return self._run(x, batch["positions"], cache)
+        """One-token decode up to (not including) the lm head: the next
+        token id (or ``embeds`` (B, 1, d)), ``positions`` (B, 1), and
+        ``image_embeds`` for a cross-attention arch."""
+        x = self._embed(batch)
+        return self._run(x, batch["positions"],
+                         self._image_mem(batch, x.dtype), cache, True)
 
     @torch.no_grad()
     def decode_step(self, batch, cache: list):

@@ -1,17 +1,26 @@
 """Batched serving: prefill a batch of prompts, then decode greedily.
 
-The PyTorch twin of ``examples/serve.py`` for the dense attention-only
-archs.  The model runs with ``attn_impl="pallas"``: on the card the
-prompt goes through the hand-written flash-attention kernel once per
-layer, and every decode step through the flash-decode kernel once per
-layer; with ``--device cpu`` both are their plain PyTorch versions.
-Weights are random from a seeded generator (nothing is downloaded) and
-the prompts are random token ids.
+The PyTorch twin of ``examples/serve.py``, for every arch of
+``repro_torch.configs``.  The model runs with ``attn_impl="pallas"``: on
+the card each self-attention layer's prompt goes through the
+hand-written flash-attention kernel once, and each decode step through
+the flash-decode kernel once per self-attention layer; with ``--device
+cpu`` both are their plain PyTorch versions.  The mixers (Mamba-2,
+mLSTM, sLSTM), the MoE FFN and cross-attention are plain PyTorch, as in
+the reference.  Weights are random from a seeded generator (nothing is
+downloaded).
+
+Inputs, from seeded generators, as the reference's example makes them:
+random token ids; for an ``embed_stub`` arch (musicgen) normal prompt
+embeddings (B, S, d), and as decode inputs zeros at the first step and
+a fresh normal (B, 1, d) at each later one; for a cross-attention arch
+(llama-3.2-vision) normal image embeddings (B, n_patches, d), fed at
+prefill and at every decode step.
 
 The first new token is the argmax of the prompt's last position; each
-of the ``--new-tokens`` decode steps then feeds the last token and
-takes the argmax of its logits, so the cache ends at prompt-len +
-new-tokens positions.
+of the ``--new-tokens`` decode steps then feeds the last token (or the
+next embedding) and takes the argmax of its logits, so the cache ends at
+prompt-len + new-tokens positions.
 
 Head (``--head``): ``full`` is the O(V·d) logits matmul and argmax;
 ``lsh`` the LSH-shortlisted head (``models.sampled_softmax``): a banded
@@ -27,7 +36,7 @@ p10/p50 ms/token over the per-step latencies, the first step timed
 apart.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve [--arch phi4_mini_3_8b]
-          [--size smoke|full] [--batch 4] [--prompt-len 32]
+          [--size smoke|full] [--layers N] [--batch 4] [--prompt-len 32]
           [--new-tokens 32] [--head full|lsh] [--device cuda]
 """
 
@@ -46,13 +55,21 @@ from repro_torch.models import (
     LM, LMHeadIndex, ModelConfig, SampledSoftmaxConfig, lsh_decode_step)
 from repro_torch.models.sampled_softmax import lsh_head_tokens
 
+# Seed of an ``embed_stub`` model's decode-step embeddings: one fixed
+# stream, as the reference's example draws them from one fixed key.
+DECODE_EMBED_SEED = 0
+
 
 def load_model(arch: str, size: str = "smoke", *, device="cuda",
-               seed: int = 0):
+               seed: int = 0, layers: int = None):
     """(config, LM) of ``arch`` at ``size`` with random weights, with
-    ``attn_impl="pallas"`` (the kernels on the card)."""
+    ``attn_impl="pallas"`` (the kernels on the card).  ``layers`` keeps
+    the config's first ``layers`` layers (a whole number of its block
+    pattern): its full width at a depth that fits one card."""
     cfg = configs.get(arch) if size == "full" else configs.get_smoke(arch)
     cfg = cfg.with_(attn_impl="pallas")
+    if layers is not None:
+        cfg = cfg.with_(n_layers=layers)
     return cfg, LM.init(cfg, seed=seed, device=device)
 
 
@@ -81,6 +98,26 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, device,
                          device=device)
 
 
+def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, device,
+                seed: int = 0) -> dict:
+    """The prompt batch of ``cfg``'s arch: ``tokens`` (``make_prompts``),
+    or for an ``embed_stub`` arch ``embeds`` (batch, prompt_len, d)
+    normal; plus, for a cross-attention arch, ``image_embeds`` (batch,
+    ``cfg.n_patches``, d) normal.  f32, from a generator seeded with
+    ``seed``."""
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    if cfg.frontend == "embed_stub":
+        out["embeds"] = torch.randn((batch, prompt_len, cfg.d_model),
+                                    generator=gen, device=device)
+    else:
+        out["tokens"] = make_prompts(cfg, batch, prompt_len, device, seed)
+    if "cross_attn" in cfg.block_pattern:
+        out["image_embeds"] = torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                          generator=gen, device=device)
+    return out
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -94,24 +131,36 @@ def percentiles(step_ms):
 
 
 @torch.inference_mode()
-def generate(lm: LM, prompts: torch.Tensor, new_tokens: int,
+def generate(lm: LM, prompts, new_tokens: int,
              head: LMHeadIndex = None) -> dict:
-    """Prefill ``prompts`` (B, S), then ``new_tokens`` greedy decode steps.
+    """Prefill ``prompts`` (token ids (B, S), or a ``make_inputs`` batch),
+    then ``new_tokens`` greedy decode steps.
 
-    ``head``: None for the full head, or an ``LMHeadIndex`` whose
-    shortlist picks every emitted token, the first one (from the
-    prompt's last position) included.  Returns the tokens
-    (B, new_tokens + 1), the prefill seconds, the per-step ms, the
-    prompt's last hidden state (B, d), and with the full head the first
-    decode step's logits (B, V) and whether every logit was finite (one
-    flag kept on the device, read once at the end; None with ``head``,
-    which makes no logits)."""
-    device = prompts.device
-    b, s = prompts.shape
+    An ``embed_stub`` model's decode steps take embeddings: zeros at the
+    first, then a normal (B, 1, d) from a generator seeded with
+    ``DECODE_EMBED_SEED``, drawn between steps; ``image_embeds`` go with
+    every step.  ``head``: None for the full head, or an ``LMHeadIndex``
+    whose shortlist picks every emitted token, the first one (from the
+    prompt's last position) included.  Returns the tokens (B, new_tokens + 1), the prefill
+    seconds, the per-step ms, the prompt's last hidden state (B, d), and
+    with the full head the first decode step's logits (B, V) and whether
+    every logit was finite (one flag kept on the device, read once at
+    the end; None with ``head``, which makes no logits)."""
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    x = batch.get("tokens", batch.get("embeds"))
+    device = x.device
+    b, s = x.shape[:2]
+    stub = lm.cfg.frontend == "embed_stub"
+    extra = ({"image_embeds": batch["image_embeds"]}
+             if "image_embeds" in batch else {})
+    gen = (torch.Generator(device=device).manual_seed(DECODE_EMBED_SEED)
+           if stub else None)
+    emb = (torch.zeros((b, 1, lm.cfg.d_model), device=device) if stub
+           else None)
     cache = lm.init_cache(b, s + new_tokens)
     _sync(device)
     t0 = time.perf_counter()
-    h, cache = lm.prefill({"tokens": prompts}, cache)
+    h, cache = lm.prefill(batch, cache)
     last_hidden = h[:, -1]
     finite = None
     if head is None:
@@ -124,9 +173,12 @@ def generate(lm: LM, prompts: torch.Tensor, new_tokens: int,
     prefill_s = time.perf_counter() - t0
     tokens, step_ms, first_logits = [tok], [], None
     for t in range(new_tokens):
-        step = {"tokens": tok,
-                "positions": torch.full((b, 1), s + t, dtype=torch.int32,
-                                        device=device)}
+        step = {"positions": torch.full((b, 1), s + t, dtype=torch.int32,
+                                        device=device), **extra}
+        if stub:
+            step["embeds"] = emb
+        else:
+            step["tokens"] = tok
         t0 = time.perf_counter()
         if head is None:
             logits, cache = lm.decode_step(step, cache)
@@ -139,6 +191,9 @@ def generate(lm: LM, prompts: torch.Tensor, new_tokens: int,
             finite &= torch.isfinite(logits).all()
             if t == 0:
                 first_logits = logits[:, 0]
+        if stub:
+            emb = torch.randn((b, 1, lm.cfg.d_model), generator=gen,
+                              device=device)
         tokens.append(tok)
     return {"tokens": torch.cat(tokens, dim=1), "prefill_s": prefill_s,
             "step_ms": step_ms, "last_hidden": last_hidden,
@@ -168,13 +223,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--head", default="full", choices=["full", "lsh"],
                     help="full: O(V) logits matmul per token; lsh: "
                          "LSH-shortlisted argmax over probed candidates")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="run the config's first N layers (a multiple of "
+                         "its block pattern), e.g. a large arch at full "
+                         "width on one card")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (plain PyTorch)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
     t0 = time.perf_counter()
-    cfg, lm = load_model(args.arch, args.size, device=device)
+    cfg, lm = load_model(args.arch, args.size, device=device,
+                         layers=args.layers)
     _sync(device)
     init_s = time.perf_counter() - t0
     print(f"[{cfg.name}] init {init_s:.2f}s on {device}")
@@ -185,9 +245,9 @@ def main(argv=None) -> dict:
               f"{head.index.n_tables} tables, shortlist "
               f"{shortlist_size(head.scfg)}/{cfg.vocab} candidates/token, "
               f"index build {build_s:.2f}s")
-    prompts = make_prompts(cfg, args.batch, args.prompt_len, device)
+    prompts = make_inputs(cfg, args.batch, args.prompt_len, device)
     out = generate(lm, prompts, args.new_tokens, head)
-    b, s = prompts.shape
+    b, s = args.batch, args.prompt_len
     print(f"[{cfg.name}] prefill {b}x{s}: {out['prefill_s']:.2f}s")
     if args.new_tokens:
         p10, p50 = percentiles(out["step_ms"])

@@ -934,3 +934,84 @@ def test_serve_lsh_head_on_the_card(card, capsys):
     toks = out["tokens"]
     assert toks.shape == (2, 5) and toks.is_cuda
     assert bool(((toks >= 0) & (toks < 128)).all())
+
+
+# the attention shapes of the archs that run the flash kernels beside
+# phi4-mini's: (Hkv, G, D) of zamba2's shared block and musicgen, qwen3,
+# llama4 and llama-3.2-vision
+NEW_ARCH_HEADS = [(32, 1, 64), (4, 16, 64), (8, 5, 128), (8, 8, 128)]
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=2 ** -6, atol=1e-4)}
+
+
+@pytest.mark.parametrize("hkv,g,d", NEW_ARCH_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_new_arch_heads(card, hkv, g, d, dtype):
+    """flash_attention (causal, S 300: ragged tiles) and flash_decode
+    (mixed kv_len over a 520-row cache) against their plain versions at
+    the new archs' head shapes, one launch each."""
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, decode_ref, flash_attention_cuda, flash_decode_cuda)
+
+    gen = torch.Generator(device=card).manual_seed(hkv * g + d)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    q, k, v = randn(2, hkv, g, 300, d), randn(2, hkv, 300, d), randn(
+        2, hkv, 300, d)
+    before = dict(launches)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v).float(),
+                               **FLASH_TOL[dtype])
+    q, k, v = randn(4, hkv, g, d), randn(4, hkv, 520, d), randn(4, hkv, 520,
+                                                               d)
+    kv_len = torch.tensor([1, 77, 512, 520], dtype=torch.int32, device=card)
+    got = flash_decode_cuda(q, k, v, kv_len)
+    torch.testing.assert_close(got.float(),
+                               decode_ref(q, k, v, kv_len).float(),
+                               **FLASH_TOL[dtype])
+    assert launches["flash_attention"] == before["flash_attention"] + 1
+    assert launches["flash_decode"] == before["flash_decode"] + 1
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1_2b", "xlstm_350m",
+                                  "musicgen_large", "qwen3_moe_235b_a22b",
+                                  "llama4_maverick_400b_a17b",
+                                  "llama_3_2_vision_90b"])
+def test_other_archs_card_match_cpu(card, arch):
+    """Each new SMOKE arch (f32) with the same weights: prefill of 2 x 20
+    then 3 teacher-forced decode steps, the card (kernels) against the
+    CPU (plain versions), logits within 1e-4; the flash kernels ran once
+    a self-attention layer a call."""
+    from repro_torch import configs, serve
+    from repro_torch.models import LM
+
+    cfg = configs.get_smoke(arch).with_(attn_impl="pallas")
+    lm_cpu = LM.init(cfg, seed=0, device="cpu")
+    lm_gpu = LM(cfg, device=card)
+    lm_gpu.load_state_dict(lm_cpu.state_dict())
+    batch = serve.make_inputs(cfg, 2, 23, "cpu", seed=1)
+    out = {}
+    before = dict(launches)
+    for name, lm in (("cpu", lm_cpu), ("cuda", lm_gpu)):
+        dev = lm.device
+        full = {k: v.to(dev) for k, v in batch.items()}
+        prompt = {k: v if k == "image_embeds" else v[:, :20]
+                  for k, v in full.items()}
+        cache = lm.init_cache(2, 23)
+        h, cache = lm.prefill(prompt, cache)
+        got = [lm.embed_group.lm_logits(h[:, -1:])[:, 0]]
+        for i in range(20, 23):
+            step = {k: v if k == "image_embeds" else v[:, i:i + 1]
+                    for k, v in full.items()}
+            step["positions"] = torch.full((2, 1), i, device=dev)
+            lg, cache = lm.decode_step(step, cache)
+            got.append(lg[:, 0])
+        out[name] = torch.stack(got).cpu()
+    n_attn = sum(k in ("attn", "cross_attn", "shared_attn")
+                 for k in lm_gpu.kinds)
+    assert launches["flash_attention"] == before["flash_attention"] + n_attn
+    assert launches["flash_decode"] == before["flash_decode"] + 3 * n_attn
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)

@@ -2,19 +2,27 @@
 
 The reference's parameters (``init_params``) are carried into the port
 with ``repro_torch.convert.lm_params_from_numpy``; inputs are numpy
-token ids from a seed.  Tolerances:
+token ids (or, for musicgen, frame embeddings) from a seed, with image
+embeddings of 8 patches for llama-3.2-vision, as tests/test_models.py
+makes them.  Tolerances:
   * layers (rms_norm, rope, mlp): rtol = atol = 1e-5, f32 — the same
     arithmetic in another summation order;
-  * ``logits`` of the four dense SMOKE archs: 2e-4, f32 through two
-    layers and a 128-way head;
+  * ``logits`` of the ten SMOKE archs: 2e-4, f32 through two to eight
+    layers and a 64- or 128-way head;
   * prefill + teacher-forced decode steps: 2e-3, the reference's own
-    decode-vs-forward tolerance (tests/test_models.py).
+    decode-vs-forward tolerance (tests/test_models.py);
+  * gradients of ``loss`` (autograd against ``jax.grad``): each leaf's
+    relative L2 distance at most 1e-4.
 The reference's ``"pallas"`` path needs a TPU, so it runs ``"ref"``;
 the port runs ``"pallas"`` (the plain version on a CPU tensor), ``"ref"``
 and ``"chunked"``.
 """
 
+import contextlib
 import dataclasses
+import io
+import json
+import os
 import re
 
 import jax
@@ -29,18 +37,29 @@ from repro.models import decode_step as j_decode_step
 from repro.models import init_cache as j_init_cache
 from repro.models import init_params as j_init_params
 from repro.models import logits as j_logits
+from repro.models import loss as j_loss
 from repro.models import prefill as j_prefill
 from repro.models.layers import mlp as j_mlp
 from repro.models.layers import rms_norm as j_rms_norm
 from repro.models.layers import rope as j_rope
 from repro_torch import configs, serve
-from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+from repro_torch.convert import (
+    lm_params_from_numpy, lm_params_to_numpy, lm_tree_to_numpy)
 from repro_torch.kernels import launches
+from repro_torch.launch import train as launch_train
 from repro_torch.models import LM
 from repro_torch.models.layers import MLP, rms_norm, rope
+from repro_torch.optim import Adam
+from repro_torch.train import Trainer, TrainerConfig
+from repro_torch.train import checkpoint as ckpt
 
-ARCHS = ["phi4_mini_3_8b", "granite_3_8b", "starcoder2_15b",
+DENSE = ["phi4_mini_3_8b", "granite_3_8b", "starcoder2_15b",
          "nemotron_4_15b"]
+# the mixers, MoE, shared attention and the two frontends
+OTHER = ["zamba2_1_2b", "xlstm_350m", "musicgen_large",
+         "qwen3_moe_235b_a22b", "llama4_maverick_400b_a17b",
+         "llama_3_2_vision_90b"]
+ARCHS = DENSE + OTHER
 LAYER = dict(rtol=1e-5, atol=1e-5)
 LOGITS = dict(rtol=2e-4, atol=2e-4)
 DECODE = dict(rtol=2e-3, atol=2e-3)
@@ -49,6 +68,43 @@ KEY = jax.random.PRNGKey(0)
 
 def _tokens(seed, vocab, b, s):
     return np.random.default_rng(seed).integers(0, vocab, (b, s))
+
+
+def _batch(cfg, seed, b, s):
+    """numpy model inputs of ``cfg``: ``tokens``, or ``embeds`` for an
+    embed_stub arch; ``image_embeds`` (B, 8, d) for a cross-attention
+    arch; ``targets``."""
+    rng = np.random.default_rng(seed)
+    out = {"targets": rng.integers(0, cfg.vocab, (b, s))}
+    if cfg.frontend == "embed_stub":
+        out["embeds"] = rng.standard_normal((b, s, cfg.d_model)).astype(
+            np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab, (b, s))
+    if "cross_attn" in cfg.block_pattern:
+        out["image_embeds"] = rng.standard_normal(
+            (b, 8, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _step(batch, i, extra):
+    """Decode input at position i: its token or embedding, and the
+    image embeddings; ``extra`` builds positions."""
+    out = {k: batch[k][:, i:i + 1] for k in ("tokens", "embeds")
+           if k in batch}
+    if "image_embeds" in batch:
+        out["image_embeds"] = batch["image_embeds"]
+    out.update(extra)
+    return out
+
+
+def _inputs(batch):
+    """The model inputs of ``_batch`` (targets dropped)."""
+    return {k: v for k, v in batch.items() if k != "targets"}
+
+
+def _torch(batch):
+    return {k: t(v) for k, v in batch.items()}
 
 
 class TestLayers:
@@ -138,45 +194,101 @@ class TestLM:
     @pytest.mark.parametrize("arch", ARCHS)
     def test_logits_match_reference(self, reference, arch):
         jcfg, params = reference[arch]
-        toks = _tokens(1, jcfg.vocab, 2, 17)
-        want = np.asarray(j_logits(params, jcfg, {"tokens": toks}))
+        batch = _inputs(_batch(jcfg, 1, 2, 17))
+        want = np.asarray(j_logits(params, jcfg, batch))
         before = dict(launches)
         for impl in ("pallas", "ref", "chunked"):
             lm = _port(reference, arch, impl)
             with torch.no_grad():
-                got = lm.logits({"tokens": t(toks)})
+                got = lm.logits(_torch(batch))
             assert got.shape == (2, 17, jcfg.vocab)
             np.testing.assert_allclose(n(got), want, err_msg=impl, **LOGITS)
         assert launches == before
 
     @pytest.mark.parametrize("arch", ARCHS)
     def test_prefill_decode_match_reference(self, reference, arch):
-        """prefill(12 tokens) + 4 teacher-forced decode steps, in both."""
+        """prefill(12 positions) + 4 teacher-forced decode steps, in both."""
         jcfg, params = reference[arch]
         b, s0, steps = 2, 12, 4
-        toks = _tokens(2, jcfg.vocab, b, s0 + steps)
+        batch = _inputs(_batch(jcfg, 2, b, s0 + steps))
+        prompt = {k: (v if k == "image_embeds" else v[:, :s0])
+                  for k, v in batch.items()}
         jcache = j_init_cache(jcfg, b, 32)
-        _, jcache = j_prefill(params, jcfg, {"tokens": toks[:, :s0]}, jcache)
+        _, jcache = j_prefill(params, jcfg, prompt, jcache)
         want = []
         for i in range(steps):
-            step = {"tokens": toks[:, s0 + i:s0 + i + 1],
-                    "positions": jnp.full((b, 1), s0 + i, jnp.int32)}
+            step = _step(batch, s0 + i,
+                         {"positions": jnp.full((b, 1), s0 + i, jnp.int32)})
             lg, jcache = j_decode_step(params, jcfg, step, jcache)
             want.append(np.asarray(lg[:, 0]))
         for impl in ("pallas", "ref", "chunked"):
             lm = _port(reference, arch, impl)
             cache = lm.init_cache(b, 32)
-            _, cache = lm.prefill({"tokens": t(toks[:, :s0])}, cache)
-            assert cache[0]["len"].tolist() == [s0] * b
+            _, cache = lm.prefill(_torch(prompt), cache)
+            attn = [c for c in cache if "len" in c]
+            assert all(c["len"].tolist() == [s0] * b for c in attn)
             for i in range(steps):
-                step = {"tokens": t(toks[:, s0 + i:s0 + i + 1]),
-                        "positions": torch.full((b, 1), s0 + i,
-                                                dtype=torch.int32)}
+                step = _step(_torch(batch), s0 + i, {
+                    "positions": torch.full((b, 1), s0 + i,
+                                            dtype=torch.int32)})
                 lg, cache = lm.decode_step(step, cache)
                 np.testing.assert_allclose(n(lg[:, 0]), want[i],
                                            err_msg=f"{impl} step {i}",
                                            **DECODE)
-            assert cache[-1]["len"].tolist() == [s0 + steps] * b
+            assert all(c["len"].tolist() == [s0 + steps] * b for c in attn)
+            assert len(attn) == sum(k in ("attn", "cross_attn",
+                                          "shared_attn")
+                                    for k in lm.kinds)
+
+    def test_cross_attn_without_image_embeds(self, reference):
+        """The reference's quirk: with no ``image_embeds`` a cross_attn
+        block attends over its own input, with RoPE, non-causally, on
+        ``cfg.attn_impl``; prefill and one decode step too."""
+        jcfg, params = reference["llama_3_2_vision_90b"]
+        toks = _tokens(6, jcfg.vocab, 2, 13)
+        want = np.asarray(j_logits(params, jcfg, {"tokens": toks}))
+        jcache = j_init_cache(jcfg, 2, 16)
+        _, jcache = j_prefill(params, jcfg, {"tokens": toks[:, :12]}, jcache)
+        want_step, _ = j_decode_step(params, jcfg, {
+            "tokens": toks[:, 12:], "positions": jnp.full((2, 1), 12,
+                                                          jnp.int32)}, jcache)
+        for impl in ("pallas", "chunked"):
+            lm = _port(reference, "llama_3_2_vision_90b", impl)
+            with torch.no_grad():
+                got = lm.logits({"tokens": t(toks)})
+            np.testing.assert_allclose(n(got), want, err_msg=impl, **LOGITS)
+            cache = lm.init_cache(2, 16)
+            lm.prefill({"tokens": t(toks[:, :12])}, cache)
+            lg, _ = lm.decode_step({"tokens": t(toks[:, 12:]),
+                                    "positions": torch.full((2, 1), 12)},
+                                   cache)
+            np.testing.assert_allclose(n(lg), np.asarray(want_step),
+                                       err_msg=impl, **DECODE)
+
+    @pytest.mark.parametrize("arch", OTHER)
+    def test_loss_gradients_match_reference(self, reference, arch):
+        """``LM.loss`` through autograd (remat on) against
+        ``jax.grad(repro.models.loss)``: the loss within 1e-5, each
+        parameter leaf's gradient within 1e-4 relative L2."""
+        jcfg, params = reference[arch]
+        batch = _batch(jcfg, 5, 2, 16)
+        want_loss, want = jax.jit(jax.value_and_grad(
+            lambda p, bt: j_loss(p, jcfg, bt)))(params, batch)
+        lm = _port(reference, arch, "chunked")
+        loss = lm.loss(_torch(batch))
+        loss.backward()
+        np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+        # musicgen's embedding table feeds nothing (embed_stub): no grad
+        got = lm_tree_to_numpy(
+            {k: torch.zeros_like(p) if p.grad is None else p.grad
+             for k, p in lm.named_parameters()}, lm.cfg)
+        flat_w = jax.tree_util.tree_leaves_with_path(want)
+        flat_g = jax.tree_util.tree_leaves_with_path(got)
+        assert [p for p, _ in flat_w] == [p for p, _ in flat_g]
+        for (path, w), (_, g) in zip(flat_w, flat_g):
+            w = np.asarray(w, np.float64)
+            dist = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30)
+            assert dist <= 1e-4, (jax.tree_util.keystr(path), dist)
 
     @pytest.mark.parametrize("impl", ["pallas", "chunked"])
     def test_decode_matches_forward(self, impl):
@@ -227,14 +339,71 @@ class TestLM:
             assert torch.equal(pa, pb)
         assert not torch.equal(a.embed_group.embed, c.embed_group.embed)
 
-    @pytest.mark.parametrize("arch", ["zamba2_1_2b", "qwen3_moe_235b_a22b",
-                                      "llama_3_2_vision_90b",
-                                      "musicgen_large"])
-    def test_unported_archs_name_the_roadmap(self, arch):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            configs.get_smoke(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            LM(jconfigs.get_smoke(arch), device="cpu")
+    def test_unknown_block_kind_raises(self):
+        """A block kind neither package knows raises ValueError in both."""
+        cfg = configs.get_smoke("phi4_mini_3_8b").with_(
+            block_pattern=("attn", "conv"))
+        with pytest.raises(ValueError, match="conv"):
+            LM(cfg, device="cpu")
+        with pytest.raises(ValueError):
+            j_init_params(KEY, jconfigs.get_smoke("phi4_mini_3_8b").with_(
+                block_pattern=("attn", "conv")))
+
+    def test_shared_block_round_trip(self, reference):
+        """zamba2 SMOKE: the shared block is one module, once in
+        ``named_parameters()``, and ``convert`` gives the reference's tree
+        back leaf for leaf, ``shared`` and the None slot included."""
+        _, params = reference["zamba2_1_2b"]
+        lm = _port(reference, "zamba2_1_2b", "ref")
+        names = [k for k, _ in lm.named_parameters()]
+        assert sum(k.startswith("shared.") for k in names) == len(
+            list(lm.shared.parameters()))
+        assert not any(".attn." in k for k in names
+                       if k.startswith("blocks."))
+        back = lm_params_to_numpy(lm)
+        assert back["blocks"][3] is None and params["blocks"][3] is None
+        assert (jax.tree_util.tree_structure(back)
+                == jax.tree_util.tree_structure(params))
+        for (path, a), (_, b) in zip(
+                jax.tree_util.tree_leaves_with_path(params),
+                jax.tree_util.tree_leaves_with_path(back)):
+            np.testing.assert_array_equal(np.asarray(a), b, err_msg=str(path))
+
+    def test_shared_block_checkpoint_written_once(self, tmp_path):
+        """A zamba2 SMOKE trainer's checkpoint holds the shared block's
+        leaves once (under ``shared.``), and a resumed trainer restores
+        every parameter bitwise and trains on."""
+        cfg = configs.get_smoke("zamba2_1_2b")
+
+        def trainer(resume):
+            lm = LM.init(cfg, seed=1, device="cpu")
+            _, batches = launch_train.make_batches(
+                cfg, lm, lgd=False, batch=2, seq=16, corpus=32,
+                device="cpu")
+            return Trainer(cfg, lm, Adam(lr=1e-3), batches,
+                           TrainerConfig(ckpt_dir=str(tmp_path),
+                                         ckpt_every=100, log_every=100),
+                           resume=resume)
+
+        a = trainer(False)
+        a.run(2)
+        a.save()
+        a.finalize()
+        manifest = json.load(open(os.path.join(
+            tmp_path, "step_00000002", "manifest.json")))
+        paths = [leaf["path"] for leaf in manifest["leaves"]]
+        wq = [p for p in paths if p.endswith("attn.wq")]
+        assert wq == ["params/shared.attn.wq",
+                      "opt_state/m/shared.attn.wq",
+                      "opt_state/v/shared.attn.wq"], wq
+        assert ckpt.verify(str(tmp_path), 2)[0]
+        b = trainer(True)
+        assert b.step == 2
+        for (k, pa), (_, pb) in zip(a.params.named_parameters(),
+                                    b.params.named_parameters()):
+            assert torch.equal(pa, pb), k
+        out = b.run(1)
+        assert np.isfinite(out["losses"]).all()
 
 
 class TestServe:
@@ -281,3 +450,87 @@ class TestServe:
         toks = out["tokens"]
         assert toks.shape == (2, 5) and out["finite"] is None
         assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+
+    @pytest.mark.parametrize("arch", ["zamba2_1_2b", "musicgen_large",
+                                      "llama_3_2_vision_90b"])
+    def test_other_archs_on_cpu(self, capsys, arch):
+        """``serve --device cpu`` at SMOKE for the Mamba-2 / shared
+        attention hybrid, the embed_stub frontend (prompt embeddings,
+        then zeros and fresh normals as decode inputs) and the
+        cross-attention arch (image embeddings at prefill and at every
+        step)."""
+        out = serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                          "--prompt-len", "16", "--new-tokens", "4"])
+        text = capsys.readouterr().out
+        name = configs.get_smoke(arch).name
+        assert re.search(rf"\[{name}\] prefill 2x16: [\d.]+s", text), text
+        assert "decoded 4 tokens/seq" in text
+        assert out["tokens"].shape == (2, 5) and out["finite"]
+
+    def test_lsh_head_on_cpu_zamba2(self, capsys):
+        out = serve.main(["--arch", "zamba2_1_2b", "--device", "cpu",
+                          "--head", "lsh", "--batch", "2", "--prompt-len",
+                          "16", "--new-tokens", "4"])
+        text = capsys.readouterr().out
+        assert "decode head=lsh" in text and "head=lsh: 128 rows" in text
+        toks = out["tokens"]
+        assert toks.shape == (2, 5) and bool(((toks >= 0)
+                                              & (toks < 128)).all())
+
+    @pytest.mark.parametrize("arch", ["zamba2_1_2b", "xlstm_350m"])
+    def test_greedy_tokens_follow_the_logits_of_the_mixers(self, arch):
+        """Through carried mixer states: the generated tokens are the
+        argmax of a teacher-forced forward over the generated sequence."""
+        cfg, lm = serve.load_model(arch, device="cpu", seed=1)
+        prompts = serve.make_prompts(cfg, 2, 9, "cpu", seed=2)
+        out = serve.generate(lm, prompts, 3)
+        seq = torch.cat([prompts, out["tokens"]], dim=1)
+        with torch.no_grad():
+            full = lm.logits({"tokens": seq[:, :-1]})
+        np.testing.assert_array_equal(n(full[:, 8:].argmax(-1)),
+                                      n(out["tokens"]))
+
+    def test_embed_stub_decode_inputs(self):
+        """musicgen's decode inputs: zeros at the first step, then a
+        normal from the seeded generator each step; the cache positions
+        advance as with tokens."""
+        cfg, lm = serve.load_model("musicgen_large", device="cpu", seed=1)
+        batch = serve.make_inputs(cfg, 2, 6, "cpu", seed=3)
+        assert set(batch) == {"embeds"} and batch["embeds"].shape == (
+            2, 6, cfg.d_model)
+        a = serve.generate(lm, batch, 3)
+        b = serve.generate(lm, batch, 3)
+        assert torch.equal(a["tokens"], b["tokens"])
+        gen = torch.Generator().manual_seed(serve.DECODE_EMBED_SEED)
+        embeds = [batch["embeds"], torch.zeros(2, 1, cfg.d_model)] + [
+            torch.randn((2, 1, cfg.d_model), generator=gen)
+            for _ in range(2)]
+        with torch.no_grad():
+            full = lm.logits({"embeds": torch.cat(embeds, dim=1)})
+        np.testing.assert_array_equal(n(full[:, 5:].argmax(-1)),
+                                      n(a["tokens"]))
+
+
+class TestLauncher:
+    """``python -m repro_torch.launch.train`` on the new archs at SMOKE."""
+
+    def _run(self, *args):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = launch_train.main([*args, "--device", "cpu"])
+        return res, out.getvalue()
+
+    def test_zamba2_lgd(self):
+        res, text = self._run("--arch", "zamba2_1_2b", "--lgd", "--steps",
+                              "3")
+        assert "zamba2-smoke" in text and len(res["losses"]) == 3
+        assert np.isfinite(res["losses"]).all()
+
+    def test_qwen3_moe(self):
+        res, text = self._run("--arch", "qwen3_moe_235b_a22b", "--steps", "3")
+        assert "qwen3-moe-smoke" in text and len(res["losses"]) == 3
+        assert np.isfinite(res["losses"]).all()
+
+    def test_embed_stub_refused(self):
+        with pytest.raises(SystemExit, match="takes precomputed embeddings"):
+            self._run("--arch", "musicgen_large", "--steps", "1")
