@@ -79,18 +79,19 @@ The LM training slice adds:
       draws and queries;
   4c. the train path at full width: phi4-mini FULL in bf16, batch 8 x
       512 tokens from a 2,048-example corpus, Adam, 20 LGD steps with an
-      async refresh (launched at step 9, swapped in at step 10; another
-      launched at step 19 and joined at teardown), through the functions
+      async refresh (launched at step 9, swapped in at step 10; a step
+      hook then stops the schedule, so none is launched at step 19 to be
+      joined at teardown), through the functions
       ``python -m repro_torch.launch.train --arch phi4_mini_3_8b --full
       --lgd`` calls, with the launch counts set to 0 just before and
-      read just after (draw_assemble 20, bucket_probe >= 20, simhash 3;
+      read just after (draw_assemble 20, bucket_probe >= 20, simhash 2;
       the standalone gather_weight, held in 2c, is off the path); every
       refresh returned True with no health transition; the refreshes'
       device ms and host wait, the boundary steps beside the steady p50;
       then the probe and simhash kernels against their plain versions at
       the train path's shapes (d 3,072, K 7, L 10, N 2,048), timed, the
       simhash row with phase 2's plan, ptxas, yardstick and checks;
-  5c. a torch.profiler trace of 5 steady training steps.
+  5c. a torch.profiler trace of 2 steady training steps.
 4c and 5c run last, after the serve model of 4b/5b is freed: the train
 state (bf16 weights and grads, f32 Adam moments) takes ~53 GB.
 
@@ -211,6 +212,45 @@ shared attention, the embed_stub frontend) adds:
       peak memory, layers run of the config's.  Each arch is freed
       before the next is built.
 
+The sharded slice (shard-by-example LGD on one card) and training the
+other archs add:
+  3h. a small-input check of ``ShardedLSHPipeline`` at S = 4 on
+      ``train_lm``'s demo preset (``sharded_card_vs_cpu``): the card's
+      pipeline on the CPU's projections and indexes, 5 batches with the
+      same draws and query: ids, tokens, targets and shard_ids bitwise,
+      weights within rtol 1e-5, 4 probes and 4 draw_assembles a step;
+      on the card, owners [0, 1] + [2, 3] composing bitwise into full
+      ownership, adopt_shards([2, 3], 5) drawing what full ownership
+      draws, two rebuild_sharded_pipeline calls onto S 2 alike;
+  3i. every arch ``launch.train`` takes (musicgen, embed_stub, it
+      refuses), SMOKE (f32), 3 steps card vs CPU from the same weights
+      on the same uniform batches (``train_archs_card_vs_cpu``): losses
+      within SMOKE_TRAIN_RTOL, every parameter within 1e-4 (relative L2);
+  4i. the other archs trained at full width on LGD batches (srp, K 7, L
+      10, 8 x 512 tokens, async refresh; a corpus of 512 rows), 10 steps
+      with one refresh at step 5 (``train_arch_full_width``): zamba2 and
+      xlstm whole with Adam, qwen3 at 2 of 94 layers and
+      llama-3.2-vision at 5 of 100 with Adafactor (the reference
+      dryrun's choice for its giant archs); llama4's one layer is held
+      against the card's memory first and, needing 94.5 GB, not run: its
+      arithmetic is printed.  Checked: launches (draw_assemble and
+      bucket_probe 10, simhash 2), the refresh swapped in healthy,
+      losses finite, batch-mean weights 1 +- 1e-5.  Reported: build s,
+      step p10 / p50, the refresh's device span, peak memory, a profiled
+      step by kind, and the backward of the chunked core and of the MoE
+      FFN traced alone (``mixer_backwards``);
+  4h. 4c's recipe through a ``ShardedLSHPipeline`` of 4 shards, after 4f,
+      from 4c's seed-0 weights again (``sharded_full_width``): 12 steps,
+      a refresh at
+      step 10, exactly 4 probes and 4 draw_assembles a step and 4
+      simhash a build and a refresh; each shard's build and refresh
+      device span, step p10 / p50 beside 4c's single-index p50, peak
+      memory, the batch-mean weight and fallback share per shard and
+      composed; a checkpoint of the weights at step 10, restored, and
+      one rebuild_sharded_pipeline onto S 2 timed with its
+      rescale_plan(4, 2, 8).
+Each phase prints the second it starts at.
+
 Imports torch, numpy and repro_torch only.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
 result.  The last line is the JSON result; the lines before it carry
@@ -328,6 +368,27 @@ KERNEL_VS_REF_LIMIT = {
     # state fails the run.
     "zamba2_1_2b": 2 ** -5,
 }
+
+# the sharded slice (phases 3h, 4h): S per-shard indexes in one process.
+# 4h: 4c's recipe with S 4 (2 rows and 512 corpus rows a shard), 12 steps
+# and a refresh at step 10, a checkpoint of the weights at step 10, then
+# one rebuild onto RESHARD shards
+SHARDS, SHARD_STEPS, SHARD_REFRESH, RESHARD = 4, 12, 10, 2
+# training the other archs (phases 3i, 4i).  3i: SMOKE, 3 steps card vs
+# CPU; 4i: full width, LGD batches (srp, K 7, L 10, 8 x 512 tokens, async
+# refresh), ARCH_STEPS steps with one refresh at step ARCH_REFRESH, from a
+# corpus of ARCH_CORPUS rows (the launcher's 2,048 cut to bound the index
+# build); the layers each trains (a whole number of its block pattern;
+# None: all)
+ARCH_STEPS, ARCH_REFRESH, ARCH_CORPUS = 10, 5, 512
+TRAIN_ARCHS = {"zamba2_1_2b": None, "xlstm_350m": None,
+               "qwen3_moe_235b_a22b": 2, "llama_3_2_vision_90b": 5,
+               "llama4_maverick_400b_a17b": 1}
+# src/repro/launch/dryrun.py:56-64 (GIANT_ARCHS, pick_optimizer): the
+# archs whose optimiser state must be factored to fit train with
+# Adafactor(lr=1e-2); the others with the launcher's Adam
+GIANT_ARCHS = {"qwen3_moe_235b_a22b", "llama4_maverick_400b_a17b",
+               "llama_3_2_vision_90b"}
 
 
 # device-time classes of a trace, by substrings of the kernel's name
@@ -1694,8 +1755,589 @@ def serve_arch_full_width(torch, dev, kernels, serve, LM, arch: str,
     return res, kept
 
 
+def pick_optimizer(arch: str):
+    """The optimiser of ``arch``'s training run: Adafactor(lr=1e-2) for
+    the giant archs (``src/repro/launch/dryrun.py:56-64``), else None:
+    the launcher's Adam under warmup_cosine."""
+    from repro_torch.optim import Adafactor
+    return Adafactor(lr=1e-2) if arch in GIANT_ARCHS else None
+
+
+def sharded_card_vs_cpu(torch, np, dev) -> dict:
+    """Phase 3h: shard-by-example LGD at S = SHARDS on ``train_lm``'s
+    smallest preset (demo, f32), the same weights on the card and the CPU.
+
+    (a) The card's pipeline on the CPU's projections, each shard's index
+    bitwise the CPU's (or, where a code flips at a near-zero projection,
+    the CPU's index, as 3c), 5 batches with the same injected draws and
+    the CPU model's query: tokens, targets, ids and shard_ids bitwise,
+    weights within rtol 1e-5 (3d's); SHARDS probes and SHARDS
+    draw_assembles a step on the card.  On the card alone, raw weights:
+    (b) owners of shards [0, 1] and [2, 3] compose bitwise into full
+    ownership over 5 steps; (c) adopt_shards([2, 3], 5) on the [0, 1]
+    owner draws bitwise what full ownership draws for 5 more; (d) two
+    rebuild_sharded_pipeline calls onto RESHARD shards at step 5 draw
+    bitwise alike for 5 steps."""
+    from repro_torch import kernels, train_lm
+    from repro_torch.core import LSHIndex, draw_samples, hash_points
+    from repro_torch.data import (
+        LSHPipelineConfig, ShardedLSHPipeline, lm_head_query_fn,
+        make_token_corpus, mean_pool_feature_fn)
+    from repro_torch.models import LM
+    from repro_torch.train.elastic import rebuild_sharded_pipeline
+
+    preset = train_lm.PRESETS["demo"]
+    cfg = train_lm.preset_config("demo")
+    lm_c = LM.init(cfg, seed=0, device="cpu")
+    lm_g = LM(cfg, device=dev)
+    lm_g.load_state_dict(lm_c.state_dict())
+    toks = make_token_corpus(1, preset["corpus"], preset["seq"], cfg.vocab,
+                             hard_frac=0.1).tokens
+    m = preset["batch"]
+    pcfg = dict(k=cfg.lgd_k, l=cfg.lgd_l, minibatch=m,
+                refresh_every=cfg.lgd_refresh_every, refresh_async=True)
+
+    def pipe(params, device, **kw):
+        c = dict(pcfg, **{k: kw.pop(k) for k in list(kw)
+                          if k in ("normalize_weights",)})
+        return ShardedLSHPipeline(
+            2, toks, mean_pool_feature_fn(cfg), lm_head_query_fn(),
+            LSHPipelineConfig(**c), n_shards=SHARDS, params=params,
+            device=device, **kw)
+
+    out = {"flips": 0, "weight_max_rel_diff": 0.0}
+    cpu = pipe(lm_c, "cpu")
+    kernels.reset_launch_counts()
+    gpu = pipe(lm_g, dev, projections=[
+        p.index.projections.to(dev) for p in cpu.shards])
+    if kernels.launches["simhash"] != SHARDS:
+        fail(f"3h: {kernels.launches['simhash']} simhash launches for "
+             f"{SHARDS} shard builds")
+    for s, (pc, pg) in enumerate(zip(cpu.shards, gpu.shards)):
+        fc, proj, lsh = pc.features, pc.index.projections, pc.lsh
+        out["feature_max_abs_diff"] = max(out.get(
+            "feature_max_abs_diff", 0.0), float((pg.features.cpu() - fc)
+                                                .abs().max()))
+        near = ((fc @ proj).abs() < 1e-4).reshape(-1, lsh.l, lsh.k).any(-1).T
+        diff = hash_points(fc, proj, lsh) != hash_points(
+            pg.features, proj.to(dev), lsh).cpu()
+        if bool((diff & ~near).any()):
+            fail(f"3h shard {s}: codes on the card differ away from zero")
+        flips = int(diff.sum())
+        out["flips"] += flips
+        if flips == 0:
+            if not (torch.equal(pg.index.sorted_codes.cpu(),
+                                pc.index.sorted_codes)
+                    and torch.equal(pg.index.order.cpu(), pc.index.order)):
+                fail(f"3h shard {s}: the index on the card differs")
+        else:
+            pg.features = fc.to(dev)
+            pg.index = LSHIndex(*(x.to(dev) for x in pc.index))
+    gd = torch.Generator().manual_seed(4)
+    kernels.reset_launch_counts()
+    for step in range(5):
+        drs = [draw_samples(gd, (m // SHARDS,), max(2 * p.lsh.l, 8),
+                            p.lsh.l, p.n, "cpu") for p in cpu.shards]
+        q = cpu.shards[0]._query()
+        bc = cpu.next_batch(query=q, draws=drs)
+        bg = gpu.next_batch(query=q.to(dev), draws=[d.to(dev) for d in drs])
+        for kk in ("tokens", "targets", "example_ids", "shard_ids"):
+            if not torch.equal(bg[kk].cpu(), bc[kk]):
+                fail(f"3h step {step}: batch {kk} on the card differ")
+        wc, wg = bc["loss_weights"], bg["loss_weights"].cpu()
+        out["weight_max_rel_diff"] = max(out["weight_max_rel_diff"], float(
+            ((wg - wc).abs() / wc).max()))
+        if not torch.allclose(wg, wc, rtol=1e-5, atol=0):
+            fail(f"3h step {step}: weights on the card differ: "
+                 f"{out['weight_max_rel_diff']:.3g} relative")
+    ran = {kk: kernels.launches[kk] for kk in ("bucket_probe",
+                                               "draw_assemble")}
+    if ran != {"bucket_probe": 5 * SHARDS, "draw_assemble": 5 * SHARDS}:
+        fail(f"3h: the card's launches {ran}, expected {5 * SHARDS} each")
+    out["launches"] = ran
+    del cpu, gpu
+
+    def same(a, b, what):
+        for kk in ("tokens", "targets", "example_ids", "shard_ids",
+                   "loss_weights"):
+            if not torch.equal(a[kk], b[kk]):
+                fail(f"3h {what}: {kk} differ")
+
+    def cat(parts):
+        return {kk: torch.cat([p[kk] for p in parts]) for kk in parts[0]}
+
+    full = pipe(lm_g, dev, normalize_weights=False)
+    lo = pipe(lm_g, dev, normalize_weights=False, owned_shards=[0, 1])
+    hi = pipe(lm_g, dev, normalize_weights=False, owned_shards=[2, 3])
+    for step in range(5):
+        same(full.next_batch(), cat([lo.next_batch(), hi.next_batch()]),
+             f"owners [0, 1] + [2, 3] vs full ownership, step {step}")
+    lo.adopt_shards([2, 3], step=5)
+    for step in range(5, 10):
+        same(full.next_batch(), lo.next_batch(),
+             f"adopt_shards([2, 3], 5) vs full ownership, step {step}")
+    del full, lo, hi
+    runs = []
+    for _ in range(2):
+        re_ = rebuild_sharded_pipeline(
+            2, toks, mean_pool_feature_fn(cfg), lm_head_query_fn(),
+            LSHPipelineConfig(**pcfg), step=5, n_shards=RESHARD,
+            params=lm_g, device=dev)
+        runs.append([re_.next_batch() for _ in range(5)])
+    for step, (a, b) in enumerate(zip(*runs)):
+        same(a, b, f"two rebuilds onto S {RESHARD}, step {5 + step}")
+    out.update(preset="demo", shards=SHARDS, rows=toks.shape[0],
+               checked=["card vs CPU, 5 steps", "owners [0, 1] + [2, 3] = "
+                        "full, 5 steps", "adopt_shards([2, 3], 5) = full, 5 "
+                        "steps", f"two rebuilds onto S {RESHARD}, 5 steps"])
+    return out
+
+
+def train_archs_card_vs_cpu(torch, dev, configs, launch_train, LM) -> dict:
+    """Phase 3i: every arch ``launch.train`` trains (an embed_stub arch
+    it refuses) at its SMOKE config (f32), the same weights on the card
+    and the CPU, 3 trainer steps on the same uniform batches (4 x 32
+    tokens) with the optimiser of 4i (Adam; Adafactor for the giant
+    archs): losses within SMOKE_TRAIN_RTOL, and every updated parameter
+    within 1e-4 of the CPU's in relative L2 distance."""
+    from repro_torch.data import make_token_corpus, uniform_batches
+    from repro_torch.train import TrainerConfig
+
+    out = {}
+    for arch in configs.all_archs():
+        cfg = configs.get_smoke(arch)
+        if cfg.frontend == "embed_stub":
+            continue
+        lm_c = LM.init(cfg, seed=0, device="cpu")
+        lm_g = LM(cfg, device=dev)
+        lm_g.load_state_dict(lm_c.state_dict())
+        data = make_token_corpus(0, 64, 32, cfg.vocab)
+        losses = {}
+        for where, lm in (("cpu", lm_c), ("cuda", lm_g)):
+            tr = launch_train.make_trainer(
+                cfg, lm, steps=3, lr=1e-3, optimizer=pick_optimizer(arch),
+                batches=uniform_batches(data, 4, seed=1, device=lm.device),
+                tcfg=TrainerConfig(log_every=10 ** 9))
+            losses[where] = tr.run(3)["losses"]
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                          losses["cpu"]))
+        sd_c = lm_c.state_dict()
+        p_err, p_abs = 0.0, 0.0
+        for name, g in lm_g.state_dict().items():
+            c, g = sd_c[name].double(), g.cpu().double()
+            p_err = max(p_err, float((g - c).norm() / max(float(c.norm()),
+                                                          1e-30)))
+            p_abs = max(p_abs, float((g - c).abs().max()))
+        if not all(map(math.isfinite, losses["cuda"])) or \
+                l_err > SMOKE_TRAIN_RTOL or p_err > 1e-4:
+            fail(f"3i {cfg.name}: 3 steps on the card differ from the CPU's: "
+                 f"losses {losses}, params {p_err:.3g} relative")
+        out[arch] = dict(optimizer=("adafactor" if arch in GIANT_ARCHS
+                                    else "adam"),
+                         losses_cpu=losses["cpu"], losses_cuda=losses["cuda"],
+                         loss_max_rel_diff=l_err, param_max_rel_l2=p_err,
+                         param_max_abs_diff=p_abs)
+        print(f"small-input check train {cfg.name} " + json.dumps(out[arch]),
+              flush=True)
+    return out
+
+
+def train_memory_gb(LM, cfg, giant: bool) -> dict:
+    """The least memory a training step of ``cfg`` holds, from its
+    parameter shapes (a model on the meta device): weights, gradients,
+    the optimiser's slots (Adam: two f32 moments; Adafactor: f32 row and
+    column factors) and the clip's f32 copy of the largest gradient leaf.
+    Activations come on top."""
+    params = list(LM(cfg, device="meta").parameters())
+    w = sum(p.numel() * p.element_size() for p in params)
+    if giant:
+        opt = sum(4 * ((math.prod(p.shape[:-1])
+                        + math.prod(p.shape[:-2]) * p.shape[-1])
+                       if p.dim() >= 2 else p.numel()) for p in params)
+    else:
+        opt = sum(8 * p.numel() for p in params)
+    clip = 4 * max(p.numel() for p in params)
+    return dict(weights_gb=w / 1e9, grads_gb=w / 1e9, optimizer_gb=opt / 1e9,
+                clip_copy_gb=clip / 1e9, total_gb=(2 * w + opt + clip) / 1e9)
+
+
+def backward_trace(torch, fn, inputs, module=None, reps: int = 3) -> dict:
+    """The device time of the backward of ``fn(*inputs)`` alone: the
+    forward runs outside the trace on leaf copies of ``inputs``, then
+    ``reps`` backwards of one random cotangent through the retained
+    graph are traced.  ``module``'s parameter gradients are dropped
+    after."""
+    leaves = [x.detach().clone().requires_grad_(x.is_floating_point())
+              for x in inputs]
+    y = fn(*leaves)
+    gy = torch.randn_like(y)
+    res = trace_steps(torch, lambda: torch.autograd.backward(
+        y, gy, retain_graph=True), reps)
+    if module is not None:
+        for p in module.parameters():
+            p.grad = None
+    del y, gy, leaves
+    return {"shape": [list(x.shape) for x in inputs],
+            "device_ms": res.get("device_ms_per_step"),
+            "by_kind_ms": res.get("device_summed_ms_per_step_by_kind"),
+            "ops": res.get("device_ops_per_step")}
+
+
+def mixer_backwards(torch, cfg, model) -> dict:
+    """4i: the backward of the chunked core (``models/ssm.py``:
+    ``gla_chunked``, and the sLSTM's ``slstm_scan``) and of the MoE FFN
+    with its dispatch (``models/moe.py``), each traced alone at the
+    training step's shapes (B 8, S 512) on the first layer that runs it,
+    with the calls a step makes."""
+    from repro_torch.models import ssm
+
+    out = {}
+    g = torch.Generator(device=model.device).manual_seed(11)
+    x = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=g,
+                     device=model.device) * 0.5).to(model.dtype)
+    kinds = model.kinds
+    for kind, attr in (("mamba2", "mamba"), ("mlstm", "mlstm")):
+        if kind in kinds:
+            mixer = getattr(model._layer(kinds.index(kind)), attr)
+            with torch.no_grad():
+                q, k, v, log_a = mixer._project(x)[:4]
+            row = backward_trace(
+                torch, lambda q_, k_, v_, la_: ssm.gla_chunked(
+                    q_, k_, v_, la_, cfg.chunk)[0], (q, k, v, log_a))
+            out[f"ssm.gla_chunked backward ({kind})"] = dict(
+                row, calls_per_step=kinds.count(kind))
+    if "slstm" in kinds:
+        mixer = model._layer(kinds.index("slstm")).slstm
+        with torch.no_grad():
+            z, i, f, o = torch.chunk((mixer.norm(x) @ mixer.in_proj).float(),
+                                     4, dim=-1)
+        state = ssm.init_slstm_state(cfg, TRAIN_BATCH, model.device)
+        row = backward_trace(torch, lambda *a: ssm.slstm_scan(
+            *a, state)[0], (z, i, f, o))
+        out["ssm.slstm_scan backward"] = dict(
+            row, calls_per_step=kinds.count("slstm"))
+    if cfg.is_moe:
+        moe = model._layer(0).ffn
+        row = backward_trace(torch, moe, (x,), module=moe)
+        out["moe.MoE backward (dispatch, experts, combine)"] = dict(
+            row, calls_per_step=sum(model._layer(i).ffn is not None
+                                    for i in range(len(kinds))))
+    return out
+
+
+def train_arch_full_width(torch, np, dev, kernels, configs, launch_train, LM,
+                          arch: str, layers) -> dict:
+    """Phase 4i for one arch: ``arch`` at full width (its first ``layers``
+    layers, or all), bf16, trained on LGD batches as the launcher builds
+    them (srp, K 7, L 10, batch 8 x 512 tokens, async refresh) from a
+    corpus of ARCH_CORPUS rows, ARCH_STEPS steps, one refresh at step
+    ARCH_REFRESH (the schedule is switched off after it), with Adam or,
+    for a giant arch, Adafactor.  Before the model is built, the least
+    memory of a step (``train_memory_gb``) is held against the card's:
+    an arch that cannot fit is not run and its arithmetic is reported.
+    Checked: launches (draw_assemble and bucket_probe once a step,
+    simhash at the build and the refresh), the refresh swapped in with no
+    health transition, every loss finite, every batch-mean weight 1 +-
+    1e-5.  Reported: build s, step p10 / p50, the refresh's device span,
+    peak memory, one profiled step by kind, and ``mixer_backwards``."""
+    from repro_torch.train import TrainerConfig
+
+    torch.cuda.synchronize()
+    gc.collect()                   # the previous arch's state, cycles too
+    torch.cuda.empty_cache()
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = cfg.with_(n_layers=layers)
+    giant = arch in GIANT_ARCHS
+    mem = train_memory_gb(LM, cfg, giant)
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    res = dict(arch=cfg.name, layers=cfg.n_layers,
+               of_layers=configs.get(arch).n_layers,
+               optimizer="adafactor" if giant else "adam", memory=mem,
+               card_gb=card_gb)
+    if mem["total_gb"] >= card_gb:
+        res["run"] = False
+        print(f"train-4i {cfg.name}: not run: a step holds at least "
+              f"{mem['weights_gb']:.2f} GB of bf16 weights + "
+              f"{mem['grads_gb']:.2f} GB of gradients + "
+              f"{mem['optimizer_gb']:.2f} GB of optimiser slots + "
+              f"{mem['clip_copy_gb']:.2f} GB (the clip's f32 copy of the "
+              f"largest gradient leaf) = {mem['total_gb']:.2f} GB, beyond "
+              f"the card's {card_gb:.2f} GB before any activation",
+              flush=True)
+        return res
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = LM.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler, _ = launch_train.make_batches(
+        cfg, model, lgd=True, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        corpus=ARCH_CORPUS, device=dev, refresh_every=ARCH_REFRESH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    w_means, next_batch = [], sampler.next_batch
+
+    def kept_batch(*a, **kw):
+        b = next_batch(*a, **kw)
+        w_means.append(b["loss_weights"].mean())
+        return b
+
+    def one_refresh(tr):
+        if tr.step == ARCH_REFRESH + 1:     # after the swap at step 5
+            for c in (sampler.cfg, sampler.shards[0].cfg):
+                c.refresh_every = 0
+
+    sampler.next_batch = kept_batch
+    tr = launch_train.make_trainer(
+        cfg, model, steps=ARCH_STEPS, lr=1e-3, sampler=sampler,
+        optimizer=pick_optimizer(arch),
+        tcfg=TrainerConfig(log_every=10, step_hook=one_refresh))
+    starts, train_step = [], tr.train_step
+
+    def timed_step(batch):
+        starts.append(time.perf_counter())
+        return train_step(batch)
+
+    tr.train_step = timed_step
+    losses = tr.run(ARCH_STEPS)["losses"]
+    torch.cuda.synchronize()
+    starts.append(time.perf_counter())
+    del tr.train_step
+    used = {kk: kernels.launches[kk] for kk in (
+        "simhash", "bucket_probe", "draw_assemble", "flash_attention")}
+    if used["draw_assemble"] != ARCH_STEPS or \
+            used["bucket_probe"] != ARCH_STEPS or used["simhash"] != 2:
+        fail(f"4i {cfg.name}: launches {used}: expected draw_assemble and "
+             f"bucket_probe {ARCH_STEPS}, simhash 2 (the build, the refresh)")
+    recs = refresh_health(sampler, f"4i {cfg.name}", 1)
+    if len(losses) != ARCH_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"4i {cfg.name}: losses {losses}")
+    w_mean = torch.stack(w_means).float().cpu()
+    if not torch.allclose(w_mean, torch.ones_like(w_mean), rtol=0,
+                          atol=1e-5):
+        fail(f"4i {cfg.name}: batch-mean weights are not 1: {w_mean}")
+    dts = [(b_ - a_) * 1e3 for a_, b_ in zip(starts, starts[1:])]
+    # iteration k trains step k and draws batch k + 1: the refresh
+    # launches in iteration ARCH_REFRESH - 2 and is swapped in the next
+    boundary = (ARCH_REFRESH - 2, ARCH_REFRESH - 1)
+    steady = [d_ for i_, d_ in enumerate(dts) if i_ not in boundary]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sampler.next_batch = next_batch
+    tr.batches = iter(sampler.next_batch, None)
+    res.update(
+        run=True, params=sum(p.numel() for p in model.parameters()),
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, corpus=ARCH_CORPUS,
+        steps=ARCH_STEPS, feature_batch=sampler.feature_batch,
+        init_s=init_s, build_s=build_s,
+        build_device_s=sampler.build_device_ms()[0] / 1e3,
+        refresh_device_s=[r["device_ms"] / 1e3 for r in recs
+                          if "device_ms" in r],
+        refresh_wait_s=[r["wait_s"] for r in recs],
+        boundary_step_ms={i_: dts[i_] for i_ in boundary},
+        step_ms_p10=float(np.percentile(steady, 10)),
+        step_ms_p50=float(np.percentile(steady, 50)), step_ms_all=dts,
+        peak_mem_gb=peak_gb, losses=losses,
+        weight_mean_max_dev=float((w_mean - 1).abs().max()),
+        fallback_rate=sampler.sampler_stats()["fallback_rate"],
+        launches=used)
+    res["profile_step"] = trace_steps(torch, lambda: tr.run(1), 1)
+    res["backward"] = mixer_backwards(torch, cfg, model)
+    tr.finalize()
+    # every reference to the model goes: the next arch needs the memory
+    del tr, train_step, timed_step, kept_batch, one_refresh, next_batch
+    del sampler, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_full_width(torch, np, dev, kernels, cfg_f, model, launch_train,
+                       single_p50: float) -> dict:
+    """Phase 4h: 4c's recipe (phi4-mini FULL, bf16, batch 8 x 512,
+    corpus 2,048, Adam, K 7, L 10, srp, async refresh) through a
+    ``ShardedLSHPipeline`` of SHARDS shards, built by the launcher's
+    ``make_batches``: SHARD_STEPS steps with a refresh at step
+    SHARD_REFRESH, the counts set to 0 just before the build and read
+    after the run (bucket_probe and draw_assemble SHARDS a step, simhash
+    SHARDS a build and a refresh); every shard's refresh swapped in with
+    no health transition; losses finite; composed batch-mean weights 1
+    +- 1e-5 and shard_ids in shard order.  A step hook checkpoints the
+    weights at step SHARD_REFRESH; after the run the checkpoint is
+    restored into the model (``restore_latest_valid_on_mesh``) and one
+    ``rebuild_sharded_pipeline`` onto RESHARD shards is timed, with
+    ``rescale_plan(SHARDS, RESHARD, batch)``; the rebuilt pipeline (its
+    refresh schedule off) draws one batch with mean weight 1."""
+    import shutil
+    import tempfile
+    from repro_torch.data import (
+        LSHPipelineConfig, lm_head_query_fn, make_token_corpus,
+        mean_pool_feature_fn)
+    from repro_torch.train import TrainerConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.elastic import (
+        rebuild_sharded_pipeline, rescale_plan, restore_latest_valid_on_mesh)
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sampler, _ = launch_train.make_batches(
+        cfg_f, model, lgd=True, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        corpus=TRAIN_CORPUS, device=dev, refresh_every=SHARD_REFRESH,
+        n_shards=SHARDS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m_s = TRAIN_BATCH // SHARDS
+    want_ids = torch.arange(SHARDS, dtype=torch.int32,
+                            device=dev).repeat_interleave(m_s)
+    w_means, w_shard, shard_ids = [], [], []
+    next_batch = sampler.next_batch
+
+    def kept_batch(*a, **kw):         # device tensors only: no host sync
+        b = next_batch(*a, **kw)
+        w_means.append(b["loss_weights"].mean())
+        w_shard.append(b["loss_weights"].view(SHARDS, m_s).mean(1))
+        shard_ids.append(b["shard_ids"])
+        return b
+
+    sampler.next_batch = kept_batch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4h_")
+    need = sum(p.numel() * p.element_size() for p in model.parameters())
+    free = shutil.disk_usage(tmp).free
+    if free < need * 1.05:
+        fail(f"4h: the disk under {tmp} has {free / 1e9:.2f} GB free, too "
+             f"small for the {need / 1e9:.2f} GB checkpoint of the weights")
+    saved = {}
+
+    def checkpoint(tr):
+        if tr.step == SHARD_REFRESH:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ckpt.save(tmp, tr.step, {"params": tr.named_params},
+                      extra={"step": tr.step, "n_shards": SHARDS})
+            saved["save_s"] = time.perf_counter() - t1
+
+    tr = launch_train.make_trainer(
+        cfg_f, model, steps=SHARD_STEPS, lr=1e-3, sampler=sampler,
+        tcfg=TrainerConfig(log_every=10, step_hook=checkpoint))
+    starts, train_step = [], tr.train_step
+
+    def timed_step(batch):
+        starts.append(time.perf_counter())
+        return train_step(batch)
+
+    tr.train_step = timed_step
+    out = tr.run(SHARD_STEPS)
+    starts.append(time.perf_counter())
+    del tr.train_step
+    tr.finalize()
+    torch.cuda.synchronize()
+    used = {kk: kernels.launches[kk] for kk in (
+        "simhash", "bucket_probe", "draw_assemble")}
+    want = {"simhash": 2 * SHARDS, "bucket_probe": SHARDS * SHARD_STEPS,
+            "draw_assemble": SHARDS * SHARD_STEPS}
+    if used != want:
+        fail(f"4h: launches {used}, expected {want} (a probe and a "
+             f"draw_assemble a shard a step; a simhash a shard a build and "
+             f"a refresh)")
+    recs = refresh_health(sampler, "4h", SHARDS)
+    losses = out["losses"]
+    if len(losses) != SHARD_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"4h: losses {losses}")
+    w_mean = torch.stack(w_means).float().cpu()
+    ids_ok = all(torch.equal(x, want_ids) for x in shard_ids)
+    if not torch.allclose(w_mean, torch.ones_like(w_mean), rtol=0,
+                          atol=1e-5) or not ids_ok:
+        fail(f"4h: composed batch-mean weights {w_mean} (must be 1), "
+             f"shard_ids in shard order: {ids_ok}")
+    w_shard = torch.stack(w_shard).float().cpu()
+    dts = [(b_ - a_) * 1e3 for a_, b_ in zip(starts, starts[1:])]
+    # the refresh launches in iteration SHARD_REFRESH - 2 and is swapped
+    # (and the weights checkpointed) in the next
+    boundary = (SHARD_REFRESH - 2, SHARD_REFRESH - 1)
+    steady = [d_ for i_, d_ in enumerate(dts) if i_ not in boundary]
+    res = dict(
+        arch=cfg_f.name, shards=SHARDS, batch=TRAIN_BATCH,
+        rows_per_shard=m_s, corpus=TRAIN_CORPUS,
+        corpus_per_shard=[p.n for p in sampler.shards], steps=SHARD_STEPS,
+        build_s=build_s,
+        shard_build_device_s=[ms / 1e3 for ms in sampler.build_device_ms()],
+        shard_refresh_device_s={r["shard"]: r["device_ms"] / 1e3
+                                for r in recs if "device_ms" in r},
+        refresh_wait_s=sum(r["wait_s"] for r in recs),
+        boundary_step_ms={i_: dts[i_] for i_ in boundary},
+        step_ms_p10=float(np.percentile(steady, 10)),
+        step_ms_p50=float(np.percentile(steady, 50)),
+        single_index_step_ms_p50_4c=single_p50, step_ms_all=dts,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        weight_mean_composed_max_dev=float((w_mean - 1).abs().max()),
+        weight_mean_per_shard=w_shard.mean(0).tolist(),
+        weight_mean_per_shard_range=[float(w_shard.min()),
+                                     float(w_shard.max())],
+        fallback_rate_per_shard=[p.sampler_stats()["fallback_rate"]
+                                 for p in sampler.shards],
+        fallback_rate_composed=sampler.sampler_stats()["fallback_rate"],
+        losses=losses, launches=used, checkpoint_save_s=saved.get("save_s"))
+    names = tr.named_params
+    feature_batch = sampler.feature_batch
+    sampler.next_batch = next_batch
+    del tr, train_step, timed_step, kept_batch, sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, _, extra = restore_latest_valid_on_mesh(tmp, {"params": names},
+                                                  in_place=True)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != SHARD_REFRESH or extra.get("n_shards") != SHARDS:
+        fail(f"4h: restored step {step}, extra {extra}")
+    plan = rescale_plan(SHARDS, RESHARD, TRAIN_BATCH)
+    print("4h rescale_plan " + json.dumps(plan), flush=True)
+    tokens = make_token_corpus(0, TRAIN_CORPUS, TRAIN_SEQ, cfg_f.vocab).tokens
+    # the launcher's config with the refresh schedule off: the rebuilt
+    # pipeline draws one batch, at step 10, a refresh boundary
+    pcfg = LSHPipelineConfig(minibatch=TRAIN_BATCH, refresh_every=0,
+                             refresh_async=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    re_ = rebuild_sharded_pipeline(
+        2, tokens, mean_pool_feature_fn(cfg_f), lm_head_query_fn(), pcfg,
+        step=step, n_shards=RESHARD, params=model,
+        feature_batch=feature_batch, device=dev)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    b = re_.next_batch()
+    wm = float(b["loss_weights"].mean())
+    if [p._step for p in re_.shards] != [step + 1] * RESHARD or \
+            abs(wm - 1.0) > 1e-5 or b["shard_ids"].tolist() != sorted(
+                b["shard_ids"].tolist()):
+        fail(f"4h: the rebuilt pipeline at step {step}: mean weight {wm}, "
+             f"shard_ids {b['shard_ids'].tolist()}")
+    res.update(restore_s=restore_s, rescale_plan=plan, rebuild_s=rebuild_s,
+               rebuild_shard_build_device_s=[
+                   ms / 1e3 for ms in re_.build_device_ms()],
+               rebuild_corpus_per_shard=[p.n for p in re_.shards],
+               rebuild_weight_mean=wm)
+    del re_, b
+    shutil.rmtree(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     t_script = time.perf_counter()
+
+    def stamp(phase: str):
+        print(f"phase {phase} starts at "
+              f"{time.perf_counter() - t_script:.1f} s", flush=True)
     try:
         import torch
     except ImportError:
@@ -1740,7 +2382,7 @@ def main() -> int:
             gather_weight_cuda, gather_weight_ref)
         from repro_torch.launch import train as launch_train
         from repro_torch.optim import Adam, schedules
-        from repro_torch.train import Trainer
+        from repro_torch.train import Trainer, TrainerConfig
     except ImportError as e:
         fail(f"the repro_torch package is not beside this script: {e}")
 
@@ -1762,6 +2404,7 @@ def main() -> int:
               "profile": {}}
 
     # -- 1. build ---------------------------------------------------------
+    stamp("1")
     t0 = time.perf_counter()
     build.build_all()
     report["build_s"] = time.perf_counter() - t0
@@ -1819,6 +2462,7 @@ def main() -> int:
                     repeat_bitwise=True, probe_identity_rows=16)
 
     # -- 2. kernels against their plain versions, slice shapes --------------
+    stamp("2")
     gen = torch.Generator(device=dev).manual_seed(0)
     ds = make_regression(gen, "yearmsd-like", n_train=N_TRAIN, d=90,
                          noise="pareto", device=dev)
@@ -1989,6 +2633,7 @@ def main() -> int:
     del idx_lin, idx_q, sc, w
 
     # -- 2b. flash kernels against their plain versions, serve shapes -------
+    stamp("2b")
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     ga = torch.Generator(device=dev).manual_seed(5)
@@ -2163,6 +2808,7 @@ def main() -> int:
         fail(f"the bf16 decode kernel spills: {dec[0]}")
 
     # -- 2g. the flash kernels at the other archs' head shapes -------------
+    stamp("2g")
     report["flash_rows_2g"] = {}
     for label, (hkv, group, d_head) in NEW_HEADS.items():
         rows = flash_rows(hkv, group, d_head, NEW_CACHE_LENS)
@@ -2192,6 +2838,7 @@ def main() -> int:
         fail(f"D 64 flash instantiations spill: {spilled}")
 
     # -- 2c. gather_weight against its plain version, train shapes ---------
+    stamp("2c")
     report["gather_rows"] = []
     gg = torch.Generator(device=dev).manual_seed(7)
     for n_rows, m in ((TRAIN_CORPUS, TRAIN_BATCH), (N_TRAIN, 512)):
@@ -2258,6 +2905,7 @@ def main() -> int:
         print("simhash-delta " + json.dumps(row), flush=True)
 
     # -- 2d. draw_assemble against the plain composition -------------------
+    stamp("2d")
     report["draw_rows"] = []
     gd = torch.Generator(device=dev).manual_seed(9)
     draw_use = {fn: u for fn, u in build.ptxas_usage(
@@ -2441,6 +3089,7 @@ def main() -> int:
         library_ms=None)
 
     # -- 2e. draw_assemble's band mode against the plain composition -------
+    stamp("2e")
     from repro_torch.core import band_starts, bucket_bounds_banded, \
         query_codes
     from repro_torch.core.families import get_family
@@ -2548,6 +3197,7 @@ def main() -> int:
           flush=True)
 
     # -- 3. small input: the card against the CPU's plain path --------------
+    stamp("3")
     gcpu = torch.Generator().manual_seed(1)
     small = make_regression(gcpu, n_train=2000, n_test=10, d=90,
                             device="cpu")
@@ -2612,6 +3262,7 @@ def main() -> int:
               f"{float((th_g - th_c).abs().max()):.3g}", flush=True)
 
     # -- 3b. small input: the serve model on the card against the CPU ------
+    stamp("3b")
     # f32 logits of a 2-layer model whose attention, matmuls and softmax
     # sum in another order on the card: rtol = atol = 1e-4
     cfg_s = configs.get_smoke(SERVE_ARCH).with_(attn_impl="pallas")
@@ -2647,11 +3298,13 @@ def main() -> int:
           f"steps, logits max |diff| card vs CPU {err:.3g}", flush=True)
 
     # -- 3g. small input: the other archs on the card against the CPU ------
+    stamp("3g")
     report["small_3g"] = {
         arch: other_arch_card_vs_cpu(torch, dev, kernels, configs, serve, LM,
                                      arch) for arch in NEW_ARCHS}
 
     # -- 3e. small input: the LSH head on the card against the CPU ---------
+    stamp("3e")
     from repro_torch.models import LMHeadIndex, lsh_decode_step
     from repro_torch.models.sampled_softmax import (
         lsh_head_tokens, shortlist_candidates, shortlist_logits)
@@ -2739,6 +3392,7 @@ def main() -> int:
     del lm_c, lm_g, head_c, head_g
 
     # -- 3c. small input: LGD training on the card against the CPU ---------
+    stamp("3c")
     cfg_t = configs.get_smoke(SERVE_ARCH)                 # f32
     lm_c = LM.init(cfg_t, seed=0, device="cpu")
     lm_g = LM(cfg_t, device=dev)
@@ -2818,17 +3472,31 @@ def main() -> int:
     del lm_c, lm_g, pipes, trainers
 
     # -- 3d. small input: the streaming pipeline on the card against the CPU
+    stamp("3d")
     report["smoke_stream"] = streaming_card_vs_cpu(torch, np, dev, cfg_t)
     print("small-input check stream " + json.dumps(report["smoke_stream"]),
           flush=True)
 
     # -- 3f. small input: the training stack on the card against the CPU --
+    stamp("3f")
     report["smoke_train_stack"] = training_stack_card_vs_cpu(
         torch, np, dev, cfg_t)
     print("small-input check train-stack " + json.dumps(
         report["smoke_train_stack"]), flush=True)
 
+    # -- 3h. small input: the sharded pipeline on the card against the CPU
+    stamp("3h")
+    report["smoke_sharded"] = sharded_card_vs_cpu(torch, np, dev)
+    print("small-input check sharded " + json.dumps(report["smoke_sharded"]),
+          flush=True)
+
+    # -- 3i. small input: training every arch on the card against the CPU
+    stamp("3i")
+    report["smoke_train_archs"] = train_archs_card_vs_cpu(
+        torch, dev, configs, launch_train, LM)
+
     # -- 4. the main path ---------------------------------------------------
+    stamp("4")
     expect = {0: ("simhash", "bucket_probe"), 2: ("simhash",
                                                   "bucket_probe_multi")}
 
@@ -2906,6 +3574,7 @@ def main() -> int:
         report["kernels"][kname]["launches"] = counts[kname]
 
     # -- 4b. the serve path at full width -----------------------------------
+    stamp("4b")
     report["serve"], kept = serve_arch_full_width(
         torch, dev, kernels, serve, LM, SERVE_ARCH, None, steps=SERVE_NEW,
         keep=True)
@@ -2920,6 +3589,7 @@ def main() -> int:
     del kept
 
     # -- 5. where an LGD step's time goes (after the counts are read) -------
+    stamp("5")
     for family in FAMILIES:
         report["profile"][family] = profile_steps(
             torch, family, ds, make_problem, init, lgd_step)
@@ -2927,6 +3597,7 @@ def main() -> int:
               flush=True)
 
     # -- 5b. where a full-width decode step's time goes ---------------------
+    stamp("5b")
     with torch.inference_mode():
         cache = lm_f.init_cache(SERVE_B, SERVE_PROMPT + 30)
         h, cache = lm_f.prefill({"tokens": prompts}, cache)
@@ -2953,6 +3624,7 @@ def main() -> int:
     del cache, h
 
     # -- 4e. the serve path with --head lsh at full width (4b's model) ------
+    stamp("4e")
     report["serve_lsh"] = serve_lsh_full_width(
         torch, np, dev, cfg_f, lm_f, prompts, full_first, report["serve"])
     print("serve-lsh " + json.dumps(report["serve_lsh"]), flush=True)
@@ -2973,6 +3645,7 @@ def main() -> int:
             flush=True)
 
     # -- 4g. the other archs served at full width, one at a time -----------
+    stamp("4g")
     report["serve_4g"] = {}
     for arch, layers in NEW_ARCHS.items():
         report["serve_4g"][arch], _ = serve_arch_full_width(
@@ -2982,7 +3655,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- 4c. the train path at full width -----------------------------------
+    stamp("4c")
     torch.cuda.synchronize()
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -3011,8 +3686,14 @@ def main() -> int:
     # fallback-rate check, and logged every step a run whose query drifts
     # into empty buckets for 3 steps degrades to uniform batches; the
     # loop's iterations are timed from their train_step calls instead
-    tr = launch_train.make_trainer(cfg_f, model, steps=TRAIN_STEPS, lr=1e-3,
-                                   sampler=sampler)
+    def one_refresh(tr_):
+        if tr_.step == TRAIN_REFRESH + 1:     # after the swap at step 10
+            for c in (sampler.cfg, sampler.shards[0].cfg):
+                c.refresh_every = 0
+
+    tr = launch_train.make_trainer(
+        cfg_f, model, steps=TRAIN_STEPS, lr=1e-3, sampler=sampler,
+        tcfg=TrainerConfig(log_every=10, step_hook=one_refresh))
     starts, train_step = [], tr.train_step
 
     def timed_step(batch):
@@ -3024,15 +3705,15 @@ def main() -> int:
     out = tr.run(TRAIN_STEPS)
     starts.append(time.perf_counter())
     del tr.train_step              # no trainer -> wrapper -> trainer cycle
-    tr.finalize()                  # joins the refresh launched at step 19
+    tr.finalize()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     trained = dict(kernels.launches)
     if trained["draw_assemble"] != TRAIN_STEPS or \
-            trained["bucket_probe"] < TRAIN_STEPS or trained["simhash"] != 3:
+            trained["bucket_probe"] < TRAIN_STEPS or trained["simhash"] != 2:
         fail(f"train path launches {trained}: expected draw_assemble "
-             f"{TRAIN_STEPS}, bucket_probe >= {TRAIN_STEPS}, simhash 3 (the "
-             f"build and two refreshes)")
+             f"{TRAIN_STEPS}, bucket_probe >= {TRAIN_STEPS}, simhash 2 (the "
+             f"build and the refresh)")
     recs = refresh_health(sampler, "4c", 1)
     # the standalone gather_weight is off every path (draw_assemble
     # gathers): its count, 0, stands in the table beside phase 2c's row
@@ -3045,11 +3726,10 @@ def main() -> int:
                           atol=1e-5):
         fail(f"train path weights' batch means are not 1: {w_means}")
     dts = [(b_ - a_) * 1e3 for a_, b_ in zip(starts, starts[1:])]
-    # loop iteration k trains step k and draws batch k + 1: the refreshes
-    # launch in iterations 8 and 18, iterations 9 and 19 wait for their
-    # reads before the update, and iteration 9 swaps
-    boundary = (TRAIN_REFRESH - 2, TRAIN_REFRESH - 1, 2 * TRAIN_REFRESH - 2,
-                2 * TRAIN_REFRESH - 1)
+    # loop iteration k trains step k and draws batch k + 1: the refresh
+    # launches in iteration 8, iteration 9 waits for its reads before the
+    # update and swaps
+    boundary = (TRAIN_REFRESH - 2, TRAIN_REFRESH - 1)
     steady = [d_ for i_, d_ in enumerate(dts) if i_ not in boundary]
     report["train"] = dict(
         arch=cfg_f.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -3076,11 +3756,12 @@ def main() -> int:
     # N 2,048): the query probe of every step, the hash of every build
     # and refresh; held against the plain versions and timed (after the
     # counts were read)
-    w_t, sc_t, x_t = (sampler.index.projections, sampler.index.sorted_codes,
-                      sampler.features)
-    k_t, l_t = sampler.lsh.k, sampler.lsh.l
-    (n_t, d_t), lk_t = x_t.shape, sampler.lsh.k * sampler.lsh.l
-    q_t = sampler.family.augment_query(
+    shard = sampler.shards[0]      # the launcher's one shard on one card
+    w_t, sc_t, x_t = (shard.index.projections, shard.index.sorted_codes,
+                      shard.features)
+    k_t, l_t = shard.lsh.k, shard.lsh.l
+    (n_t, d_t), lk_t = x_t.shape, shard.lsh.k * shard.lsh.l
+    q_t = shard.family.augment_query(
         model.lm_head_query().detach())[None].contiguous()
     near_q = ((q_t @ w_t).abs() < 1e-4).reshape(1, l_t, k_t).any(-1)
     got = bucket_probe_cuda(q_t, w_t, sc_t, k=k_t, l=l_t)
@@ -3114,13 +3795,15 @@ def main() -> int:
             lambda: simhash_codes_ref(x_t, w_t, k=k_t, l=l_t), None, 100)))
     for row in report["train_kernels"]:
         print("train-kernel " + json.dumps(row), flush=True)
-    del got, want, near_x
+    del got, want, near_x, shard
 
     # -- 5c. where a full-width training step's time goes -------------------
+    stamp("5c")
     sampler.next_batch = next_batch
-    sampler.cfg.refresh_every = 0          # steady steps: no refresh
+    for c in (sampler.cfg, sampler.shards[0].cfg):   # steady: no refresh
+        c.refresh_every = 0
     tr.batches = iter(sampler.next_batch, None)
-    report["profile"]["train_step"] = trace_steps(torch, lambda: tr.run(1), 5)
+    report["profile"]["train_step"] = trace_steps(torch, lambda: tr.run(1), 2)
     print("profile train/step " + json.dumps(
         report["profile"]["train_step"]), flush=True)
     feature_batch = sampler.feature_batch
@@ -3131,15 +3814,42 @@ def main() -> int:
     gc.collect()
 
     # -- 4d. the streaming path at full width (the same model) --------------
+    stamp("4d")
     report["stream"] = streaming_full_width(torch, np, dev, cfg_f, model,
                                             feature_batch)
     print("stream " + json.dumps(report["stream"]), flush=True)
 
     # -- 4f. the training stack at full width (the same model) --------------
+    stamp("4f")
     report["train_stack"] = training_stack_full_width(
         torch, np, dev, cfg_f, model, sampler, report["train"]["step_ms_p50"])
     print("train-stack " + json.dumps(report["train_stack"]), flush=True)
     del model, sampler
+
+    # -- 4h. shard-by-example LGD at full width (4c's fresh weights) ------
+    stamp("4h")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_f, model = launch_train.load_model(SERVE_ARCH, True, dev)
+    report["sharded"] = sharded_full_width(
+        torch, np, dev, kernels, cfg_f, model, launch_train,
+        report["train"]["step_ms_p50"])
+    print("sharded " + json.dumps(report["sharded"]), flush=True)
+    for kname, n_launch in report["sharded"]["launches"].items():
+        report["kernels"][kname]["launches"] += n_launch
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4i. the other archs trained at full width, one at a time ----------
+    stamp("4i")
+    report["train_4i"] = {}
+    for arch, layers in TRAIN_ARCHS.items():
+        report["train_4i"][arch] = row = train_arch_full_width(
+            torch, np, dev, kernels, configs, launch_train, LM, arch, layers)
+        print("train-4i " + json.dumps(row), flush=True)
+        for kname, n_launch in row.get("launches", {}).items():
+            report["kernels"][kname]["launches"] += n_launch
     print(f"chip_smoke total: {time.perf_counter() - t_script:.1f} s",
           flush=True)
 

@@ -21,9 +21,14 @@ the pipeline emits uniform batches with weight 1 and attempts a full
 canonical rebuild every ``recover_after`` steps.
 
 ``transitions`` records every edge as ``(step, from, to, reason)``,
-surfaced into the trainer's ``metrics_history``.  The cluster-level
-ladder of multi-host runs comes with distribution (ROADMAP.md queue 1
-item 6).
+surfaced into the trainer's ``metrics_history``.
+
+``ClusterHealthMonitor`` is the cluster-level ladder of multi-process
+runs (healthy, missing-host-degraded, reformed), pure bookkeeping like
+``HealthMonitor``.  Its signals come from ``ShardedLSHPipeline.
+adopt_shards`` and ``train.elastic.rebuild_sharded_pipeline`` here; the
+process cluster that detects lost hosts and drives it is ROADMAP.md
+queue 1 item 6b.
 """
 
 from __future__ import annotations
@@ -34,6 +39,11 @@ from typing import List, Tuple
 HEALTHY = "healthy"
 STALE_INDEX = "stale-index"
 UNIFORM_FALLBACK = "uniform-fallback"
+
+# the cluster-level ladder (multi-process runs)
+CLUSTER_HEALTHY = "healthy"
+CLUSTER_DEGRADED = "missing-host-degraded"
+CLUSTER_REFORMED = "reformed"
 
 
 @dataclasses.dataclass
@@ -163,4 +173,76 @@ class HealthMonitor:
             "refresh_failures": self.refresh_failures,
             "recoveries": self.recoveries,
             "transitions": list(self.transitions),
+        }
+
+
+class ClusterHealthMonitor:
+    """The ladder one level up: the MEMBERSHIP of the training cluster.
+
+        healthy ──host loss detected─────────▶ missing-host-degraded
+        missing-host-degraded ──reform done──▶ reformed
+        reformed ──host loss detected────────▶ missing-host-degraded
+
+    MISSING-HOST-DEGRADED: a peer stopped heartbeating.  The survivors
+    keep training and adopt its corpus shard
+    (``ShardedLSHPipeline.adopt_shards``); the shard count and bounds are
+    unchanged, so the composed S/(p·N) weights stay exactly unbiased.
+    REFORMED: the survivors restored the newest verified checkpoint and
+    rebuilt the pipeline on the surviving shard count
+    (``rebuild_sharded_pipeline``), a deterministic state again; kept
+    apart from healthy so ``transitions`` shows the membership history.
+
+    Pure bookkeeping: the cluster owns detection and the reform; this
+    only decides the state.  ``transitions`` records edges as ``(step,
+    from, to, reason)``, ``events`` the incidents that are not edges
+    (adoptions, losses) as ``(step, kind, detail)``.
+    """
+
+    def __init__(self):
+        self.state = CLUSTER_HEALTHY
+        self.lost_hosts: List[int] = []    # lifetime lost ranks
+        self.reforms = 0                   # lifetime completed reforms
+        self.transitions: List[Tuple[int, str, str, str]] = []
+        self.events: List[Tuple[int, str, str]] = []
+
+    def _move(self, step: int, to: str, reason: str):
+        if to == self.state:
+            return
+        self.transitions.append((step, self.state, to, reason))
+        self.state = to
+
+    # -- signals -------------------------------------------------------------
+
+    def note_host_lost(self, step: int, ranks, reason: str = ""):
+        ranks = sorted(int(r) for r in ranks)
+        self.lost_hosts.extend(ranks)
+        detail = f"lost host(s) {ranks}" + (f": {reason}" if reason else "")
+        self.events.append((step, "host-lost", detail))
+        self._move(step, CLUSTER_DEGRADED, detail)
+
+    def note_adopted(self, step: int, shard: int, by_rank: int):
+        """A survivor took over a lost host's shard (not a state edge)."""
+        self.events.append(
+            (step, "shard-adopted",
+             f"shard {shard} adopted by rank {by_rank}"))
+
+    def note_reformed(self, step: int, n_shards: int):
+        self.reforms += 1
+        self._move(step, CLUSTER_REFORMED,
+                   f"reformed on {n_shards} shard(s) from verified "
+                   f"checkpoint at step {step}")
+
+    # -- queries -------------------------------------------------------------
+
+    @property
+    def degraded(self) -> bool:
+        return self.state == CLUSTER_DEGRADED
+
+    def summary(self) -> dict:
+        return {
+            "state": self.state,
+            "lost_hosts": list(self.lost_hosts),
+            "reforms": self.reforms,
+            "transitions": list(self.transitions),
+            "events": list(self.events),
         }

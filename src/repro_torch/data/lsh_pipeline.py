@@ -81,9 +81,13 @@ result at the swap.  Explicit mutations are logged
 the log's membership up to step t and rebuilds the index canonically,
 so two restores at the same step draw bitwise the same batches.
 
-Not ported (ROADMAP.md queue 1): the legacy closure hooks and
-``ShardedLSHPipeline``.  One card is one shard, which is what the
-reference's one-shard ``ShardedLSHPipeline`` computes.
+SHARD-BY-EXAMPLE (``ShardedLSHPipeline``): S per-shard pipelines over
+contiguous corpus shards in one process on one device, each with its own
+stream, composed into one global batch with weights S/(p·N).  The
+placement over several devices and the multi-process protocol are
+ROADMAP.md queue 1 items 6b and 6c.
+
+Not ported: the legacy closure hooks.
 """
 
 from __future__ import annotations
@@ -95,7 +99,7 @@ import logging
 import threading
 import time
 import zlib
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -114,9 +118,20 @@ from repro_torch.core import (
 )
 from repro_torch.core.families import normalize_rows
 from repro_torch.core.sampler import SampleDraws
+from repro_torch.dist.sharding import (
+    compose_sharded_batch,
+    example_shard_bounds,
+    shard_store_device,
+)
 from repro_torch.kernels import resolve_device
 
-from .health import UNIFORM_FALLBACK, HealthConfig, HealthMonitor
+from .health import (
+    HEALTHY,
+    STALE_INDEX,
+    UNIFORM_FALLBACK,
+    HealthConfig,
+    HealthMonitor,
+)
 
 log = logging.getLogger("repro_torch.lgd")
 
@@ -125,6 +140,11 @@ log = logging.getLogger("repro_torch.lgd")
 _SALT_BUILD = 0x0B11D
 _SALT_STEP = 0x057E9
 _SALT_REFRESH = 0x0F5E5
+_SALT_SHARD = 0x054AD      # shard s's pipeline seed, ShardedLSHPipeline
+
+# streaming shards address global example ids by a fixed per-shard stride:
+# gid // _SHARD_STRIDE is the owning shard, gid % _SHARD_STRIDE its slot
+_SHARD_STRIDE = 1 << 20
 
 
 def _stream_seed(seed: int, salt: int, counter: int) -> int:
@@ -321,6 +341,10 @@ class LSHSampledPipeline:
         self._refresh_count = 0
         self._flight: Optional[_Flight] = None
         self._side_stream = None          # the async refresh's CUDA stream
+        # held by the async refresh's worker around its computation: the
+        # pipelines of a ShardedLSHPipeline share one (and one stream),
+        # so their refreshes run one after another
+        self._refresh_lock: Optional[threading.Lock] = None
         self._health_cfg = config.health or HealthConfig()
         self.health = HealthMonitor(self._health_cfg)
         self.fault_injector = None
@@ -343,6 +367,12 @@ class LSHSampledPipeline:
         self._last_fallback = torch.zeros((), device=self.device)
         # the asymmetric family's data scale, pinned at each full build
         self._feat_scale = None
+        # the build's span on the device between CUDA events (on a card)
+        self._build_events = (tuple(torch.cuda.Event(enable_timing=True)
+                                    for _ in range(2))
+                              if self.device.type == "cuda" else None)
+        if self._build_events is not None:
+            self._build_events[0].record()
         self.features = self._compute_features()
         # "srp" is the registry's dense SRP under its LSHParams name
         lsh_family = "dense" if config.family == "srp" else config.family
@@ -354,6 +384,16 @@ class LSHSampledPipeline:
                  IndexMutation("build", generator=self._seeded(_SALT_BUILD, 0),
                                x_aug=self.features, live_mask=self._live_dev))
         self.index = mutate_index(None, build, self.lsh)
+        if self._build_events is not None:
+            self._build_events[1].record()
+
+    def build_device_ms(self) -> Optional[float]:
+        """The construction's embed, hash and sort: its span on the
+        device in ms (None on the CPU).  Syncs on the end event."""
+        if self._build_events is None:
+            return None
+        self._build_events[1].synchronize()
+        return self._build_events[0].elapsed_time(self._build_events[1])
 
     def _seeded(self, salt: int, counter: int) -> torch.Generator:
         return self._gen.manual_seed(_stream_seed(self.seed, salt, counter))
@@ -698,7 +738,8 @@ class LSHSampledPipeline:
             (counter, full_, dirty_, params, feats, index, scale, store,
              live, _) = snap
             try:
-                with self._on_stream(stream):
+                with self._on_stream(stream), \
+                        (self._refresh_lock or contextlib.nullcontext()):
                     if stream is not None:
                         stream.wait_event(launched)
                         # inputs made on the step's stream stay allocated
@@ -1303,6 +1344,389 @@ class LSHSampledPipeline:
             "loss_weights": gb.loss_weights[i],
             "example_ids": gb.example_ids[i],
         } for i in range(c)]
+
+
+class ShardedLSHPipeline:
+    """Shard-by-example LGD: one LSH index per corpus shard, in one
+    process on one device (the reference's single-controller
+    ``ShardedLSHPipeline`` with ``mesh=None``).
+
+    The global corpus (N rows) is split into ``n_shards`` contiguous
+    shards (``example_shard_bounds``); shard s owns an
+    ``LSHSampledPipeline`` over its n_s rows whose seed is a function of
+    (``seed``, s) alone.  Every global batch is the concatenation of
+    equal per-shard sub-batches (``minibatch`` must divide by
+    ``n_shards``): rows [s·m_s, (s+1)·m_s) are shard s's, and
+    ``shard_ids`` says so.
+
+    UNBIASEDNESS: shard s's local weight 1/(p·n_s) is rescaled by
+    n_s·S/N, so w = S/(p·N) and the plain mean over the whole batch is
+    the average of the shards' unbiased estimates of their shard means,
+    an unbiased estimate of the corpus mean for any shard sizes.
+    Streaming: n_s and N are the live counts at the draw.  With
+    ``normalize_weights`` the composed weights are then scaled to mean 1
+    over the global batch.
+
+    Every shard refreshes on the shared schedule.  With
+    ``refresh_async`` the S refreshes share one worker stream and a lock,
+    so they run one after another: on one device that is what the
+    reference's overlapping refreshes amount to, and S refreshes' embed
+    activations never stand at once.  ``before_param_update`` orders
+    every shard's refresh before the in-place update.
+
+    Args:
+      seed: shard s's pipeline seed is ``_stream_seed(seed, _SALT_SHARD,
+        s)``, the counterpart of the reference's ``fold_in(key, s)``.
+      tokens: (N, S+1) GLOBAL corpus.
+      feature_fn / query_fn / config / feature_batch / params / device:
+        as ``LSHSampledPipeline`` (``config.minibatch`` is the GLOBAL
+        batch).
+      n_shards: the number of per-shard indexes.
+      owned_shards: the shard ids this pipeline builds and draws from
+        (default all).  A partial owner's ``next_batch`` is its local
+        slice of the global batch with the GLOBAL weights; partial
+        ownership refuses ``streaming`` (the composition needs every
+        shard's live count) and ``normalize_weights`` (a statistic of the
+        global batch).  ``adopt_shards`` extends ownership.
+      projections: given projections instead of the build streams'
+        draws, indexed by GLOBAL shard id (the parity tests' hook).
+
+    Determinism: shard s's draws depend only on (``seed``, s) and the
+    params history, not on which shards a pipeline owns, so partial
+    owners compose bitwise into full ownership.  A restore onto another
+    ``n_shards`` goes through ``train.elastic.rebuild_sharded_pipeline``.
+    """
+
+    def __init__(
+        self,
+        seed: int,
+        tokens: np.ndarray,
+        feature_fn: Callable,
+        query_fn: Callable,
+        config: LSHPipelineConfig,
+        n_shards: int = 1,
+        feature_batch: int = 512,
+        params: Any = None,
+        owned_shards: Optional[Sequence[int]] = None,
+        device="cuda",
+        projections: Optional[Sequence[torch.Tensor]] = None,
+    ):
+        if config.minibatch % n_shards != 0:
+            raise ValueError(
+                f"minibatch={config.minibatch} must divide by "
+                f"n_shards={n_shards}")
+        if owned_shards is None:
+            owned = list(range(n_shards))
+        else:
+            owned = sorted({int(s) for s in owned_shards})
+            if not owned:
+                raise ValueError("owned_shards must not be empty")
+            bad = [s for s in owned if not 0 <= s < n_shards]
+            if bad:
+                raise ValueError(
+                    f"owned_shards {bad} not in [0, {n_shards})")
+        partial = len(owned) < n_shards
+        if partial and config.streaming:
+            raise ValueError(
+                "owned_shards with streaming=True is unsupported: the "
+                "sharded weight composition needs every shard's LIVE "
+                "count, which a partial owner cannot observe — run "
+                "streaming pipelines with full ownership per process "
+                "group (n_shards == len(owned_shards))")
+        if partial and config.normalize_weights:
+            raise ValueError(
+                "owned_shards with normalize_weights=True is "
+                "unsupported: mean-1 normalisation is a statistic of "
+                "the GLOBAL batch, which a partial owner never sees — "
+                "normalise after the cross-process composition instead")
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.n = tokens.shape[0]
+        self.n_shards = n_shards
+        self.owned = owned
+        self.streaming = config.streaming
+        self.feature_batch = feature_batch
+        # adopt_shards rebuilds shards from the construction corpus
+        self._seed = seed
+        self._tokens = tokens
+        self._feature_fn = feature_fn
+        self._query_fn = query_fn
+        self._projections = projections
+        shard_window = None
+        if config.streaming:
+            if config.window is not None:
+                if config.window % n_shards != 0:
+                    raise ValueError(
+                        f"window={config.window} must divide by "
+                        f"n_shards={n_shards}")
+                shard_window = config.window // n_shards
+            if self.n // n_shards + 1 >= _SHARD_STRIDE:
+                raise ValueError(
+                    f"initial shard size {self.n // n_shards + 1} "
+                    f"exceeds the streaming id stride {_SHARD_STRIDE}")
+        self._shard_cfg = dataclasses.replace(
+            config, minibatch=config.minibatch // n_shards,
+            normalize_weights=False, window=shard_window)
+        # one worker stream and one lock for every shard's async refresh
+        self._refresh_lock = threading.Lock()
+        self._side_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        self.shards: List[LSHSampledPipeline] = [
+            self._make_shard(s, params) for s in self.owned]
+
+    def _make_shard(self, s: int, params: Any) -> LSHSampledPipeline:
+        """Shard ``s``'s pipeline over its contiguous corpus slice, seeded
+        by (seed, s) alone, alike on any owner."""
+        lo, hi = example_shard_bounds(self.n, s, self.n_shards)
+        # streaming shards address global ids by the fixed stride (ids
+        # stay disjoint as windows advance); static shards keep the
+        # contiguous bounds
+        off = s * _SHARD_STRIDE if self.streaming else lo
+        p = LSHSampledPipeline(
+            _stream_seed(self._seed, _SALT_SHARD, s), self._tokens[lo:hi],
+            self._feature_fn, self._query_fn, self._shard_cfg,
+            feature_batch=self.feature_batch, params=params,
+            example_offset=off,
+            device=shard_store_device(self.device, s, self.n_shards),
+            projections=(None if self._projections is None
+                         else self._projections[s]))
+        p._refresh_lock = self._refresh_lock
+        p._side_stream = self._side_stream
+        return p
+
+    def adopt_shards(self, shard_ids: Sequence[int], step: int,
+                     params: Any = None):
+        """Take ownership of more shards (host-loss recovery): build each
+        from the construction corpus with its own seed, embedded from
+        ``params`` (default: the current params), and rewind it to
+        ``step``.  ``n_shards`` and the bounds are unchanged, so the
+        weights keep the exact S/(p·N) form; the adopted index is embedded
+        from the current params, not the lost owner's refresh history,
+        so mid-incident draws are not bit-reproducible (a rebuild from a
+        checkpoint, ``rebuild_sharded_pipeline``, restores that)."""
+        if self.streaming:
+            raise ValueError(
+                "adopt_shards requires a static corpus (streaming "
+                "pipelines run fully-owned per process group)")
+        params = self.params if params is None else params
+        for s in sorted({int(x) for x in shard_ids}):
+            if s in self.owned:
+                raise ValueError(f"shard {s} is already owned")
+            if not 0 <= s < self.n_shards:
+                raise ValueError(
+                    f"shard {s} not in [0, {self.n_shards})")
+            p = self._make_shard(s, params)
+            p.restore_at(step, rebuild=False)
+            pos = int(np.searchsorted(np.asarray(self.owned), s))
+            self.owned.insert(pos, s)
+            self.shards.insert(pos, p)
+
+    @property
+    def params(self):
+        return self.shards[0].params
+
+    def set_params(self, params: Any):
+        for p in self.shards:
+            p.set_params(params)
+
+    def before_param_update(self):
+        """Every shard's in-flight refresh reads the launch-time weights
+        before the in-place update (``LSHSampledPipeline``'s hook)."""
+        for p in self.shards:
+            p.before_param_update()
+
+    def restore_at(self, step: int, rebuild: bool = True):
+        """Rewind every owned shard to ``step`` (``restore_at`` each)."""
+        for p in self.shards:
+            p.restore_at(step, rebuild=rebuild)
+
+    def finalize(self):
+        for p in self.shards:
+            p.finalize()
+
+    def refresh(self, full: Optional[bool] = None):
+        return [p.refresh(full=full) for p in self.shards]
+
+    def refresh_records(self) -> List[dict]:
+        """Every shard's ``refresh_records``, each with its ``shard``."""
+        return [dict(r, shard=s) for s, p in zip(self.owned, self.shards)
+                for r in p.refresh_records()]
+
+    def build_device_ms(self) -> List[Optional[float]]:
+        """Each owned shard's ``build_device_ms``."""
+        return [p.build_device_ms() for p in self.shards]
+
+    # -- index mutations (streaming) -----------------------------------------
+
+    def mutate(self, mutation: IndexMutation):
+        """``append`` / ``evict`` route across shards; the other ops
+        apply to every shard."""
+        op = mutation.op
+        if op == "append":
+            if mutation.tokens is None:
+                raise ValueError("mutate(append) needs tokens=")
+            return self.append_rows(mutation.tokens)
+        if op == "evict":
+            if mutation.ids is None:
+                raise ValueError("mutate(evict) needs ids=")
+            return self.evict_rows(np.asarray(mutation.ids))
+        return [p.mutate(mutation) for p in self.shards]
+
+    def append_rows(self, tokens) -> np.ndarray:
+        """Append rows across shards (streaming): each row goes to the
+        shard with the fewest live rows, ties to the lowest shard id, so
+        the windows advance together.  Returns the global ids in row
+        order."""
+        if not self.streaming:
+            raise ValueError(
+                "append_rows requires streaming=True (or window=) in "
+                "LSHPipelineConfig")
+        tokens = np.asarray(tokens, np.int32)
+        if tokens.ndim != 2:
+            raise ValueError(f"append tokens must be 2-D, "
+                             f"got {tokens.shape}")
+        counts = [p.n_live for p in self.shards]
+        owner = np.empty((tokens.shape[0],), np.int64)
+        for i in range(tokens.shape[0]):
+            s = int(np.argmin(counts))
+            owner[i] = s
+            counts[s] += 1
+        gids = np.empty((tokens.shape[0],), np.int64)
+        for s, p in enumerate(self.shards):
+            rows = np.flatnonzero(owner == s)
+            if rows.size:
+                gids[rows] = p.append_rows(tokens[rows])
+        return gids
+
+    def evict_rows(self, ids) -> None:
+        """Evict rows by global id (streaming), each routed to its shard
+        by ``gid // stride``."""
+        if not self.streaming:
+            raise ValueError(
+                "evict_rows requires streaming=True (or window=) in "
+                "LSHPipelineConfig")
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        owner = ids // _SHARD_STRIDE
+        if ((owner < 0) | (owner >= self.n_shards)).any():
+            raise ValueError("evict ids outside any shard's id range")
+        for s, p in enumerate(self.shards):
+            mine = ids[owner == s]
+            if mine.size:
+                p.evict_rows(mine)
+
+    def mutation_log(self) -> dict:
+        """The shards' mutation logs and the shard count they were routed
+        under (a replay is valid only on the same ``n_shards``)."""
+        return {"n_shards": self.n_shards,
+                "shards": [p.mutation_log() for p in self.shards]}
+
+    def load_mutation_log(self, entries: dict):
+        if int(entries.get("n_shards", self.n_shards)) != self.n_shards:
+            raise ValueError(
+                f"mutation log was recorded under n_shards="
+                f"{entries.get('n_shards')} but this pipeline has "
+                f"n_shards={self.n_shards}; streaming elastic reshape "
+                f"is not supported — restore on the recorded shard "
+                f"count")
+        for p, log_s in zip(self.shards, entries["shards"]):
+            p.load_mutation_log(log_s)
+
+    # -- health --------------------------------------------------------------
+
+    def set_fault_injector(self, injector, shard: Optional[int] = None):
+        """Install a fault injector on one shard, by GLOBAL shard id (it
+        must be owned here), or on every owned shard (None)."""
+        if shard is None:
+            targets = self.shards
+        else:
+            if shard not in self.owned:
+                raise ValueError(
+                    f"shard {shard} is not owned here (owned: "
+                    f"{self.owned})")
+            targets = [self.shards[self.owned.index(shard)]]
+        for p in targets:
+            p.set_fault_injector(injector)
+
+    def note_loss(self, finite: bool):
+        for p in self.shards:
+            p.note_loss(finite)
+
+    def check_health(self) -> str:
+        for p in self.shards:
+            p.check_health()
+        return self.health_state()
+
+    def health_state(self) -> str:
+        """The worst state across shards: one degraded shard degrades its
+        share of every batch."""
+        rank = {HEALTHY: 0, STALE_INDEX: 1, UNIFORM_FALLBACK: 2}
+        worst = max(self.shards, key=lambda p: rank[p.health.state])
+        return worst.health.state
+
+    def health_summary(self) -> dict:
+        per = [p.health_summary() for p in self.shards]
+        return {
+            "state": self.health_state(),
+            "stale_refreshes": max(s["stale_refreshes"] for s in per),
+            "refresh_failures": sum(s["refresh_failures"] for s in per),
+            "recoveries": sum(s["recoveries"] for s in per),
+            "transitions": [
+                (shard_id,) + tuple(t)
+                for shard_id, s in zip(self.owned, per)
+                for t in s["transitions"]],
+        }
+
+    def sampler_stats(self) -> Dict[str, float]:
+        """The shards' sampling diagnostics, weighted by their draws."""
+        per = [p.sampler_stats() for p in self.shards]
+        draws = sum(s["draws"] for s in per)
+        d = max(draws, 1)
+        return {
+            "draws": draws,
+            "fallback_rate": sum(
+                s["fallback_rate"] * s["draws"] for s in per) / d,
+            "primary_miss_rate": sum(
+                s["primary_miss_rate"] * s["draws"] for s in per) / d,
+            "last_fallback_rate": float(
+                np.mean([s["last_fallback_rate"] for s in per])),
+        }
+
+    # -- batches ------------------------------------------------------------
+
+    def next_batch(self, query: Optional[torch.Tensor] = None,
+                   draws: Optional[Sequence[SampleDraws]] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One global batch (the owned shards' slice of it).  The query
+        is computed once and shared by every shard; ``query`` (already
+        augmented) replaces the hook's, and ``draws`` (one an owned
+        shard, in shard order) the shards' generator draws (the parity
+        tests' hooks)."""
+        q = self.shards[0]._query() if query is None else query
+        subs = [p.next_batch(query=q,
+                             draws=None if draws is None else draws[i])
+                for i, p in enumerate(self.shards)]
+        m_s = self.cfg.minibatch // self.n_shards
+        batch = {k: compose_sharded_batch([b[k] for b in subs], self.device)
+                 for k in ("tokens", "targets", "example_ids")}
+        # local 1/(p·n_s) -> global S/(p·N): each sample stands in for
+        # N/S corpus rows under the batch mean; streaming takes the live
+        # counts at this draw
+        if self.streaming:
+            total_live = sum(p.n_live for p in self.shards)
+            scales = [p.n_live * self.n_shards / total_live
+                      for p in self.shards]
+        else:
+            scales = [p.n * self.n_shards / self.n for p in self.shards]
+        w = compose_sharded_batch(
+            [b["loss_weights"] * sc for b, sc in zip(subs, scales)],
+            self.device)
+        if self.cfg.normalize_weights:
+            w = w / torch.clamp(w.mean(), min=1e-30)
+        batch["loss_weights"] = w.to(torch.float32)
+        batch["shard_ids"] = compose_sharded_batch(
+            [torch.full((m_s,), s, dtype=torch.int32, device=self.device)
+             for s in self.owned], self.device)
+        return batch
 
 
 def mean_pool_feature_fn(cfg):

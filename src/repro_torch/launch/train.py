@@ -10,11 +10,10 @@ Without ``--full`` it trains the arch's SMOKE config; every arch of
 which takes precomputed embeddings, not a token corpus) is refused with
 the reference launcher's message.  Weights are
 random from seed 0 and the corpus is ``make_token_corpus(0, ...)``, as
-in the reference.  With ``--lgd`` batches come from one
-``LSHSampledPipeline`` over the whole corpus — one card is one shard,
-which is what the reference's one-shard ``ShardedLSHPipeline``
-computes — with the refresh asynchronous (``refresh_async=True``), as
-the reference launcher builds it.  ``--ckpt DIR`` checkpoints every 50
+in the reference.  With ``--lgd`` batches come from a
+``ShardedLSHPipeline`` with one shard per data-parallel group, which is
+one on one card, with the refresh asynchronous (``refresh_async=True``),
+as the reference launcher builds it.  ``--ckpt DIR`` checkpoints every 50
 steps into DIR and resumes from its newest valid checkpoint, as the
 reference launcher does.  Runs on the card unless ``--device cpu``.
 """
@@ -27,7 +26,7 @@ from typing import Optional
 from repro_torch import configs
 from repro_torch.data import (
     LSHPipelineConfig,
-    LSHSampledPipeline,
+    ShardedLSHPipeline,
     lm_head_query_fn,
     make_token_corpus,
     mean_pool_feature_fn,
@@ -60,17 +59,19 @@ def load_model(arch: str, full: bool, device):
 
 
 def make_batches(cfg, model, *, lgd: bool, batch: int, seq: int, corpus: int,
-                 device, refresh_every: int = 200):
-    """(sampler, batches): the LGD pipeline, or uniform batches."""
+                 device, refresh_every: int = 200, n_shards: int = 1):
+    """(sampler, batches): the LGD pipeline with ``n_shards`` per-shard
+    indexes (the data-parallel degree: 1 on one card), or uniform
+    batches."""
     data = make_token_corpus(0, corpus, seq, cfg.vocab)
     if not lgd:
         return None, uniform_batches(data, batch, seed=1, device=device)
-    sampler = LSHSampledPipeline(
+    sampler = ShardedLSHPipeline(
         2, data.tokens, mean_pool_feature_fn(cfg), lm_head_query_fn(),
         LSHPipelineConfig(minibatch=batch, refresh_every=refresh_every,
                           refresh_async=True),
-        feature_batch=feature_batch_for(cfg, seq), params=model,
-        device=device)
+        n_shards=n_shards, feature_batch=feature_batch_for(cfg, seq),
+        params=model, device=device)
     return sampler, None
 
 
@@ -108,8 +109,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.production_mesh or args.multi_pod:
         raise NotImplementedError(
-            "meshes are not ported: the port runs on one device "
-            "(ROADMAP.md queue 1 item 6)")
+            "meshes are not ported: parameter and batch placement over "
+            "several devices is ROADMAP.md queue 1 item 6c; the port "
+            "trains on one device, with one LSH shard")
 
     device = resolve_device(args.device)
     cfg, model = load_model(args.arch, args.full, device)

@@ -18,9 +18,11 @@ a fault proves the recovery path and a failure replays exactly.
   window of batches' ``loss_weights`` by NaN: the trainer's skip guard
   and checkpoint rollback.
 
-The reference's process faults (``ProcKill``, ``ProcHang``,
-``DropBarrier``) fire on its elastic cluster's events and come with
-that cluster's port (ROADMAP.md queue 1 item 6).
+Any of them installs on one shard of a ``ShardedLSHPipeline`` by its
+global shard id (``set_fault_injector(injector, shard=s)``).  The
+reference's process faults (``ProcKill``, ``ProcHang``, ``DropBarrier``)
+fire on its multi-process elastic cluster's events and come with that
+cluster's port (ROADMAP.md queue 1 item 6b).
 """
 
 from __future__ import annotations

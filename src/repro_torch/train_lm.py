@@ -23,8 +23,11 @@ Refresh mode (``--refresh-mode {full,delta}``): re-embed and re-hash the
 whole corpus every ``refresh_every`` steps, or only the rows visited
 since the last refresh plus a drift sample, merged into the sorted index.
 
-``--shards S`` > 1 (one index a data-parallel group) needs the sharded
-pipeline, which comes with distribution (ROADMAP.md queue 1 item 6).
+Shards (``--shards S``): shard-by-example LGD, a ``ShardedLSHPipeline``
+of S per-shard indexes over contiguous corpus shards (one a
+data-parallel group), composed into one batch with weights S/(p·N), in
+one process on one device.  Several processes (one shard each) are
+ROADMAP.md queue 1 item 6b.
 
 Optimizer (``--optimizer``): LGD replaces only the gradient ESTIMATOR,
 so any update rule's moments accumulate the unbiased estimate.  Besides
@@ -50,7 +53,8 @@ the exact full-vocabulary loss.  ``--head lsh`` composes with
 valid checkpoint in DIR.  Runs on the card unless ``--device cpu``.
 
 Run:  PYTHONPATH=src python -m repro_torch.train_lm [--preset demo]
-          [--steps 200] [--sampler lgd] [--ckpt DIR] [--optimizer adam]
+          [--steps 200] [--sampler lgd] [--shards 2] [--ckpt DIR]
+          [--optimizer adam]
           [--multiprobe 2] [--family mips] [--head lsh] [--device cuda]
 """
 
@@ -63,7 +67,7 @@ import torch
 
 from repro_torch.data import (
     LSHPipelineConfig,
-    LSHSampledPipeline,
+    ShardedLSHPipeline,
     lm_head_query_fn,
     make_token_corpus,
     mean_pool_feature_fn,
@@ -91,6 +95,16 @@ PRESETS = {
 OPTIMIZERS = ["sgd", "momentum", "adagrad", "adam", "adam8bit", "adafactor"]
 
 
+def preset_config(preset: str, lgd: bool = True) -> ModelConfig:
+    """The model config of ``preset`` (f32)."""
+    p = PRESETS[preset]
+    return ModelConfig(
+        name=f"lm-{preset}", n_layers=p["n_layers"], d_model=p["d_model"],
+        n_heads=p["n_heads"], n_kv_heads=p["n_kv_heads"], d_ff=p["d_ff"],
+        vocab=p["vocab"], chunk=64, loss_chunk=128, dtype="float32",
+        rope_theta=10000.0, lgd_enabled=lgd)
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", default="demo", choices=list(PRESETS))
@@ -101,7 +115,7 @@ def parse_args(argv=None):
                     help="deprecated alias for --sampler uniform")
     ap.add_argument("--shards", type=int, default=1,
                     help="shard-by-example LSH index count (one per DP "
-                         "group); only 1 is ported")
+                         "group); must divide the preset's batch")
     ap.add_argument("--refresh-mode", default="full",
                     choices=["full", "delta"])
     ap.add_argument("--optimizer", default="adam", choices=OPTIMIZERS)
@@ -124,10 +138,6 @@ def parse_args(argv=None):
     if args.head == "lsh" and args.sampler == "lgd":
         ap.error("--head lsh composes with --sampler uniform (the LGD "
                  "data sampler owns the batch stream in lgd mode)")
-    if args.shards > 1 and args.sampler == "lgd":
-        raise NotImplementedError(
-            "--shards > 1 needs the sharded LSH pipeline, which is not "
-            "ported yet (ROADMAP.md queue 1 item 6)")
     return args
 
 
@@ -135,12 +145,7 @@ def main(argv=None) -> Trainer:
     args = parse_args(argv)
     device = resolve_device(args.device)
     p = PRESETS[args.preset]
-    cfg = ModelConfig(
-        name=f"lm-{args.preset}", n_layers=p["n_layers"],
-        d_model=p["d_model"], n_heads=p["n_heads"],
-        n_kv_heads=p["n_kv_heads"], d_ff=p["d_ff"], vocab=p["vocab"],
-        chunk=64, loss_chunk=128, dtype="float32", rope_theta=10000.0,
-        lgd_enabled=args.sampler == "lgd")
+    cfg = preset_config(args.preset, lgd=args.sampler == "lgd")
     lm = LM.init(cfg, seed=0, device=device)
     n_params = sum(x.numel() for x in lm.parameters())
     print(f"model: {n_params / 1e6:.1f}M params | sampler: {args.sampler}"
@@ -152,7 +157,7 @@ def main(argv=None) -> Trainer:
                                hard_frac=0.1)
     sampler = batches = None
     if cfg.lgd_enabled:
-        sampler = LSHSampledPipeline(
+        sampler = ShardedLSHPipeline(
             2, corpus.tokens, mean_pool_feature_fn(cfg), lm_head_query_fn(),
             LSHPipelineConfig(k=cfg.lgd_k, l=cfg.lgd_l,
                               minibatch=p["batch"],
@@ -161,7 +166,7 @@ def main(argv=None) -> Trainer:
                               refresh_mode=args.refresh_mode,
                               multiprobe=args.multiprobe,
                               family=args.family),
-            params=lm, device=device)
+            n_shards=args.shards, params=lm, device=device)
     else:
         batches = uniform_batches(corpus, p["batch"], seed=3, device=device)
 

@@ -660,6 +660,16 @@ class TestTrainLMTwin:
         for a, b in zip(*ends):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
-    def test_shards_raise(self):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            train_lm.parse_args(["--shards", "2"])
+    def test_shards_parse_and_train(self, monkeypatch):
+        """``--shards 2`` trains through a two-shard
+        ``ShardedLSHPipeline``: each shard draws its half of the batch
+        (the demo preset on a 256-row corpus)."""
+        monkeypatch.setitem(train_lm.PRESETS, "demo",
+                            dict(train_lm.PRESETS["demo"], corpus=256))
+        assert train_lm.parse_args(["--shards", "2"]).shards == 2
+        tr, out = _twin("--shards", "2", "--steps", "2")
+        assert "shards: 2" in out and tr.sampler.n_shards == 2
+        assert [p.sampler_stats()["draws"] for p in tr.sampler.shards] == [
+            16, 16]
+        assert all(bool(torch.isfinite(p).all())
+                   for p in tr.params.parameters())

@@ -531,6 +531,44 @@ class TestLauncher:
         assert "qwen3-moe-smoke" in text and len(res["losses"]) == 3
         assert np.isfinite(res["losses"]).all()
 
+    @pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b",
+                                      "llama_3_2_vision_90b"])
+    def test_giant_arch_lgd_with_adafactor(self, arch):
+        """The giant archs' training recipe at SMOKE size (the card's
+        full-width run at reduced depth is chip_smoke.py phase 4i): LGD
+        batches through the launcher's one-shard ``ShardedLSHPipeline``
+        with an async refresh, Adafactor(lr=1e-2) as the reference's
+        dryrun picks it, 4 steps with a refresh swapped in at step 2:
+        finite losses,
+        every batch-mean weight 1 and shard id 0."""
+        from repro_torch.data import ShardedLSHPipeline
+        from repro_torch.optim import Adafactor
+        cfg, lm = launch_train.load_model(arch, False, "cpu")
+        sampler, _ = launch_train.make_batches(
+            cfg, lm, lgd=True, batch=4, seq=16, corpus=32, device="cpu",
+            refresh_every=2)
+        assert isinstance(sampler, ShardedLSHPipeline)
+        drawn, draw = [], sampler.next_batch
+
+        def kept():
+            b = draw()
+            drawn.append(b)
+            return b
+
+        sampler.next_batch = kept
+        tr = launch_train.make_trainer(cfg, lm, steps=4, lr=1e-3,
+                                       sampler=sampler,
+                                       optimizer=Adafactor(lr=1e-2))
+        losses = tr.run(4)["losses"]
+        tr.finalize()
+        assert len(losses) == 4 and np.isfinite(losses).all()
+        for b in drawn:
+            assert abs(float(b["loss_weights"].mean()) - 1.0) <= 1e-5
+            assert not b["shard_ids"].any()
+        # swapped in at step 2; the next, launched at step 3, is joined by
+        # the teardown
+        assert [r["ok"] for r in sampler.refresh_records()] == [True, None]
+
     def test_embed_stub_refused(self):
         with pytest.raises(SystemExit, match="takes precomputed embeddings"):
             self._run("--arch", "musicgen_large", "--steps", "1")

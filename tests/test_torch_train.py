@@ -515,6 +515,6 @@ class TestLauncher:
         assert all(math.isfinite(v) for v in res["losses"])
 
     def test_mesh_flags_raise(self):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 6c"):
             launch_train.main(["--arch", ARCH, "--production-mesh",
                                "--device", "cpu"])
