@@ -167,10 +167,11 @@ the step hook) adds:
       CPU; 4 steps of the LSH head's sampled loss through
       TrainerConfig(step_hook=head.step_hook) with a refresh every 2
       (refreshes at the same steps, losses within SMOKE_TRAIN_RTOL);
-  4f. the slice at full width after 4d, on its model
-      (``training_stack_full_width``): phi4-mini FULL in bf16, batch 8 x
-      512, corpus 2,048, 4c's LGD sampler (its async refresh switched off
-      by 5c, so none in these 10 steps), Adam8bit.  Run A trains 5
+  4f. the slice at full width after 4d (``training_stack_full_width``):
+      phi4-mini at full width and 8 of its 32 layers in bf16, from
+      seed-0 weights, batch 8 x 512, corpus 2,048, 4c's LGD sampler
+      recipe with its refresh schedule off (none in these 10 steps),
+      Adam8bit.  Run A trains 5
       steps and checkpoints asynchronously at step 5 (keep 1); runs B
       and C, fresh trainers with resume=True on the same model and
       sampler, restore step 5 through latest_valid_step, restore_at(5)
@@ -182,8 +183,8 @@ the step hook) adds:
       a fourth trainer starts at step 0.  A disk too small for the
       checkpoint fails the run.  Printed: the checkpoint's bytes against
       the free disk, snapshot / serialisation / verify / restore /
-      restore_at seconds, the step p50 beside 4c's Adam p50, the peak
-      memory; then the script's total seconds.
+      restore_at seconds, the step p50, the peak memory; then the
+      script's total seconds.
 
 The other-mixers slice (Mamba-2, mLSTM, sLSTM, MoE, cross-attention,
 shared attention, the embed_stub frontend) adds:
@@ -227,28 +228,59 @@ other archs add:
       on the same uniform batches (``train_archs_card_vs_cpu``): losses
       within SMOKE_TRAIN_RTOL, every parameter within 1e-4 (relative L2);
   4i. the other archs trained at full width on LGD batches (srp, K 7, L
-      10, 8 x 512 tokens, async refresh; a corpus of 512 rows), 10 steps
-      with one refresh at step 5 (``train_arch_full_width``): zamba2 and
+      10, 8 x 512 tokens, async refresh; a corpus of 512 rows), 6 steps
+      with one refresh at step 3 (``train_arch_full_width``): zamba2 and
       xlstm whole with Adam, qwen3 at 2 of 94 layers and
       llama-3.2-vision at 5 of 100 with Adafactor (the reference
       dryrun's choice for its giant archs); llama4's one layer is held
       against the card's memory first and, needing 94.5 GB, not run: its
       arithmetic is printed.  Checked: launches (draw_assemble and
-      bucket_probe 10, simhash 2), the refresh swapped in healthy,
+      bucket_probe 6, simhash 2), the refresh swapped in healthy,
       losses finite, batch-mean weights 1 +- 1e-5.  Reported: build s,
       step p10 / p50, the refresh's device span, peak memory, a profiled
       step by kind, and the backward of the chunked core and of the MoE
       FFN traced alone (``mixer_backwards``);
   4h. 4c's recipe through a ``ShardedLSHPipeline`` of 4 shards, after 4f,
-      from 4c's seed-0 weights again (``sharded_full_width``): 12 steps,
-      a refresh at
-      step 10, exactly 4 probes and 4 draw_assembles a step and 4
-      simhash a build and a refresh; each shard's build and refresh
-      device span, step p10 / p50 beside 4c's single-index p50, peak
-      memory, the batch-mean weight and fallback share per shard and
-      composed; a checkpoint of the weights at step 10, restored, and
-      one rebuild_sharded_pipeline onto S 2 timed with its
+      on phi4-mini at full width and 8 of its 32 layers, from seed-0
+      weights (``sharded_full_width``): 12 steps, a refresh at step 10,
+      exactly 4 probes and 4 draw_assembles a step and 4 simhash a build
+      and a refresh; each shard's build and refresh device span, step
+      p10 / p50, peak memory, the batch-mean weight and fallback share
+      per shard and composed; a checkpoint of the weights at step 10,
+      restored, and one rebuild_sharded_pipeline onto S 2 timed with its
       rescale_plan(4, 2, 8).
+
+The multi-process slice (``repro_torch.dist.multihost`` and its worker)
+adds:
+  3j. the worker as two processes on the card (``python -c`` children
+      running ``mh_worker_main``), over a TCPStore on a free local port
+      and a gloo group, on the reference worker's tiny stack
+      (``multihost_card``): (a) no fault, 10 steps, a sync every 5: both
+      ranks healthy in generation 0, each rank's first batch bitwise its
+      shard's rows of a one-process ShardedLSHPipeline(n_shards=2)'s
+      first batch built here from the same weights; (b) the host-loss
+      drill of tests/test_multihost.py:720-731 (rank 1 killed at step 12
+      of 20, a sync every 5, a checkpoint every 10, 4 degraded and 6
+      post-reform steps): rank 1 exits 17, rank 0 exits 0 having walked
+      [missing-host-degraded, reformed] with dead [1], shard 1 adopted
+      once, one reform shard and the writer fence held, restore step <=
+      incident + 4, finite positive degraded weight means, and
+      ``replay_post_reform`` here gives its post-reform digest and
+      losses bitwise.  Each process's launches at its exit: one
+      bucket_probe and one draw_assemble a draw for each owned shard,
+      simhash >= 1;
+  4j. after 4i, the same at full width (``multihost_full_width``): two
+      processes share the card, each on zamba2 whole (bf16, Adam, 256
+      corpus rows and 8 x 512 tokens a process, the worker's sync refresh
+      every 10 steps).  A fault-free run (5 steps, the sync and an 11 GB
+      checkpoint at step 5) must show no incident; its longest barrier
+      wait and longest gap between a rank's beats set the drill's barrier
+      and heartbeat timeouts, printed beside them; then 3j(b)'s drill
+      and checks.  Reported: each process's build s, step p10 / p50 with
+      two processes on the card beside 4i's one-process zamba2 p50, each
+      sync's ms with the gloo all-reduce inside it, kill to
+      HostLossDetected, the adoption build, reform to first step, the
+      checkpoint's bytes, each process's peak memory.
 Each phase prints the second it starts at.
 
 Imports torch, numpy and repro_torch only.  Without a CUDA device, or
@@ -374,13 +406,17 @@ KERNEL_VS_REF_LIMIT = {
 # and a refresh at step 10, a checkpoint of the weights at step 10, then
 # one rebuild onto RESHARD shards
 SHARDS, SHARD_STEPS, SHARD_REFRESH, RESHARD = 4, 12, 10, 2
+# 4f and 4h run phi4-mini at full width but CUT_LAYERS of its 32 layers:
+# their index builds, refreshes, rebuilds and checkpoint I/O scale with
+# depth (at 32 layers 4f took 235 s of the script and 4h 148 s)
+CUT_LAYERS = 8
 # training the other archs (phases 3i, 4i).  3i: SMOKE, 3 steps card vs
 # CPU; 4i: full width, LGD batches (srp, K 7, L 10, 8 x 512 tokens, async
 # refresh), ARCH_STEPS steps with one refresh at step ARCH_REFRESH, from a
 # corpus of ARCH_CORPUS rows (the launcher's 2,048 cut to bound the index
 # build); the layers each trains (a whole number of its block pattern;
 # None: all)
-ARCH_STEPS, ARCH_REFRESH, ARCH_CORPUS = 10, 5, 512
+ARCH_STEPS, ARCH_REFRESH, ARCH_CORPUS = 6, 3, 512
 TRAIN_ARCHS = {"zamba2_1_2b": None, "xlstm_350m": None,
                "qwen3_moe_235b_a22b": 2, "llama_3_2_vision_90b": 5,
                "llama4_maverick_400b_a17b": 1}
@@ -389,6 +425,33 @@ TRAIN_ARCHS = {"zamba2_1_2b": None, "xlstm_350m": None,
 # Adafactor(lr=1e-2); the others with the launcher's Adam
 GIANT_ARCHS = {"qwen3_moe_235b_a22b", "llama4_maverick_400b_a17b",
                "llama_3_2_vision_90b"}
+
+
+# the multi-process slice (phases 3j, 4j): two processes of
+# repro_torch.dist.multihost_worker share the card, over a TCPStore on a
+# free local port and a gloo group.  The drill is the reference test's
+# (tests/test_multihost.py:720-731): rank 1 killed at step 12 of 20, a
+# sync every 5, a checkpoint every 10, 4 degraded and 6 post-reform steps
+MH_DRILL = ["--steps", "20", "--sync-every", "5", "--ckpt-every", "10",
+            "--degraded-steps", "4", "--post-steps", "6"]
+MH_KILL_AT = 12
+MH_INTACT = ["--steps", "10", "--sync-every", "5", "--ckpt-every", "10"]
+# 4j's fault-free run: its one sync meets the checkpoint (rank 0 snapshots
+# 11 GB while rank 1 waits at the barrier), the longest legitimate wait
+# the drill's step 10 holds too
+MH_INTACT_FULL = ["--steps", "5", "--sync-every", "5", "--ckpt-every", "5"]
+# 4j: the arch 4i trains whole (23.7 GB peak with Adam); a corpus of 512
+# rows, 256 a process, and a global batch of 16 (8 x 512 tokens a process,
+# 4i's batch); the worker's sync refresh every 10 steps
+MH_ARCH, MH_CORPUS, MH_BATCH, MH_REFRESH = "zamba2_1_2b", 512, 16, 10
+# 4j's fault-free run: windows wide enough that no legitimate wait ends
+# it; the drill's timeouts come from the waits it measures
+MH_WIDE_TIMEOUTS = ["--barrier-timeout", "600", "--heartbeat-timeout",
+                    "1200"]
+MH_PAIR_TIMEOUT_S = 600
+# a worker process: python -c MH_CHILD <repo> <repo>/src <stack> <args>
+MH_CHILD = ("import sys; sys.path[:0] = sys.argv[1:3]; import chip_smoke; "
+            "chip_smoke.mh_worker_main(sys.argv[3:])")
 
 
 # device-time classes of a trace, by substrings of the kernel's name
@@ -1263,11 +1326,12 @@ def training_stack_card_vs_cpu(torch, np, dev, cfg_t) -> dict:
     return out
 
 
-def training_stack_full_width(torch, np, dev, cfg_f, model, sampler,
-                              adam_p50: float) -> dict:
+def training_stack_full_width(torch, np, dev, cfg_f, model,
+                              sampler) -> dict:
     """4f: checkpoint, resume and corruption at full width on ``model``
-    (phi4-mini FULL, bf16), with 4c's LGD sampler (async refresh, which
-    5c switched off, so none falls in these 10 steps) and Adam8bit.
+    (phi4-mini, bf16, CUT_LAYERS layers), with 4c's LGD sampler recipe
+    (its refresh schedule off, so no refresh falls in these 10 steps) and
+    Adam8bit.
 
     Run A trains 5 steps and checkpoints asynchronously at step 5; runs B
     and C are fresh trainers with ``resume=True`` on the same model and
@@ -1290,7 +1354,7 @@ def training_stack_full_width(torch, np, dev, cfg_f, model, sampler,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     if sampler.cfg.refresh_every:
-        fail("4f: 4c's sampler still refreshes")
+        fail("4f: the sampler refreshes")
     out = {}
     drawn = []
     next_batch = sampler.next_batch
@@ -1440,7 +1504,7 @@ def training_stack_full_width(torch, np, dev, cfg_f, model, sampler,
         simhash_per_restore=[res["B"]["simhash"], res["C"]["simhash"]],
         step_ms_all=dts_a + res["B"]["dts"] + res["C"]["dts"],
         step_ms_p50=float(np.percentile(steady, 50)),
-        adam_step_ms_p50_4c=adam_p50,
+        layers=cfg_f.n_layers,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return out
 
@@ -2086,7 +2150,7 @@ def train_arch_full_width(torch, np, dev, kernels, configs, launch_train, LM,
         return b
 
     def one_refresh(tr):
-        if tr.step == ARCH_REFRESH + 1:     # after the swap at step 5
+        if tr.step == ARCH_REFRESH + 1:     # after the refresh's swap
             for c in (sampler.cfg, sampler.shards[0].cfg):
                 c.refresh_every = 0
 
@@ -2154,10 +2218,11 @@ def train_arch_full_width(torch, np, dev, kernels, configs, launch_train, LM,
     return res
 
 
-def sharded_full_width(torch, np, dev, kernels, cfg_f, model, launch_train,
-                       single_p50: float) -> dict:
-    """Phase 4h: 4c's recipe (phi4-mini FULL, bf16, batch 8 x 512,
-    corpus 2,048, Adam, K 7, L 10, srp, async refresh) through a
+def sharded_full_width(torch, np, dev, kernels, cfg_f, model,
+                       launch_train) -> dict:
+    """Phase 4h: 4c's recipe (phi4-mini at full width and CUT_LAYERS
+    layers, bf16, batch 8 x 512, corpus 2,048, Adam, K 7, L 10, srp,
+    async refresh) through a
     ``ShardedLSHPipeline`` of SHARDS shards, built by the launcher's
     ``make_batches``: SHARD_STEPS steps with a refresh at step
     SHARD_REFRESH, the counts set to 0 just before the build and read
@@ -2273,7 +2338,7 @@ def sharded_full_width(torch, np, dev, kernels, cfg_f, model, launch_train,
         boundary_step_ms={i_: dts[i_] for i_ in boundary},
         step_ms_p10=float(np.percentile(steady, 10)),
         step_ms_p50=float(np.percentile(steady, 50)),
-        single_index_step_ms_p50_4c=single_p50, step_ms_all=dts,
+        layers=cfg_f.n_layers, step_ms_all=dts,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         weight_mean_composed_max_dev=float((w_mean - 1).abs().max()),
         weight_mean_per_shard=w_shard.mean(0).tolist(),
@@ -2326,6 +2391,322 @@ def sharded_full_width(torch, np, dev, kernels, cfg_f, model, launch_train,
                rebuild_corpus_per_shard=[p.n for p in re_.shards],
                rebuild_weight_mean=wm)
     del re_, b
+    shutil.rmtree(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mh_stack(name: str):
+    """A worker's ``Stack``: "tiny" (the reference worker's model, corpus
+    and pipeline) or "full" (4j: MH_ARCH whole in bf16 on 4i's LGD recipe,
+    srp, K 7, L 10, 512-token rows from MH_CORPUS rows split over the two
+    processes, a global batch of MH_BATCH, with the worker's sync refresh
+    every MH_REFRESH steps and raw weights, Adam)."""
+    from repro_torch.dist import multihost_worker as mw
+    if name == "tiny":
+        return mw.Stack()
+    from repro_torch import configs
+    from repro_torch.data import LSHPipelineConfig
+    from repro_torch.launch.train import feature_batch_for
+    cfg = configs.get(MH_ARCH)
+    return mw.Stack(
+        model=cfg,
+        pipe=LSHPipelineConfig(minibatch=MH_BATCH, refresh_every=MH_REFRESH,
+                               refresh_async=False, refresh_backoff=0.0,
+                               normalize_weights=False),
+        corpus=dict(seed=0, n_examples=MH_CORPUS, seq_len=TRAIN_SEQ,
+                    hard_frac=0.1),
+        lr=1e-3, feature_batch=feature_batch_for(cfg, TRAIN_SEQ))
+
+
+def mh_worker_main(argv):
+    """One worker process of 3j / 4j (``MH_CHILD``): ``argv`` is the
+    stack's name, then the worker's own command line."""
+    from repro_torch.dist import multihost_worker as mw
+    mw.run_worker(mw.build_arg_parser().parse_args(argv[1:]),
+                  stack=mh_stack(argv[0]))
+
+
+def mh_pair(tmp: str, tag: str, stack: str, args: list,
+            kill_at=None) -> dict:
+    """Two worker processes on the card (ranks 0 and 1 of one run, over a
+    store on a free local port), each polled until it exits; past
+    MH_PAIR_TIMEOUT_S both are killed and the run fails.  Returns the exit
+    codes, each exit's wall time, the results each rank wrote and the
+    tails of their logs."""
+    d = os.path.join(tmp, tag)
+    os.makedirs(d)
+    coord = f"127.0.0.1:{_free_port()}"
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in (0, 1):
+        cmd = [sys.executable, "-c", MH_CHILD, HERE,
+               os.path.join(HERE, "src"), stack, "--rank", str(r),
+               "--nprocs", "2", "--coordinator", coord,
+               "--ckpt-dir", os.path.join(d, "ckpt"),
+               "--result", os.path.join(d, f"r{r}.json"),
+               "--device", "cuda"] + args
+        if r == 1 and kill_at is not None:
+            cmd += ["--kill-at", str(kill_at)]
+        logs.append(open(os.path.join(d, f"log{r}.txt"), "w"))
+        procs.append(subprocess.Popen(cmd, stdout=logs[-1],
+                                      stderr=subprocess.STDOUT, cwd=HERE))
+    exit_t = [None, None]
+    deadline = time.monotonic() + MH_PAIR_TIMEOUT_S
+    while None in exit_t and time.monotonic() < deadline:
+        for r, p in enumerate(procs):
+            if exit_t[r] is None and p.poll() is not None:
+                exit_t[r] = time.time()
+        time.sleep(0.02)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for f in logs:
+        f.close()
+    tails = []
+    for r in (0, 1):
+        with open(os.path.join(d, f"log{r}.txt")) as f:
+            tails.append(f.read()[-3000:])
+    if None in exit_t:
+        fail(f"{tag}: the worker pair did not finish within "
+             f"{MH_PAIR_TIMEOUT_S} s; logs: {tails}")
+    results = []
+    for r in (0, 1):
+        path = os.path.join(d, f"r{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                results.append(json.load(f))
+        else:
+            results.append(None)
+    return dict(dir=d, rcs=[p.returncode for p in procs], exit_t=exit_t,
+                results=results, tails=tails,
+                wall_s=time.perf_counter() - t0)
+
+
+def mh_check_launches(tag: str, res: dict, shard_draws: int) -> dict:
+    """A worker's kernel launches at its exit: one bucket_probe and one
+    draw_assemble a draw for each owned shard (``shard_draws``), and at
+    least one simhash (the index build)."""
+    got = {k: res["launches"][k] for k in ("simhash", "bucket_probe",
+                                           "draw_assemble")}
+    if got["simhash"] < 1 or got["bucket_probe"] != shard_draws or \
+            got["draw_assemble"] != shard_draws:
+        fail(f"{tag}: launches {got}, expected bucket_probe and "
+             f"draw_assemble {shard_draws} (one a draw a shard) and "
+             f"simhash >= 1")
+    return got
+
+
+def mh_check_intact(tag: str, run: dict, batch0=None) -> list:
+    """The fault-free pair: both ranks exit 0, healthy in generation 0,
+    every loss finite, their launches; with ``batch0`` (the first batch
+    of a one-process pipeline over both shards, built in this process)
+    rank r's first batch must be shard r's rows of it, bitwise (ids,
+    tokens, weights).  Returns each rank's launches."""
+    import hashlib
+
+    if run["rcs"] != [0, 0] or None in run["results"]:
+        fail(f"{tag}: exit codes {run['rcs']}; logs: {run['tails']}")
+    launched = []
+    for r, res in enumerate(run["results"]):
+        c = res["cluster"]
+        if res["incident"] is not None or c["state"] != "healthy" or \
+                c["generation"] != 0 or c["transitions"]:
+            fail(f"{tag} rank {r}: an incident in a fault-free run: {c}")
+        if not all(map(math.isfinite, res["losses_pre"])):
+            fail(f"{tag} rank {r}: losses {res['losses_pre']}")
+        launched.append(mh_check_launches(f"{tag} rank {r}", res,
+                                          len(res["weight_means"])))
+        if batch0 is None:
+            continue
+        m_s = batch0["example_ids"].shape[0] // 2
+        rows = slice(r * m_s, (r + 1) * m_s)
+        fb = res["first_batch"]
+        want = (batch0["example_ids"][rows].tolist(), hashlib.sha256(
+            batch0["tokens"][rows].cpu().numpy().tobytes()).hexdigest(),
+            batch0["loss_weights"][rows].cpu().numpy().tobytes().hex())
+        if (fb["example_ids"], fb["tokens_sha256"],
+                fb["loss_weights_hex"]) != want:
+            fail(f"{tag} rank {r}: the first batch is not shard {r}'s rows "
+                 f"of the one-process batch: {fb} vs {want}")
+    return launched
+
+
+def mh_check_drill(tag: str, run: dict, stack, dev) -> dict:
+    """The host-loss drill (rank 1 killed at MH_KILL_AT): rank 1 exits 17
+    and rank 0 exits 0; the incident names [1] dead; the transitions are
+    [missing-host-degraded, reformed]; "shard 1 adopted by rank 0" once;
+    one reform shard and the writer fence held; restore step <= incident
+    + 4; the degraded weight means finite and positive; every loss
+    finite; the survivor's launches; then ``replay_post_reform`` in this
+    process gives the survivor's post-reform digest and losses bitwise."""
+    from repro_torch.dist import multihost_worker as mw
+
+    r0 = run["results"][0]
+    if run["rcs"] != [0, 17] or r0 is None:
+        fail(f"{tag}: exit codes {run['rcs']} (want [0, 17]); logs: "
+             f"{run['tails']}")
+    c = r0["cluster"]
+    states = [t[2] for t in c["transitions"]]
+    adopted = [e[2] for e in c["events"]].count("shard 1 adopted by rank 0")
+    dm = r0["degraded_weight_means"]
+    losses = r0["losses_degraded"] + r0["losses_post"]
+    if (r0["incident"] is None or r0["incident"]["dead"] != [1]
+            or states != ["missing-host-degraded", "reformed"]
+            or adopted != 1 or r0["reform_shards"] != 1
+            or r0["reform_writer"] is not True
+            or r0["restore_step"] > r0["incident"]["step"] + 4
+            or len(dm) != 4 or not all(math.isfinite(v) and v > 0
+                                       for v in dm)
+            or not all(map(math.isfinite, losses))):
+        fail(f"{tag}: the survivor did not walk the ladder: "
+             f"{json.dumps({k: v for k, v in r0.items() if k != 'timings'})}")
+    launched = mh_check_launches(
+        f"{tag} survivor", r0, r0["pre_draws"] + 2 * len(dm)
+        + r0["post_draws"])
+    t0 = time.perf_counter()
+    rep = mw.replay_post_reform(
+        os.path.join(run["dir"], "ckpt"), r0["restore_step"],
+        len(r0["losses_post"]), n_shards=1, stack=stack, device=dev)
+    replay_s = time.perf_counter() - t0
+    if rep["digest"] != r0["post_digest"] or \
+            rep["losses"] != r0["losses_post"]:
+        fail(f"{tag}: the replay is not the survivor's stream: digest "
+             f"{rep['digest']} vs {r0['post_digest']}, losses "
+             f"{rep['losses']} vs {r0['losses_post']}")
+    tm = r0["timings"]
+    return dict(
+        incident=r0["incident"], transitions=c["transitions"],
+        events=c["events"], restore_step=r0["restore_step"],
+        reform_shards=1, reform_writer=True, degraded_weight_means=dm,
+        losses_degraded=r0["losses_degraded"],
+        losses_post=r0["losses_post"], replay_bitwise=True,
+        replay_s=replay_s, launches=launched,
+        kill_to_detect_s=tm["incident_wall_t"] - run["exit_t"][1],
+        adopt_s=tm["adopt_s"],
+        reform_to_first_step_s=tm["reform_to_first_step_s"],
+        build_s=tm["build_s"], peak_gb=r0["max_memory_allocated"] / 1e9,
+        wall_s=run["wall_s"])
+
+
+def multihost_card(torch, dev) -> dict:
+    """Phase 3j: the worker (``repro_torch.dist.multihost_worker``) as two
+    processes on the card, on the reference worker's tiny stack.  (a) No
+    fault: 10 steps, a sync every 5; both ranks healthy in generation 0,
+    and each rank's first batch bitwise shard r's rows of a one-process
+    ``ShardedLSHPipeline(n_shards=2)``'s first batch built here on the
+    card from the same weights.  (b) The host-loss drill with the
+    reference test's flags (tests/test_multihost.py:720-731), rank 1
+    killed at step 12 (``mh_check_drill``).  Each process's launches are
+    held (``mh_check_launches``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.dist import multihost_worker as mw
+    from repro_torch.models import LM
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_3j_")
+    stack = mh_stack("tiny")
+    run = mh_pair(tmp, "3j-intact", "tiny", MH_INTACT)
+    model = LM.init(stack.model, seed=mw.PARAM_KEY_SEED, device=dev)
+    batch0 = mw.build_pipeline(model, 2, stack=stack,
+                               device=dev).next_batch()
+    launched = mh_check_intact("3j", run, batch0)
+    res = dict(intact_launches=launched, intact_wall_s=run["wall_s"],
+               composition_bitwise=True)
+    del model, batch0
+    drill = mh_pair(tmp, "3j-drill", "tiny", MH_DRILL, kill_at=MH_KILL_AT)
+    res["drill"] = mh_check_drill("3j", drill, stack, dev)
+    shutil.rmtree(tmp)
+    return res
+
+
+def _steady_ms(stamps: list, skip: set) -> list:
+    """Each step's ms from the per-step stamps (step k's stamp is taken
+    after its hook), without the steps in ``skip``."""
+    return [(b - a) * 1e3 for k, (a, b) in enumerate(
+        zip(stamps, stamps[1:]), start=2) if k not in skip]
+
+
+def multihost_full_width(torch, np, dev, single_p50: float) -> dict:
+    """Phase 4j: two worker processes share the card, each running the
+    worker's code on ``mh_stack("full")`` (MH_ARCH whole, bf16, Adam).
+    First a fault-free run (MH_INTACT_FULL, barrier and heartbeat
+    windows of MH_WIDE_TIMEOUTS): no incident, the launches, the longest
+    barrier wait and the longest gap between a rank's beats; the drill's
+    barrier and heartbeat timeouts are set above them and printed beside
+    them.  Then 3j(b)'s drill at full width with those timeouts
+    (``mh_check_drill``, the replay in this process).  Reported: each
+    process's build s, the steady step p10 / p50 with two processes on
+    the card (the fault-free run's steps 2-4 and the survivor's steps
+    2-12 but the syncs at 5 and 10) beside 4i's one-process p50, each
+    sync's ms and the gloo all-reduce inside it, the kill to
+    ``HostLossDetected``, the adoption build, reform to first step, the
+    checkpoint's bytes, each process's peak memory."""
+    import shutil
+    import tempfile
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4j_")
+    stack = mh_stack("full")
+    run = mh_pair(tmp, "4j-intact", "full",
+                  MH_INTACT_FULL + MH_WIDE_TIMEOUTS)
+    launched = mh_check_intact("4j", run)
+    syncs = [s for res in run["results"] for s in res["timings"]["syncs"]]
+    wait_max = max(s["barrier_s"] for s in syncs)
+    gap_max = max(b - a for res in run["results"] for a, b in zip(
+        res["timings"]["hook_stamps"], res["timings"]["hook_stamps"][1:]))
+    # twice the gap: the drill's step 10 also holds a refresh, which the
+    # fault-free run's one sync does not
+    hb_s = max(3.0, math.ceil(2 * gap_max))
+    # two missed windows outlast a heartbeat timeout: a killed rank is
+    # named by its stale beats, not by the alive-but-stuck fallback
+    barrier_s = max(2.0, math.ceil(2 * wait_max) + 1, math.ceil(hb_s / 2) + 1)
+    print(f"4j timeouts: barrier {barrier_s} s (the fault-free run's "
+          f"longest barrier wait {wait_max:.3f} s), heartbeat {hb_s} s (its "
+          f"longest gap between a rank's beats {gap_max:.3f} s)", flush=True)
+    ckpt_dir = os.path.join(run["dir"], "ckpt")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(ckpt_dir) for f in fs)
+    res = dict(
+        arch=MH_ARCH, batch_per_process=MH_BATCH // 2,
+        seq=TRAIN_SEQ, corpus=MH_CORPUS, intact_launches=launched,
+        build_s=[r["timings"]["build_s"] for r in run["results"]],
+        one_process_p50_4i=single_p50,
+        syncs=[dict(rank=r, **s) for r, res_ in enumerate(run["results"])
+               for s in res_["timings"]["syncs"]],
+        longest_barrier_wait_s=wait_max, longest_beat_gap_s=gap_max,
+        barrier_timeout_s=barrier_s, heartbeat_timeout_s=hb_s,
+        ckpt_bytes=ckpt_bytes,
+        peak_gb=[r["max_memory_allocated"] / 1e9 for r in run["results"]],
+        losses=[r["losses_pre"] for r in run["results"]],
+        intact_wall_s=run["wall_s"])
+    shutil.rmtree(run["dir"])          # the checkpoint's disk, for the drill
+    drill = mh_pair(tmp, "4j-drill", "full", MH_DRILL + [
+        "--barrier-timeout", str(barrier_s),
+        "--heartbeat-timeout", str(hb_s)], kill_at=MH_KILL_AT)
+    res["drill"] = mh_check_drill("4j", drill, stack, dev)
+    # both processes stepping: the fault-free run's steps 2-4 and the
+    # survivor's 2-12 (rank 1 dies in step 12's hook), no sync step
+    steady = [ms for r in run["results"] for ms in _steady_ms(
+        r["timings"]["step_stamps"], {5})] + _steady_ms(
+        drill["results"][0]["timings"]["step_stamps"][:12], {5, 10})
+    res.update(step_ms_p10=float(np.percentile(steady, 10)),
+               step_ms_p50=float(np.percentile(steady, 50)),
+               steady_steps=len(steady))
     shutil.rmtree(tmp)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3495,6 +3876,12 @@ def main() -> int:
     report["smoke_train_archs"] = train_archs_card_vs_cpu(
         torch, dev, configs, launch_train, LM)
 
+    # -- 3j. small input: the multi-process protocol, two processes -------
+    stamp("3j")
+    report["smoke_multihost"] = multihost_card(torch, dev)
+    print("small-input check multihost " + json.dumps(
+        report["smoke_multihost"]), flush=True)
+
     # -- 4. the main path ---------------------------------------------------
     stamp("4")
     expect = {0: ("simhash", "bucket_probe"), 2: ("simhash",
@@ -3808,8 +4195,7 @@ def main() -> int:
         report["profile"]["train_step"]), flush=True)
     feature_batch = sampler.feature_batch
     sampler.__dict__.pop("next_batch", None)
-    # every reference to the trainer (its Adam moments: ~36 GB) goes; 4f
-    # reuses the sampler
+    # every reference to the trainer (its Adam moments: ~36 GB) goes
     del tr, train_step, timed_step, next_batch, kept_batch
     gc.collect()
 
@@ -3819,21 +4205,29 @@ def main() -> int:
                                             feature_batch)
     print("stream " + json.dumps(report["stream"]), flush=True)
 
-    # -- 4f. the training stack at full width (the same model) --------------
+    # -- 4f. the training stack at full width, CUT_LAYERS deep -------------
     stamp("4f")
+    del model, sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_f = configs.get(SERVE_ARCH).with_(n_layers=CUT_LAYERS)
+    model = LM.init(cfg_f, seed=0, device=dev)
+    sampler, _ = launch_train.make_batches(
+        cfg_f, model, lgd=True, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        corpus=TRAIN_CORPUS, device=dev, refresh_every=0)
     report["train_stack"] = training_stack_full_width(
-        torch, np, dev, cfg_f, model, sampler, report["train"]["step_ms_p50"])
+        torch, np, dev, cfg_f, model, sampler)
     print("train-stack " + json.dumps(report["train_stack"]), flush=True)
     del model, sampler
 
-    # -- 4h. shard-by-example LGD at full width (4c's fresh weights) ------
+    # -- 4h. shard-by-example LGD at full width, CUT_LAYERS deep -----------
     stamp("4h")
     gc.collect()
     torch.cuda.empty_cache()
-    cfg_f, model = launch_train.load_model(SERVE_ARCH, True, dev)
+    cfg_f = configs.get(SERVE_ARCH).with_(n_layers=CUT_LAYERS)
+    model = LM.init(cfg_f, seed=0, device=dev)
     report["sharded"] = sharded_full_width(
-        torch, np, dev, kernels, cfg_f, model, launch_train,
-        report["train"]["step_ms_p50"])
+        torch, np, dev, kernels, cfg_f, model, launch_train)
     print("sharded " + json.dumps(report["sharded"]), flush=True)
     for kname, n_launch in report["sharded"]["launches"].items():
         report["kernels"][kname]["launches"] += n_launch
@@ -3850,6 +4244,18 @@ def main() -> int:
         print("train-4i " + json.dumps(row), flush=True)
         for kname, n_launch in row.get("launches", {}).items():
             report["kernels"][kname]["launches"] += n_launch
+
+    # -- 4j. the multi-process protocol at full width, two processes -------
+    stamp("4j")
+    report["multihost"] = multihost_full_width(
+        torch, np, dev, report["train_4i"][MH_ARCH]["step_ms_p50"])
+    print("multihost-4j " + json.dumps(report["multihost"]), flush=True)
+    # the workers' launches: both ranks of each fault-free run and each
+    # drill's survivor
+    for part in (report["smoke_multihost"], report["multihost"]):
+        for used in part["intact_launches"] + [part["drill"]["launches"]]:
+            for kname, n_launch in used.items():
+                report["kernels"][kname]["launches"] += n_launch
     print(f"chip_smoke total: {time.perf_counter() - t_script:.1f} s",
           flush=True)
 

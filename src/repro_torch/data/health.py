@@ -25,10 +25,11 @@ surfaced into the trainer's ``metrics_history``.
 
 ``ClusterHealthMonitor`` is the cluster-level ladder of multi-process
 runs (healthy, missing-host-degraded, reformed), pure bookkeeping like
-``HealthMonitor``.  Its signals come from ``ShardedLSHPipeline.
-adopt_shards`` and ``train.elastic.rebuild_sharded_pipeline`` here; the
-process cluster that detects lost hosts and drives it is ROADMAP.md
-queue 1 item 6b.
+``HealthMonitor``.  The process cluster that detects lost hosts
+drives it (``repro_torch.dist.multihost.ElasticCluster``); the survivors'
+recovery is ``ShardedLSHPipeline.adopt_shards`` and
+``train.elastic.rebuild_sharded_pipeline``
+(``repro_torch.dist.multihost_worker``).
 """
 
 from __future__ import annotations

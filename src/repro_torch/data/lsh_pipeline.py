@@ -83,9 +83,11 @@ so two restores at the same step draw bitwise the same batches.
 
 SHARD-BY-EXAMPLE (``ShardedLSHPipeline``): S per-shard pipelines over
 contiguous corpus shards in one process on one device, each with its own
-stream, composed into one global batch with weights S/(p·N).  The
-placement over several devices and the multi-process protocol are
-ROADMAP.md queue 1 items 6b and 6c.
+stream, composed into one global batch with weights S/(p·N).  With
+``owned_shards`` one process of a multi-process run draws its shards'
+slice of that batch (``repro_torch.dist.multihost_worker``: process r
+owns shard r, and survivors of a lost process ``adopt_shards``).  The
+placement over several devices is ROADMAP.md queue 1 item 6c.
 
 Not ported: the legacy closure hooks.
 """

@@ -3,3 +3,14 @@ from .sharding import (  # noqa: F401
     example_shard_bounds,
     shard_store_device,
 )
+from .multihost import (  # noqa: F401
+    BarrierTimeout,
+    ClusterError,
+    ElasticCluster,
+    FileCoord,
+    HostLossDetected,
+    MultihostConfig,
+    StoreCoord,
+    backoff_delay,
+    shard_adoption_map,
+)

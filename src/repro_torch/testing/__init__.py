@@ -1,7 +1,10 @@
 from .faults import (  # noqa: F401
+    DropBarrier,
     FaultError,
     FaultInjector,
     NanLossWeights,
+    ProcHang,
+    ProcKill,
     RefreshHang,
     RefreshRaise,
     delete_leaf,

@@ -17,12 +17,19 @@ a fault proves the recovery path and a failure replays exactly.
 * GRADIENT poison (``NanLossWeights``) wraps a sampler and multiplies a
   window of batches' ``loss_weights`` by NaN: the trainer's skip guard
   and checkpoint rollback.
+* PROCESS faults (``ProcKill``, ``ProcHang``, ``DropBarrier``) hook the
+  elastic cluster's ``set_fault_injector`` port
+  (``repro_torch.dist.multihost.ElasticCluster``) and fire on its
+  ``cluster_step`` / ``sync_barrier`` events: host-loss detection (stale
+  heartbeats), barrier retry and backoff, and the missing-host-degraded
+  → reformed ladder.  ``ProcKill`` is the one NON-recoverable injector:
+  it hard-exits the process as a dead host disappears (no atexit, no
+  flush), and the SURVIVORS' recovery is what a drill proves
+  (``repro_torch.dist.multihost_worker``, ``repro_torch.chaos --drill
+  host-loss``).
 
-Any of them installs on one shard of a ``ShardedLSHPipeline`` by its
-global shard id (``set_fault_injector(injector, shard=s)``).  The
-reference's process faults (``ProcKill``, ``ProcHang``, ``DropBarrier``)
-fire on its multi-process elastic cluster's events and come with that
-cluster's port (ROADMAP.md queue 1 item 6b).
+Any refresh injector installs on one shard of a ``ShardedLSHPipeline`` by
+its global shard id (``set_fault_injector(injector, shard=s)``).
 """
 
 from __future__ import annotations
@@ -136,6 +143,68 @@ class NanLossWeights:
     def restore_at(self, step: int, **kwargs):
         self._inner.restore_at(step, **kwargs)
         self._draws = step             # batch k <-> step k realignment
+
+
+# -- process-level faults (multi-process elastic protocol) -------------------
+# Fired by ``ElasticCluster``: ``cluster_step`` (``step=, rank=``) on every
+# heartbeat call, ``sync_barrier`` (``name=, attempt=, rank=``) before
+# every barrier arrival.
+
+
+class ProcKill(FaultInjector):
+    """Hard-exit the process at step ``at_step``: a host loss.
+
+    ``os._exit`` (not ``sys.exit``): a dead host runs no atexit hooks,
+    flushes no buffers and never reaches a clean shutdown, and neither
+    does this injector.  Exit code 17 marks the death as injected.
+    """
+
+    EXIT_CODE = 17
+
+    def __init__(self, at_step: int):
+        self.at_step = at_step
+
+    def fire(self, event: str, **info):
+        if event == "cluster_step" and info.get("step") == self.at_step:
+            os._exit(self.EXIT_CODE)
+
+
+class ProcHang(FaultInjector):
+    """Stall the process for ``seconds`` at step ``at_step``: a slow,
+    paused or partitioned host.  Shorter than the cluster's total barrier
+    grace it costs one retry; longer, the host is declared lost even
+    though it still lives (the ladder's slow == failed policy)."""
+
+    def __init__(self, at_step: int, seconds: float):
+        self.at_step = at_step
+        self.seconds = seconds
+        self.fired = 0
+
+    def fire(self, event: str, **info):
+        if event == "cluster_step" and info.get("step") == self.at_step:
+            self.fired += 1
+            time.sleep(self.seconds)
+
+
+class DropBarrier(FaultInjector):
+    """Fail this rank's first ``count`` arrivals at sync barriers whose
+    name contains ``match``: a dropped collective.  The cluster counts the
+    failed attempt and retries with backoff, so ``count <=
+    barrier_retries`` heals transparently."""
+
+    def __init__(self, match: str = "", count: int = 1):
+        self.match = match
+        self.count = count
+        self.fired = 0
+
+    def fire(self, event: str, **info):
+        if event != "sync_barrier" or self.fired >= self.count:
+            return
+        if self.match in str(info.get("name", "")):
+            self.fired += 1
+            raise FaultError(
+                f"injected dropped barrier {info.get('name')!r} "
+                f"(attempt {info.get('attempt')})")
 
 
 # -- checkpoint corrupters ---------------------------------------------------

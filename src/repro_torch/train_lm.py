@@ -26,8 +26,9 @@ since the last refresh plus a drift sample, merged into the sorted index.
 Shards (``--shards S``): shard-by-example LGD, a ``ShardedLSHPipeline``
 of S per-shard indexes over contiguous corpus shards (one a
 data-parallel group), composed into one batch with weights S/(p·N), in
-one process on one device.  Several processes (one shard each) are
-ROADMAP.md queue 1 item 6b.
+one process on one device.  Several processes, one shard each, are
+``repro_torch.dist.multihost_worker`` (``python -m repro_torch.chaos
+--drill host-loss`` runs two).
 
 Optimizer (``--optimizer``): LGD replaces only the gradient ESTIMATOR,
 so any update rule's moments accumulate the unbiased estimate.  Besides
