@@ -281,6 +281,24 @@ adds:
       sync's ms with the gloo all-reduce inside it, kill to
       HostLossDetected, the adoption build, reform to first step, the
       checkpoint's bytes, each process's peak memory.
+The mesh slice (placement over several devices: ``DeviceMesh`` and
+DTensor parameters) adds:
+  4k. after 4j (``mesh_full_width``): phi4-mini at full width and 8 of
+      its 32 layers, bf16, under ``use_mesh(make_host_mesh())``, a 1 x 1
+      ``DeviceMesh`` on a one-rank NCCL group, every parameter a
+      DTensor: (a) ``make_batches(lgd=True)`` and ``make_trainer``, the
+      index build and 3 LGD steps, on the mesh and meshless from the
+      same seed: drawn ids, losses and every parameter after step 3
+      bitwise, the step p50 both ways; (b) the dry run's prefill step
+      (B 4, prompt 2,048) and 16 greedy serve steps on the mesh and
+      meshless: hidden states, logits and cache bitwise.  Launches read
+      from the mesh runs: simhash 1, bucket_probe >= 3, draw_assemble 3,
+      flash_attention 8, flash_decode 128.
+  4c, 4d, 4h, 4i and 3j / 4j's workers print each LGD index's fallback
+  diagnostics after its build and each refresh (``index-stats`` lines:
+  primary miss and fallback shares, distinct buckets a table, the
+  query's cosine to the mean live feature), and the drill's survivor
+  its degraded batches' fallback shares.
 Each phase prints the second it starts at.
 
 Imports torch, numpy and repro_torch only.  Without a CUDA device, or
@@ -444,6 +462,9 @@ MH_INTACT_FULL = ["--steps", "5", "--sync-every", "5", "--ckpt-every", "5"]
 # rows, 256 a process, and a global batch of 16 (8 x 512 tokens a process,
 # 4i's batch); the worker's sync refresh every 10 steps
 MH_ARCH, MH_CORPUS, MH_BATCH, MH_REFRESH = "zamba2_1_2b", 512, 16, 10
+# phase 4k: phi4-mini at full width and CUT_LAYERS deep under the host
+# mesh (1 x 1 on one card), against the same run meshless
+MESH_STEPS, MESH_NEW = 3, 16
 # 4j's fault-free run: windows wide enough that no legitimate wait ends
 # it; the drill's timeouts come from the waits it measures
 MH_WIDE_TIMEOUTS = ["--barrier-timeout", "600", "--heartbeat-timeout",
@@ -663,6 +684,46 @@ def refresh_health(sampler, tag: str, swaps: int) -> list:
     return recs
 
 
+def _index_line(st: dict) -> dict:
+    """One shard's ``index_stats`` cut to a line: the miss and fallback
+    shares, the distinct buckets a table (min / mean / max) and the
+    query's cosine to the mean live feature."""
+    b = st["buckets_per_table"]
+    return {"primary_miss_rate": st["primary_miss_rate"],
+            "fallback_rate": st["fallback_rate"], "draws": st["draws"],
+            "buckets_min_mean_max": [min(b), sum(b) / len(b), max(b)],
+            "query_feature_cos": st["query_feature_cos"]}
+
+
+def index_watch(tag: str, sampler) -> list:
+    """Print the LGD index's fallback diagnostics now (after its build)
+    and after each refresh that swaps in (checked when the trainer pushes
+    the post-step model, ``set_params``); returns the growing log."""
+    log, seen = [], [0]
+    first = getattr(sampler, "shards", [sampler])[0]
+
+    def emit(at):
+        st = sampler.index_stats()
+        shards = st.get("shards", [st])
+        row = {"at": at, "batches_drawn": first._step,
+               "shards": [_index_line(x) for x in shards]}
+        log.append(row)
+        print(f"index-stats {tag} " + json.dumps(row), flush=True)
+
+    inner = sampler.set_params
+
+    def set_params(params):
+        inner(params)
+        done = sum(r["ok"] is not None for r in sampler.refresh_records())
+        if done > seen[0]:
+            seen[0] = done
+            emit("refresh")
+
+    emit("build")
+    sampler.set_params = set_params
+    return log
+
+
 def streaming_card_vs_cpu(torch, np, dev, cfg_t, seq: int = 64) -> dict:
     """Phase 3d: phi4-mini SMOKE (f32) with the same weights on the card
     and the CPU, a streaming pipeline on each (window 256, delta refresh
@@ -826,6 +887,7 @@ def streaming_full_width(torch, np, dev, cfg_f, model, feature_batch) -> dict:
         feature_batch=feature_batch, params=model, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    index_log = index_watch("4d", sampler)
     tr = launch_train.make_trainer(cfg_f, model, steps=STREAM_STEPS,
                                    lr=1e-3, sampler=sampler)
     drawn, append_s, dts, losses = [], [], [], []
@@ -918,6 +980,7 @@ def streaming_full_width(torch, np, dev, cfg_f, model, feature_batch) -> dict:
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         losses=losses, weight_mean_max_dev=float((w_means - 1).abs().max()),
         fallback_rate=sampler.sampler_stats()["fallback_rate"],
+        index_stats=index_log,
         launches=launched)
 
 
@@ -2155,6 +2218,7 @@ def train_arch_full_width(torch, np, dev, kernels, configs, launch_train, LM,
                 c.refresh_every = 0
 
     sampler.next_batch = kept_batch
+    index_log = index_watch(f"4i {cfg.name}", sampler)
     tr = launch_train.make_trainer(
         cfg, model, steps=ARCH_STEPS, lr=1e-3, sampler=sampler,
         optimizer=pick_optimizer(arch),
@@ -2206,6 +2270,7 @@ def train_arch_full_width(torch, np, dev, kernels, configs, launch_train, LM,
         peak_mem_gb=peak_gb, losses=losses,
         weight_mean_max_dev=float((w_mean - 1).abs().max()),
         fallback_rate=sampler.sampler_stats()["fallback_rate"],
+        index_stats=index_log,
         launches=used)
     res["profile_step"] = trace_steps(torch, lambda: tr.run(1), 1)
     res["backward"] = mixer_backwards(torch, cfg, model)
@@ -2287,6 +2352,7 @@ def sharded_full_width(torch, np, dev, kernels, cfg_f, model,
                       extra={"step": tr.step, "n_shards": SHARDS})
             saved["save_s"] = time.perf_counter() - t1
 
+    index_log = index_watch("4h", sampler)
     tr = launch_train.make_trainer(
         cfg_f, model, steps=SHARD_STEPS, lr=1e-3, sampler=sampler,
         tcfg=TrainerConfig(log_every=10, step_hook=checkpoint))
@@ -2347,6 +2413,7 @@ def sharded_full_width(torch, np, dev, kernels, cfg_f, model,
         fallback_rate_per_shard=[p.sampler_stats()["fallback_rate"]
                                  for p in sampler.shards],
         fallback_rate_composed=sampler.sampler_stats()["fallback_rate"],
+        index_stats=index_log,
         losses=losses, launches=used, checkpoint_save_s=saved.get("save_s"))
     names = tr.named_params
     feature_batch = sampler.feature_batch
@@ -2590,6 +2657,12 @@ def mh_check_drill(tag: str, run: dict, stack, dev) -> dict:
         incident=r0["incident"], transitions=c["transitions"],
         events=c["events"], restore_step=r0["restore_step"],
         reform_shards=1, reform_writer=True, degraded_weight_means=dm,
+        # each degraded batch's uniform-fallback share (a mean weight of
+        # exactly 1.0 is what a wholly uniform batch gives)
+        degraded_fallback_shares=r0["degraded_fallback_shares"],
+        index_stats=[{"at": e["at"], "step": e["step"], "shards": [
+            _index_line(x) for x in e.get("shards", [e])]}
+            for e in r0["index_stats"]],
         losses_degraded=r0["losses_degraded"],
         losses_post=r0["losses_post"], replay_bitwise=True,
         replay_s=replay_s, launches=launched,
@@ -2711,6 +2784,197 @@ def multihost_full_width(torch, np, dev, single_p50: float) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def _whole(t):
+    """A DTensor as its full tensor; anything else as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _mesh_train(torch, np, dev, kernels, launch_train, LM, cfg, mesh):
+    """4k(a) once: the index build and MESH_STEPS LGD steps of ``cfg``
+    through ``launch.train``'s functions, on ``mesh`` or meshless."""
+    from repro_torch.dist.sharding import distribute_model, use_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with use_mesh(mesh):
+        model = distribute_model(LM.init(cfg, seed=0, device=dev), mesh)
+        t0 = time.perf_counter()
+        sampler, _ = launch_train.make_batches(
+            cfg, model, lgd=True, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            corpus=TRAIN_CORPUS, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ids, next_batch = [], sampler.next_batch
+
+        def kept_batch(*a, **kw):
+            b = next_batch(*a, **kw)
+            ids.append(_whole(b["example_ids"]))
+            return b
+
+        sampler.next_batch = kept_batch
+        tr = launch_train.make_trainer(cfg, model, steps=MESH_STEPS, lr=1e-3,
+                                       sampler=sampler)
+        starts, train_step = [], tr.train_step
+
+        def timed_step(batch):
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            return train_step(batch)
+
+        tr.train_step = timed_step
+        losses = tr.run(MESH_STEPS)["losses"]
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        del tr.train_step
+        tr.finalize()
+        used = {k: kernels.launches[k] for k in (
+            "simhash", "bucket_probe", "draw_assemble")}
+        params = {k: _whole(p).detach().clone()
+                  for k, p in model.named_parameters()}
+        placed = sum(hasattr(p, "placements") for p in model.parameters())
+        stats = sampler.sampler_stats()
+    dts = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    del tr, sampler, model, next_batch, kept_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, losses=losses, ids=ids, params=params,
+                step_ms=dts, step_ms_p50=float(np.percentile(dts, 50)),
+                launches=used, dtensor_params=placed,
+                fallback_rate=stats["fallback_rate"])
+
+
+def _mesh_serve(torch, dev, kernels, LM, cfg, mesh, prompts):
+    """4k(b) once: the dry run's prefill step, then MESH_NEW greedy serve
+    steps, on ``mesh`` or meshless; the hidden states, every step's
+    logits and the final cache, whole."""
+    from repro_torch.dist.sharding import distribute_model, use_mesh
+    from repro_torch.launch import dryrun
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with use_mesh(mesh), torch.no_grad():
+        model = distribute_model(LM.init(cfg, seed=0, device=dev), mesh)
+        prefill = dryrun.make_prefill_step(cfg)
+        serve = dryrun.make_serve_step(cfg)
+        b, s = prompts.shape
+        cache = model.init_cache(b, s + MESH_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h, cache = prefill(model, {"tokens": prompts}, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        hidden = _whole(h).clone()
+        nxt = _whole(model.embed_group.lm_logits(h[:, -1:])).argmax(-1)
+        logits, dts = [], []
+        for i in range(MESH_NEW):
+            t0 = time.perf_counter()
+            lg, cache = serve(model, {
+                "tokens": nxt.to(torch.int32),
+                "positions": torch.full((b, 1), s + i, dtype=torch.int32,
+                                        device=dev)}, cache)
+            lg = _whole(lg)
+            nxt = lg.argmax(-1)
+            torch.cuda.synchronize()
+            dts.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg.clone())
+        final = [{k: _whole(v).clone() for k, v in c.items()}
+                 for c in cache]
+        used = {k: kernels.launches[k] for k in (
+            "flash_attention", "flash_decode")}
+    del model, cache, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(hidden=hidden, logits=logits, cache=final, launches=used,
+                prefill_s=prefill_s, decode_ms=dts)
+
+
+def mesh_full_width(torch, np, dev, kernels, configs, launch_train,
+                    LM) -> dict:
+    """Phase 4k: placement over a mesh on the card.  phi4-mini at full
+    width and CUT_LAYERS of its 32 layers, bf16, under
+    ``use_mesh(make_host_mesh())``: a 1 x 1 ``DeviceMesh`` on a one-rank
+    NCCL group (an in-process store), every parameter a DTensor.  (a)
+    ``launch.train``'s ``make_batches(lgd=True)`` and ``make_trainer``:
+    the index build and MESH_STEPS LGD steps, on the mesh and meshless
+    from the same seed: the drawn example ids, the losses and every
+    parameter after the last step bitwise, the step p50 both ways
+    (DTensor's host cost on one card); (b) the dry run's prefill step (B
+    SERVE_B, prompt SERVE_PROMPT) and MESH_NEW greedy serve steps
+    (``launch.dryrun.make_prefill_step`` / ``make_serve_step``), on the
+    mesh and meshless: hidden states, every step's logits and the final
+    cache bitwise.  The launch counts are read from the mesh runs:
+    simhash, bucket_probe, draw_assemble (a) and flash_attention,
+    flash_decode (b) each at least once."""
+    from repro_torch.dist.sharding import host_local_mesh, mesh_axes
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh("cuda")
+    if tuple(mesh.mesh.shape) != (1, 1):
+        fail(f"4k: the host mesh of one card is {tuple(mesh.mesh.shape)}")
+    if host_local_mesh() is not None:
+        fail("4k: host_local_mesh() of one device is not None")
+    cfg = configs.get(SERVE_ARCH).with_(n_layers=CUT_LAYERS)
+    plain = _mesh_train(torch, np, dev, kernels, launch_train, LM, cfg, None)
+    meshed = _mesh_train(torch, np, dev, kernels, launch_train, LM, cfg, mesh)
+    n_params = len(plain["params"])
+    same_params = sum(torch.equal(plain["params"][k], meshed["params"][k])
+                      for k in plain["params"])
+    same_ids = len(plain["ids"]) == len(meshed["ids"]) and all(
+        torch.equal(a, b) for a, b in zip(plain["ids"], meshed["ids"]))
+    if meshed["dtensor_params"] != n_params:
+        fail(f"4k(a): {meshed['dtensor_params']} of {n_params} parameters "
+             "are DTensors on the mesh")
+    if not same_ids or plain["losses"] != meshed["losses"] or \
+            same_params != n_params:
+        fail(f"4k(a): the 1 x 1 mesh run is not the meshless run: ids "
+             f"{same_ids}, losses {meshed['losses']} vs {plain['losses']}, "
+             f"{same_params} of {n_params} parameters bitwise")
+    used_a = meshed["launches"]
+    if min(used_a.values()) < 1 or used_a["draw_assemble"] != MESH_STEPS:
+        fail(f"4k(a): launches on the mesh {used_a}")
+    scfg = cfg.with_(attn_impl="pallas")
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    prompts = torch.randint(0, scfg.vocab, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, dtype=torch.int32).to(dev)
+    plain_s = _mesh_serve(torch, dev, kernels, LM, scfg, None, prompts)
+    mesh_s = _mesh_serve(torch, dev, kernels, LM, scfg, mesh, prompts)
+    same_cache = all(torch.equal(a[k], b[k]) for a, b in zip(
+        plain_s["cache"], mesh_s["cache"]) for k in a)
+    same_logits = all(torch.equal(a, b) for a, b in zip(
+        plain_s["logits"], mesh_s["logits"]))
+    if not torch.equal(plain_s["hidden"], mesh_s["hidden"]) or \
+            not same_logits or not same_cache:
+        fail(f"4k(b): the 1 x 1 mesh serve is not the meshless serve: "
+             f"hidden {torch.equal(plain_s['hidden'], mesh_s['hidden'])}, "
+             f"logits {same_logits}, cache {same_cache}")
+    used_b = mesh_s["launches"]
+    if used_b != {"flash_attention": CUT_LAYERS,
+                  "flash_decode": CUT_LAYERS * MESH_NEW}:
+        fail(f"4k(b): launches on the mesh {used_b}: expected "
+             f"flash_attention {CUT_LAYERS}, flash_decode "
+             f"{CUT_LAYERS * MESH_NEW}")
+    return dict(
+        mesh=mesh_axes(mesh), layers=CUT_LAYERS, steps=MESH_STEPS,
+        train_bitwise=True, losses=meshed["losses"],
+        step_ms_p50_mesh=meshed["step_ms_p50"],
+        step_ms_p50_meshless=plain["step_ms_p50"],
+        step_ms_mesh=meshed["step_ms"], step_ms_meshless=plain["step_ms"],
+        index_build_s_mesh=meshed["build_s"],
+        index_build_s_meshless=plain["build_s"],
+        fallback_rate=meshed["fallback_rate"],
+        serve_bitwise=True, new_tokens=MESH_NEW,
+        prefill_s_mesh=mesh_s["prefill_s"],
+        prefill_s_meshless=plain_s["prefill_s"],
+        decode_ms_p50_mesh=float(np.percentile(mesh_s["decode_ms"], 50)),
+        decode_ms_p50_meshless=float(np.percentile(plain_s["decode_ms"],
+                                                   50)),
+        launches={**used_a, **used_b})
 
 
 def main() -> int:
@@ -4078,6 +4342,7 @@ def main() -> int:
             for c in (sampler.cfg, sampler.shards[0].cfg):
                 c.refresh_every = 0
 
+    index_log = index_watch("4c", sampler)
     tr = launch_train.make_trainer(
         cfg_f, model, steps=TRAIN_STEPS, lr=1e-3, sampler=sampler,
         tcfg=TrainerConfig(log_every=10, step_hook=one_refresh))
@@ -4133,6 +4398,7 @@ def main() -> int:
         step_ms_all=dts, sampler_overhead=tr.sampler_overhead,
         data_s=tr.data_seconds,
         fallback_rate=sampler.sampler_stats()["fallback_rate"],
+        index_stats=index_log,
         weight_mean_max_dev=float((w_means - 1).abs().max()),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         first_loss=losses[0], last_loss=losses[-1], losses=losses,
@@ -4256,6 +4522,13 @@ def main() -> int:
         for used in part["intact_launches"] + [part["drill"]["launches"]]:
             for kname, n_launch in used.items():
                 report["kernels"][kname]["launches"] += n_launch
+    # -- 4k. placement over a mesh: the 1 x 1 host mesh on the card -------
+    stamp("4k")
+    report["mesh"] = mesh_full_width(torch, np, dev, kernels, configs,
+                                     launch_train, LM)
+    print("mesh-4k " + json.dumps(report["mesh"]), flush=True)
+    for kname, n_launch in report["mesh"]["launches"].items():
+        report["kernels"][kname]["launches"] += n_launch
     print(f"chip_smoke total: {time.perf_counter() - t_script:.1f} s",
           flush=True)
 

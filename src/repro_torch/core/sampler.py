@@ -63,7 +63,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import on_cuda
+from repro_torch.kernels import any_dtensor, on_cuda
 from repro_torch.kernels.gather_weight import (
     draw_assemble_cuda, gather_weight_ref, law_code)
 
@@ -318,7 +318,15 @@ def draw_assemble(draws: SampleDraws, lo, hi, order, x_aug, queries,
     rows or None, weights or None).  CUDA tensors take the
     ``draw_assemble`` kernel, one launch (a family whose collision law
     the kernel does not know raises); CPU tensors take
-    ``draw_assemble_plain``."""
+    ``draw_assemble_plain``.  DTensor arguments (the mesh-replicated
+    store and index): the whole draw on every rank, replicated DTensors
+    out."""
+    if any_dtensor(lo, hi, order, x_aug, queries, store, starts,
+                   *draws):
+        from repro_torch.dist.sharding import replicated_call
+        return replicated_call(draw_assemble, draws, lo, hi, order, x_aug,
+                               queries, params, max_probes, masks, store,
+                               p_floor, n_live, starts)
     n_live = _live_count(n_live)
     if not on_cuda(queries):
         return draw_assemble_plain(draws, lo, hi, order, x_aug, queries,

@@ -86,8 +86,15 @@ contiguous corpus shards in one process on one device, each with its own
 stream, composed into one global batch with weights S/(p·N).  With
 ``owned_shards`` one process of a multi-process run draws its shards'
 slice of that batch (``repro_torch.dist.multihost_worker``: process r
-owns shard r, and survivors of a lost process ``adopt_shards``).  The
-placement over several devices is ROADMAP.md queue 1 item 6c.
+owns shard r, and survivors of a lost process ``adopt_shards``).  With
+``mesh=`` (a ``DeviceMesh``) the stores are replicated mesh-wide, every
+rank drawing every shard's sub-batch, and the global batch is a DTensor
+split over the mesh's data axes, a rank's part adopted without a copy
+where the shard count is the data-parallel degree
+(``dist.sharding.compose_sharded_batch``).  Features and queries from a
+model placed on the mesh are read whole on every rank
+(``dist.sharding.to_local_replicated``): the index they build is
+replicated too.
 
 Not ported: the legacy closure hooks.
 """
@@ -122,6 +129,7 @@ from repro_torch.core.families import normalize_rows
 from repro_torch.core.sampler import SampleDraws
 from repro_torch.dist.sharding import (
     compose_sharded_batch,
+    to_local_replicated,
     example_shard_bounds,
     shard_store_device,
 )
@@ -476,8 +484,9 @@ class LSHSampledPipeline:
         params = self.params if params is None else params
         store = self.store if store is None else store
         w, fb = self.row_width, self.feature_batch
-        raw = torch.cat([self.feature_fn(params, store[i:i + fb, :w - 1])
-                         for i in range(0, store.shape[0], fb)])
+        raw = torch.cat([to_local_replicated(
+            self.feature_fn(params, store[i:i + fb, :w - 1]))
+            for i in range(0, store.shape[0], fb)])
         if live is not None:
             raw = torch.where(live[:, None], raw, 0.0)
         if not self.family.asymmetric:
@@ -503,8 +512,9 @@ class LSHSampledPipeline:
         store = self.store if store is None else store
         rows = store.index_select(0, ids)[:, :self.row_width - 1]
         fb = self.feature_batch
-        raw = torch.cat([self.feature_fn(params, rows[i:i + fb])
-                         for i in range(0, rows.shape[0], fb)])
+        raw = torch.cat([to_local_replicated(
+            self.feature_fn(params, rows[i:i + fb]))
+            for i in range(0, rows.shape[0], fb)])
         if not self.family.asymmetric:
             return normalize_rows(raw)
         return self.family.augment_data(raw, scale=scale)
@@ -1260,7 +1270,8 @@ class LSHSampledPipeline:
     @torch.no_grad()
     def _query(self) -> torch.Tensor:
         # SRP normalises the query, MIPS appends the zero coordinate
-        return self.family.augment_query(self.query_fn(self.params))
+        return self.family.augment_query(
+            to_local_replicated(self.query_fn(self.params)))
 
     def _mark_dirty(self, indices: torch.Tensor):
         if self._track_dirty:
@@ -1287,6 +1298,30 @@ class LSHSampledPipeline:
             "primary_miss_rate": float(self._primary_miss_sum) / d,
             "last_fallback_rate": float(self._last_fallback),
         }
+
+    @torch.no_grad()
+    def index_stats(self) -> Dict[str, Any]:
+        """The fallback diagnostics of the live index (syncs): the
+        cumulative ``sampler_stats``, ``buckets_per_table`` (distinct
+        codes among each table's live rows) and ``query_feature_cos``
+        (the cosine of the current query to the mean live feature): a
+        query drifting away from the features, into empty buckets, shows
+        here before the fallback share rises."""
+        st = self.sampler_stats()
+        sc = self.index.sorted_codes
+        n = self._n_live if self.streaming else sc.shape[1]
+        live_sc = sc[:, :n]
+        buckets = ((live_sc[:, 1:] != live_sc[:, :-1]).sum(1) + 1
+                   if n else torch.zeros(sc.shape[0], dtype=torch.int64))
+        feats = self.features.double()
+        if self.streaming:
+            feats = feats[self._live_dev]
+        q = self._query().double()
+        mean = feats.mean(0)
+        cos = float(q @ mean / torch.clamp(q.norm() * mean.norm(),
+                                           min=1e-30))
+        return dict(st, buckets_per_table=[int(b) for b in buckets.cpu()],
+                    query_feature_cos=cos)
 
     def _draw_args(self):
         return dict(m=self.cfg.minibatch, example_offset=self.example_offset,
@@ -1384,6 +1419,9 @@ class ShardedLSHPipeline:
         as ``LSHSampledPipeline`` (``config.minibatch`` is the GLOBAL
         batch).
       n_shards: the number of per-shard indexes.
+      mesh: a ``DeviceMesh``: the global batch is a DTensor under
+        ``batch_sharding(mesh)`` (full ownership only; a partial owner's
+        batch is its local slice).  None: a plain tensor on ``device``.
       owned_shards: the shard ids this pipeline builds and draws from
         (default all).  A partial owner's ``next_batch`` is its local
         slice of the global batch with the GLOBAL weights; partial
@@ -1412,6 +1450,7 @@ class ShardedLSHPipeline:
         owned_shards: Optional[Sequence[int]] = None,
         device="cuda",
         projections: Optional[Sequence[torch.Tensor]] = None,
+        mesh=None,
     ):
         if config.minibatch % n_shards != 0:
             raise ValueError(
@@ -1446,6 +1485,7 @@ class ShardedLSHPipeline:
         self.n = tokens.shape[0]
         self.n_shards = n_shards
         self.owned = owned
+        self.mesh = mesh
         self.streaming = config.streaming
         self.feature_batch = feature_batch
         # adopt_shards rebuilds shards from the construction corpus
@@ -1489,7 +1529,8 @@ class ShardedLSHPipeline:
             self._feature_fn, self._query_fn, self._shard_cfg,
             feature_batch=self.feature_batch, params=params,
             example_offset=off,
-            device=shard_store_device(self.device, s, self.n_shards),
+            device=shard_store_device(self.device, s, self.n_shards,
+                                      mesh=self.mesh),
             projections=(None if self._projections is None
                          else self._projections[s]))
         p._refresh_lock = self._refresh_lock
@@ -1693,6 +1734,13 @@ class ShardedLSHPipeline:
                 np.mean([s["last_fallback_rate"] for s in per])),
         }
 
+    def index_stats(self) -> Dict[str, Any]:
+        """The owned shards' ``index_stats``, under ``shards``, beside
+        the composed ``sampler_stats``."""
+        return dict(self.sampler_stats(),
+                    shards=[dict(p.index_stats(), shard=s)
+                            for s, p in zip(self.owned, self.shards)])
+
     # -- batches ------------------------------------------------------------
 
     def next_batch(self, query: Optional[torch.Tensor] = None,
@@ -1708,7 +1756,7 @@ class ShardedLSHPipeline:
                              draws=None if draws is None else draws[i])
                 for i, p in enumerate(self.shards)]
         m_s = self.cfg.minibatch // self.n_shards
-        batch = {k: compose_sharded_batch([b[k] for b in subs], self.device)
+        batch = {k: self._compose([b[k] for b in subs])
                  for k in ("tokens", "targets", "example_ids")}
         # local 1/(p·n_s) -> global S/(p·N): each sample stands in for
         # N/S corpus rows under the batch mean; streaming takes the live
@@ -1719,16 +1767,21 @@ class ShardedLSHPipeline:
                       for p in self.shards]
         else:
             scales = [p.n * self.n_shards / self.n for p in self.shards]
-        w = compose_sharded_batch(
-            [b["loss_weights"] * sc for b, sc in zip(subs, scales)],
-            self.device)
+        w = self._compose(
+            [b["loss_weights"] * sc for b, sc in zip(subs, scales)])
         if self.cfg.normalize_weights:
             w = w / torch.clamp(w.mean(), min=1e-30)
         batch["loss_weights"] = w.to(torch.float32)
-        batch["shard_ids"] = compose_sharded_batch(
+        batch["shard_ids"] = self._compose(
             [torch.full((m_s,), s, dtype=torch.int32, device=self.device)
-             for s in self.owned], self.device)
+             for s in self.owned])
         return batch
+
+    def _compose(self, parts: list) -> torch.Tensor:
+        # the mesh composition lays out the FULL global batch; a partial
+        # owner's batch is its local slice, a plain concatenation
+        mesh = self.mesh if len(self.owned) == self.n_shards else None
+        return compose_sharded_batch(parts, self.device, mesh=mesh)
 
 
 def mean_pool_feature_fn(cfg):

@@ -163,6 +163,7 @@ class RecordBatches:
         self._inner = inner
         self.records: List[tuple] = []     # (ids bytes, weights bytes)
         self.weight_means: List[float] = []
+        self.fallback_shares: List[float] = []   # each batch's uniform share
         self.first: Optional[dict] = None
 
     def __getattr__(self, name):
@@ -174,6 +175,8 @@ class RecordBatches:
         w = b["loss_weights"].to(torch.float32).cpu().numpy()
         self.records.append((ids.tobytes(), w.tobytes()))
         self.weight_means.append(float(w.mean()))
+        self.fallback_shares.append(
+            self._inner.sampler_stats()["last_fallback_rate"])
         if self.first is None:
             self.first = {"example_ids": ids,
                           "tokens": b["tokens"].cpu().numpy(),
@@ -392,6 +395,17 @@ def run_worker(args, stack: Optional[Stack] = None) -> int:
                           device=device)
     _sync(device)
     timings["build_s"] = time.perf_counter() - t0
+    # the index's fallback diagnostics after each build and refresh
+    index_log: List[dict] = [dict(pipe.index_stats(), at="build", step=0)]
+    seen_refreshes = [0]
+
+    def log_refreshes(tr_, p_):
+        n_ref = len(p_.refresh_records())
+        if n_ref > seen_refreshes[0]:
+            seen_refreshes[0] = n_ref
+            index_log.append(dict(p_.index_stats(), at="refresh",
+                                  step=tr_.step))
+
     rec = RecordBatches(pipe)
     # checkpoints: rank 0 writes (one writer); every rank knows the path
     # for the reform restore
@@ -400,6 +414,7 @@ def run_worker(args, stack: Optional[Stack] = None) -> int:
     def timed_hook(tr_):
         elastic_hook(tr_)               # may raise HostLossDetected
         step_stamps.append(time.perf_counter())
+        log_refreshes(tr_, tr_.sampler)
 
     tcfg = TrainerConfig(
         ckpt_dir=args.ckpt_dir if args.rank == 0 else None,
@@ -428,6 +443,9 @@ def run_worker(args, stack: Optional[Stack] = None) -> int:
         _sync(device)
         timings["adopt_s"] = time.perf_counter() - t0
         cluster.note_adopted(tr.step, adopt)
+        index_log.append(dict(pipe.index_stats(), at="adoption",
+                              step=tr.step))
+        seen_refreshes[0] = len(pipe.refresh_records())
         # the raise unwound run() AFTER its prefetch draw: the old shards'
         # counters sit one draw ahead of tr.step.  Realign the whole
         # pipeline (counters only, no rebuild).
@@ -436,6 +454,7 @@ def run_worker(args, stack: Optional[Stack] = None) -> int:
         out_deg = tr.run(args.degraded_steps)
         result["losses_degraded"] = out_deg["losses"]
         result["degraded_weight_means"] = rec.weight_means[n_before:]
+        result["degraded_fallback_shares"] = rec.fallback_shares[n_before:]
         tr.finalize()
         result["pre_draws"] = n_before
         first = rec.first
@@ -456,12 +475,16 @@ def run_worker(args, stack: Optional[Stack] = None) -> int:
         step_r = extra.get("step", step_r)
         rec2 = RecordBatches(_rebuild_pipeline(model, step_r, n_surv, stack,
                                                device))
+        index_log.append(dict(rec2.index_stats(), at="rebuild",
+                              step=step_r))
+        seen_refreshes[0] = len(rec2.refresh_records())
 
         def mark_first_post_step(tr_):
             # restore + rebuild + the first post-reform step, one number
             timings.setdefault(
                 "reform_to_first_step_s",
                 time.perf_counter() - t_reform0)
+            log_refreshes(tr_, rec2)
 
         tr2 = Trainer(cfg, model, optimizer,
                       tcfg=TrainerConfig(
@@ -496,6 +519,7 @@ def run_worker(args, stack: Optional[Stack] = None) -> int:
 
     result["cluster"] = cluster.summary()
     result["timings"] = timings
+    result["index_stats"] = index_log
     if first is not None:
         result["first_batch"] = {
             "example_ids": first["example_ids"].tolist(),

@@ -6,13 +6,13 @@
   3. a fresh Trainer resumes from the last step deterministically and
      trains two thirds as many again
   4. the newest VERIFIED checkpoint is restored through
-     ``restore_latest_valid_on_mesh`` onto the one device, and
-     ``rescale_plan`` prints the elastic rescale policy for 256 -> 512
-     devices at a global batch of 512 (the reference example asks for a
-     batch of 256, which does not divide over 512 devices, so its
-     ``rescale_plan`` raises).  The reference restores onto a mesh of
-     several devices; placement over several devices is ROADMAP.md
-     queue 1 item 6c.
+     ``restore_latest_valid_on_mesh`` onto ``make_host_mesh()`` (this
+     process's ranks, (n, 1): 1 x 1 on one device, as the reference
+     example restores onto a (1, 1) mesh), every leaf a DTensor placed
+     by ``tree_param_shardings``, and ``rescale_plan`` prints the elastic
+     rescale policy for 256 -> 512 devices at a global batch of 512 (the
+     reference example asks for a batch of 256, which does not divide
+     over 512 devices, so its ``rescale_plan`` raises).
 
 Runs on the card unless ``--device cpu``.
 
@@ -26,7 +26,9 @@ import argparse
 import tempfile
 
 from repro_torch.data import make_token_corpus, uniform_batches
+from repro_torch.dist.sharding import mesh_axes
 from repro_torch.kernels import resolve_device
+from repro_torch.launch.mesh import host_mesh_scope
 from repro_torch.models import LM, ModelConfig
 from repro_torch.optim import Adam
 from repro_torch.train import Trainer, TrainerConfig
@@ -76,23 +78,29 @@ def main(argv=None) -> dict:
               f"loss {t2.metrics_history[-1]['loss']:.4f} "
               f"(pre-crash {loss_before_crash:.4f})")
 
-        # elastic restore: the same checkpoint onto this process's one
-        # device (on a fleet: the new device count's placement, item 6c)
+        # elastic restore: the same checkpoint onto the host mesh with
+        # the placements of tree_param_shardings (on a fleet: the new
+        # device count's mesh)
         model = LM.init(cfg, seed=0, device=device)
         named = dict(model.named_parameters())
         template = {"params": named,
                     "opt_state": Adam(lr=1e-2).init(
                         {k: p.detach() for k, p in named.items()})}
-        # integrity-checked selection: a checkpoint truncated by the
-        # "failure" would be skipped for the newest VALID one
-        step_v, state, extra = restore_latest_valid_on_mesh(d, template)
-        n = sum(x.numel() for x in state["params"].values())
-        print(f"phase 3: restored step {extra['step']} onto {device} "
-              f"({n / 1e6:.2f}M params)")
+        with host_mesh_scope(device.type) as mesh:
+            # integrity-checked selection: a checkpoint truncated by the
+            # "failure" would be skipped for the newest VALID one
+            step_v, state, extra = restore_latest_valid_on_mesh(
+                d, template, mesh, cfg=cfg)
+            n = sum(x.numel() for x in state["params"].values())
+            placed = all(hasattr(x, "placements")
+                         for x in state["params"].values())
+            print(f"phase 3: restored step {extra['step']} onto mesh "
+                  f"{mesh_axes(mesh)} ({n / 1e6:.2f}M params placed)")
         plan = rescale_plan(256, 512, global_batch=512)
         print("rescale plan 256->512 devices, global batch 512:", plan)
     return {"resumed_at": resumed_at, "final_step": t2.step,
-            "restored_step": step_v, "params": n, "plan": plan}
+            "restored_step": step_v, "params": n, "plan": plan,
+            "mesh": mesh_axes(mesh), "placed": placed}
 
 
 if __name__ == "__main__":

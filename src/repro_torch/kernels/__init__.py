@@ -15,6 +15,15 @@ Each kernel package (``simhash``, ``bucket_probe``, ``flash_attention``,
 Dispatch is by the tensor's device, the counterpart of the JAX
 package's ``default_use_pallas()`` backend check.
 
+Under a mesh an entry may receive DTensors.  No DTensor reaches a
+kernel's ``data_ptr``: the entry first maps them to local tensors with
+the placements its work needs (``repro_torch.dist.sharding``:
+``local_map`` for attention, local per batch row and head;
+``replicated_call`` for the LGD kernels, whose store and index are
+replicated mesh-wide), runs on those, and returns DTensors.  On a CUDA
+DTensor the kernel runs, or the call raises; ``on_cuda`` itself refuses
+a DTensor.
+
 One kernel has no ``ops.py`` entry of its own: ``draw_assemble``
 (``gather_weight/kernel.py``), Algorithm 1 after the probe plus the
 gather, whose plain version is the sampler's own composition; its
@@ -79,11 +88,29 @@ def round_up(a: int, b: int) -> int:
     return (a + b - 1) // b * b
 
 
+def is_dtensor(t) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor``."""
+    if type(t) is torch.Tensor or not isinstance(t, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def any_dtensor(*ts) -> bool:
+    return any(is_dtensor(t) for t in ts)
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     """True when ``t`` takes the kernel path; False for the plain path.
 
     Only a CPU tensor takes the plain version.  Any other device raises,
-    so no tensor silently leaves the kernel path."""
+    so no tensor silently leaves the kernel path, and so does a DTensor:
+    an entry maps DTensors to local tensors before it dispatches."""
+    if is_dtensor(t):
+        raise TypeError(
+            "a DTensor reached a kernel dispatch: the entry must map it to "
+            "its local tensor first (repro_torch.dist.sharding.local_map "
+            "or replicated_call)")
     if t.is_cuda:
         return True
     if t.device.type == "cpu":

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import on_cuda
+from .. import any_dtensor, on_cuda
 from .kernel import (
     bucket_probe_codes_cuda,
     bucket_probe_cuda,
@@ -28,7 +28,12 @@ def _check_tables(sorted_codes: torch.Tensor, l: int):
 
 def bucket_probe(q: torch.Tensor, w: torch.Tensor,
                  sorted_codes: torch.Tensor, *, k: int, l: int):
-    """Fused hash + probe -> (lo, hi) int32, (B, L) (or (L,) for 1-D q)."""
+    """Fused hash + probe -> (lo, hi) int32, (B, L) (or (L,) for 1-D q).
+    DTensor arguments (here and in the other probes): the probe of the
+    whole queries on every rank, replicated DTensors out."""
+    if any_dtensor(q, w, sorted_codes):
+        from repro_torch.dist.sharding import replicated_call
+        return replicated_call(bucket_probe, q, w, sorted_codes, k=k, l=l)
     squeeze = q.dim() == 1
     if squeeze:
         q = q[None]
@@ -52,6 +57,10 @@ def bucket_probe_multi(q: torch.Tensor, w: torch.Tensor,
 
     For each query, table and Hamming-ball probe mask, the [lo, hi) slice
     of the bucket whose code is ``code(q)[t] ^ masks[j]``."""
+    if any_dtensor(q, w, sorted_codes):
+        from repro_torch.dist.sharding import replicated_call
+        return replicated_call(bucket_probe_multi, q, w, sorted_codes,
+                               masks, k=k, l=l)
     squeeze = q.dim() == 1
     if squeeze:
         q = q[None]
@@ -71,6 +80,9 @@ def bucket_probe_multi(q: torch.Tensor, w: torch.Tensor,
 
 def bucket_probe_codes(qcodes: torch.Tensor, sorted_codes: torch.Tensor):
     """Probe pre-hashed query codes (B, L) or (L,) int64 (quadratic SRP)."""
+    if any_dtensor(qcodes, sorted_codes):
+        from repro_torch.dist.sharding import replicated_call
+        return replicated_call(bucket_probe_codes, qcodes, sorted_codes)
     squeeze = qcodes.dim() == 1
     if squeeze:
         qcodes = qcodes[None]

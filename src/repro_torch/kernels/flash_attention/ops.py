@@ -10,13 +10,19 @@ needs a gradient.
 The (B, S, H, D) activations and the (B, S_max, Hkv, D) cache reach the
 kernels as permuted views, and the kernels write the (B, S, Hq, D)
 result in place: no layout copy on the card.
+
+Under a mesh the entries take DTensors: attention is local per batch row
+and per head, so each rank runs the kernel (or, on the CPU, the plain
+version) on its own rows and heads (``dist.sharding.local_map``), where
+q and k/v are split alike; a split they do not share is gathered first
+(a sequence-sharded decode cache is all-gathered).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import on_cuda
+from .. import any_dtensor, on_cuda
 from .kernel import flash_attention_cuda, flash_decode_cuda
 from .ref import attention_ref, decode_ref
 
@@ -35,6 +41,12 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   use_kernel: bool = True) -> torch.Tensor:
     """Grouped-query attention: q (B, S, Hq, D), k/v (B, S, Hkv, D) ->
     (B, S, Hq, D)."""
+    if any_dtensor(q, k, v):
+        from repro_torch.dist.sharding import local_map
+        return local_map(
+            lambda *a: gqa_attention(*a, causal=causal,
+                                     use_kernel=use_kernel),
+            (q, k, v), ((0, 2),) * 3, ((0, 2),))
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     if hq % hkv:
@@ -58,6 +70,12 @@ def gqa_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                use_kernel: bool = True) -> torch.Tensor:
     """Single-token decode: q (B, 1, Hq, D) against the cache
     (B, S, Hkv, D), valid up to kv_len (B,) -> (B, 1, Hq, D)."""
+    if any_dtensor(q, k_cache, v_cache, kv_len):
+        from repro_torch.dist.sharding import local_map
+        return local_map(
+            lambda *a: gqa_decode(*a, use_kernel=use_kernel),
+            (q, k_cache, v_cache, kv_len),
+            ((0, 2), (0, 2), (0, 2), (0, None)), ((0, 2),))
     b, _, hq, d = q.shape
     hkv = k_cache.shape[2]
     g = hq // hkv

@@ -1,9 +1,17 @@
-"""Training launcher: ``--arch <id>`` on one device, the twin of
+"""Training launcher: ``--arch <id>`` on a mesh, the twin of
 ``python -m repro.launch.train``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi4_mini_3_8b \\
       --steps 50 [--full] [--lgd] [--ckpt DIR] [--batch 8] [--seq 64] \\
-      [--device cuda]
+      [--production-mesh [--multi-pod]] [--device cuda]
+
+As the reference launcher, it runs under ``make_host_mesh()`` ((n, 1)
+over this job's ranks: one card is a 1 x 1 mesh on a one-rank group),
+or ``make_production_mesh()`` with ``--production-mesh`` (16 x 16;
+2 x 16 x 16 with ``--multi-pod``), which needs a job of that many ranks
+(``torchrun``, one process a card); ``launch.dryrun`` rehearses those
+meshes without the devices.  The model's parameters are DTensors placed
+by ``dist.sharding.distribute_model``.
 
 Without ``--full`` it trains the arch's SMOKE config; every arch of
 ``repro_torch.configs`` builds, and an ``embed_stub`` arch (musicgen,
@@ -13,14 +21,20 @@ random from seed 0 and the corpus is ``make_token_corpus(0, ...)``, as
 in the reference.  With ``--lgd`` batches come from a
 ``ShardedLSHPipeline`` with one shard per data-parallel group, which is
 one on one card, with the refresh asynchronous (``refresh_async=True``),
-as the reference launcher builds it.  ``--ckpt DIR`` checkpoints every 50
+as the reference launcher builds it: one shard a data-parallel group
+when the batch divides over the mesh's data axes, else one index and
+plain batches.  ``--ckpt DIR`` checkpoints every 50
 steps into DIR and resumes from its newest valid checkpoint, as the
 reference launcher does.  Runs on the card unless ``--device cpu``.
+
+``load_model``, ``make_batches`` and ``make_trainer`` keep their meshless
+behaviour when called without a mesh.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 from typing import Optional
 
 from repro_torch import configs
@@ -32,7 +46,14 @@ from repro_torch.data import (
     mean_pool_feature_fn,
     uniform_batches,
 )
+from repro_torch.dist.sharding import (
+    data_axis_size,
+    distribute_model,
+    mesh_axes,
+    use_mesh,
+)
 from repro_torch.kernels import resolve_device
+from repro_torch.launch.mesh import host_mesh_scope, make_production_mesh
 from repro_torch.models import LM
 from repro_torch.optim import Adam, schedules
 from repro_torch.train import Trainer, TrainerConfig
@@ -52,27 +73,61 @@ def feature_batch_for(cfg, seq: int) -> int:
     return rows
 
 
-def load_model(arch: str, full: bool, device):
-    """The arch's FULL or SMOKE config and its model, random from seed 0."""
+def load_model(arch: str, full: bool, device, mesh=None):
+    """The arch's FULL or SMOKE config and its model, random from seed 0,
+    placed on ``mesh`` when one is given."""
     cfg = configs.get(arch) if full else configs.get_smoke(arch)
-    return cfg, LM.init(cfg, seed=0, device=device)
+    return cfg, distribute_model(LM.init(cfg, seed=0, device=device), mesh)
+
+
+def lgd_shards(mesh, batch: int) -> int:
+    """The reference launcher's shard count: one index a data-parallel
+    group when ``batch`` divides over the data axes, else one."""
+    dp = data_axis_size(mesh)
+    n_shards = dp if batch % dp == 0 else 1
+    if n_shards != dp:
+        print(f"WARNING: the DP degree {dp} does not divide batch={batch}; "
+              f"falling back to ONE global LSH index on plain batches "
+              f"(per-shard indexing disabled: every rank re-embeds the full "
+              f"corpus on refresh)")
+    return n_shards
 
 
 def make_batches(cfg, model, *, lgd: bool, batch: int, seq: int, corpus: int,
-                 device, refresh_every: int = 200, n_shards: int = 1):
+                 device, refresh_every: int = 200,
+                 n_shards: Optional[int] = None, mesh=None):
     """(sampler, batches): the LGD pipeline with ``n_shards`` per-shard
-    indexes (the data-parallel degree: 1 on one card), or uniform
-    batches."""
+    indexes, or uniform batches.  ``n_shards`` defaults to 1 without a
+    mesh and to ``lgd_shards(mesh, batch)`` with one; the composed
+    batches are placed on ``mesh`` when the shard count is its
+    data-parallel degree."""
     data = make_token_corpus(0, corpus, seq, cfg.vocab)
     if not lgd:
         return None, uniform_batches(data, batch, seed=1, device=device)
+    if n_shards is None:
+        n_shards = 1 if mesh is None else lgd_shards(mesh, batch)
+    place = mesh if mesh is not None and \
+        n_shards == data_axis_size(mesh) else None
     sampler = ShardedLSHPipeline(
         2, data.tokens, mean_pool_feature_fn(cfg), lm_head_query_fn(),
         LSHPipelineConfig(minibatch=batch, refresh_every=refresh_every,
                           refresh_async=True),
         n_shards=n_shards, feature_batch=feature_batch_for(cfg, seq),
-        params=model, device=device)
+        params=model, device=device, mesh=place)
     return sampler, None
+
+
+@contextlib.contextmanager
+def mesh_scope(args, device):
+    """The launcher's mesh for the block: the production mesh, else
+    the host mesh.  A mesh that cannot be built raises; a process group
+    made here is destroyed on the way out."""
+    if args.production_mesh or args.multi_pod:
+        yield make_production_mesh(multi_pod=args.multi_pod,
+                                   device_type=device.type)
+        return
+    with host_mesh_scope(device.type) as mesh:
+        yield mesh
 
 
 def make_trainer(cfg, model, *, steps: int, lr: float, sampler=None,
@@ -100,39 +155,35 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--full", action="store_true",
                     help="the FULL config (needs the card's memory)")
-    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="make_production_mesh() instead of the host mesh")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--lgd", action="store_true",
                     help="draw batches from the LSH-sampled pipeline")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "meshes are not ported: parameter and batch placement over "
-            "several devices is ROADMAP.md queue 1 item 6c; the port "
-            "trains on one device, with one LSH shard")
-
     device = resolve_device(args.device)
-    cfg, model = load_model(args.arch, args.full, device)
-    n = sum(p.numel() for p in model.parameters())
-    print(f"arch={cfg.name}  device={device}")
-    print(f"params: {n / 1e6:.1f}M")
-    if cfg.frontend == "embed_stub":
-        raise SystemExit(
-            f"{cfg.name} takes precomputed embeddings; use "
-            "examples/serve.py or the dryrun for this arch")
-    sampler, batches = make_batches(
-        cfg, model, lgd=args.lgd, batch=args.batch, seq=args.seq,
-        corpus=args.corpus, device=device)
-    tr = make_trainer(cfg, model, steps=args.steps, lr=args.lr,
-                      sampler=sampler, batches=batches,
-                      tcfg=TrainerConfig(ckpt_dir=args.ckpt, ckpt_every=50,
-                                         log_every=10))
-    if tr.step:
-        print(f"resumed at step {tr.step} from {args.ckpt}")
-    out = tr.run(args.steps)
-    tr.finalize()
+    with mesh_scope(args, device) as mesh, use_mesh(mesh):
+        cfg, model = load_model(args.arch, args.full, device, mesh)
+        n = sum(p.numel() for p in model.parameters())
+        print(f"arch={cfg.name}  device={device}  mesh={mesh_axes(mesh)}")
+        print(f"params: {n / 1e6:.1f}M, placed over {mesh.size()} ranks")
+        if cfg.frontend == "embed_stub":
+            raise SystemExit(
+                f"{cfg.name} takes precomputed embeddings; use "
+                "examples/serve.py or the dryrun for this arch")
+        sampler, batches = make_batches(
+            cfg, model, lgd=args.lgd, batch=args.batch, seq=args.seq,
+            corpus=args.corpus, device=device, mesh=mesh)
+        tr = make_trainer(cfg, model, steps=args.steps, lr=args.lr,
+                          sampler=sampler, batches=batches,
+                          tcfg=TrainerConfig(ckpt_dir=args.ckpt,
+                                             ckpt_every=50, log_every=10))
+        if tr.step:
+            print(f"resumed at step {tr.step} from {args.ckpt}")
+        out = tr.run(args.steps)
+        tr.finalize()
     for m in tr.metrics_history[-5:]:
         print(m)
     print(f"losses: first {out['losses'][0]:.4f}  last "

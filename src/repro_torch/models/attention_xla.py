@@ -10,13 +10,22 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import any_dtensor
 from ..kernels.flash_attention.ref import NEG_INF
 
 
 def chunked_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, block_q: int = 1024,
                           scale: float | None = None) -> torch.Tensor:
-    """q (B, S, Hq, D), k/v (B, S_kv, Hkv, D) -> (B, S, Hq, D)."""
+    """q (B, S, Hq, D), k/v (B, S_kv, Hkv, D) -> (B, S, Hq, D).  Under a
+    mesh each rank attends over its own batch rows and heads
+    (``dist.sharding.local_map``)."""
+    if any_dtensor(q, k, v):
+        from ..dist.sharding import local_map
+        return local_map(
+            lambda *a: chunked_gqa_attention(*a, causal=causal,
+                                             block_q=block_q, scale=scale),
+            (q, k, v), ((0, 2),) * 3, ((0, 2),))
     b, s, hq, d = q.shape
     s_kv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv

@@ -6,9 +6,12 @@ and its plain version for a CPU tensor (dispatch by device, as every
 kernel of the port); ``"ref"`` the plain version everywhere;
 ``"chunked"`` the plain q-blocked attention of ``attention_xla``.
 ``remat`` is honoured in training: with grad enabled each block runs
-under ``torch.utils.checkpoint``.  The other JAX execution knobs
-(``seq_shard``, ``scan_layers``) are kept so configs compare equal, and
-ignored: the port loops over layers in Python and has no mesh.
+under ``torch.utils.checkpoint``.  ``seq_shard`` places the residual
+entering each repeat of the block pattern over the sequence
+(``logical(x, "batch", "seq", None)``), which matters only under a mesh
+(``repro_torch.dist.sharding``).  ``scan_layers`` is a JAX execution knob,
+kept so configs compare equal, and ignored: the port loops over layers
+in Python.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ class ModelConfig:
     # execution knobs
     attn_impl: str = "chunked"        # chunked | ref | pallas
     attn_block_q: int = 512           # q-block of the chunked attention
-    seq_shard: bool = True            # JAX only: ignored
+    seq_shard: bool = True            # the residual's seq placement
     remat: bool = True                # checkpoint each block in training
     loss_chunk: int = 1024
     scan_layers: bool = True          # JAX only: ignored

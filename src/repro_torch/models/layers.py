@@ -6,8 +6,13 @@ The port of src/repro/models/layers.py, as ``nn.Module``s.  Parameters
 keep the reference's names, shapes and dtypes (``wq`` (d, Hq, Dh),
 ``wo`` (Hq, Dh, d), norm scales in f32 whatever the model dtype), so
 ``repro_torch.convert`` maps a reference pytree across leaf for leaf.
-There is no mesh in the port, so the reference's ``logical(...)``
-sharding annotations have no counterpart.
+Activations carry the reference's ``logical(...)`` annotations
+(``repro_torch.dist.sharding.logical``) at the same places: no-ops
+meshless; under ``use_mesh`` with DTensor parameters
+(``dist.sharding.distribute_model``) they redistribute the activations
+to the reference's placements.  The tensors a layer builds itself (RoPE
+tables, positions, cache rows) meet DTensor operands as replicated
+DTensors (``dist.sharding.replicate_like``).
 
 The KV cache is a dict ``{"k", "v", "len"}`` per layer, with k/v
 (B, S_max, Hkv, Dh) and len (B,) int32.  Unlike the reference, which
@@ -24,6 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import (is_dtensor, kv_heads_like_q, logical,
+                             merge_last, pinned_view, replicate_like,
+                             unflatten_last)
 from ..kernels.flash_attention import gqa_attention, gqa_decode
 from .attention_xla import chunked_gqa_attention
 from .config import ModelConfig
@@ -89,8 +97,9 @@ def rope_tables(positions: torch.Tensor, d: int, theta: float):
     Every layer of a step rotates by the same positions, so a model
     computes the tables once per step and hands them to each layer."""
     half = d // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=positions.device) / half)
+    freqs = replicate_like(
+        theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                device=positions.device) / half), positions)
     if positions.dim() == 1:
         positions = positions[None, :]
     ang = positions[..., None].float() * freqs                 # (B, S, half)
@@ -152,11 +161,16 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, d = x.shape
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-        h = self.norm(x)
+        # one all-gather of the (seq-sharded) residual per attention
+        # block, shared by the q/k/v projections
+        h = logical(self.norm(x), "batch", None, None)
         src = h if kv is None else kv
-        q = (h @ self.wq.view(d, hq * dh)).view(b, s, hq, dh)
-        k = (src @ self.wk.view(d, hkv * dh)).view(b, -1, hkv, dh)
-        v = (src @ self.wv.view(d, hkv * dh)).view(b, -1, hkv, dh)
+        q = logical(unflatten_last(h @ pinned_view(self.wq, (d, hq * dh)),
+                                   (hq, dh)), "batch", None, "heads", None)
+        k = logical(unflatten_last(src @ pinned_view(self.wk, (d, hkv * dh)),
+                                   (hkv, dh)), "batch", None, "heads", None)
+        v = logical(unflatten_last(src @ pinned_view(self.wv, (d, hkv * dh)),
+                                   (hkv, dh)), "batch", None, "heads", None)
         if kv is None:
             q, k = apply_rope(q, *rope_cs), apply_rope(k, *rope_cs)
             impl = cfg.attn_impl
@@ -165,31 +179,102 @@ class Attention(nn.Module):
         new_cache = None
         if cache is None or s > 1:
             # full sequence: training, or prefill writing the cache
+            kq, vq = kv_heads_like_q(q, k), kv_heads_like_q(q, v)
             if impl == "chunked":
-                out = chunked_gqa_attention(q, k, v, causal=causal,
+                out = chunked_gqa_attention(q, kq, vq, causal=causal,
                                             block_q=cfg.attn_block_q)
             else:
-                out = gqa_attention(q, k, v, causal=causal,
+                out = gqa_attention(q, kq, vq, causal=causal,
                                     use_kernel=impl == "pallas")
             if cache is not None:
-                cache["k"][:, :s] = k
-                cache["v"][:, :s] = v
-                cache["len"] = torch.full((b,), s, dtype=torch.int32,
-                                          device=x.device)
+                write_prefix(cache["k"], k)
+                write_prefix(cache["v"], v)
+                cache["len"] = _like_batch(replicate_like(
+                    torch.full((b,), s, dtype=torch.int32,
+                               device=x.device), cache["k"]), cache["k"])
                 new_cache = cache
         else:
             # one token: write it at each row's length, then attend over
             # len + 1 positions
-            idx = cache["len"].long()
-            rows = torch.arange(b, device=x.device)
-            cache["k"][rows, idx] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
+            write_rows(cache["k"], cache["len"], k[:, 0])
+            write_rows(cache["v"], cache["len"], v[:, 0])
             cache["len"] = cache["len"] + 1
             out = gqa_decode(q, cache["k"], cache["v"], cache["len"],
                              use_kernel=impl == "pallas")
             new_cache = cache
-        out = out.reshape(b, s, hq * dh) @ self.wo.view(hq * dh, d)
+        out = logical(merge_last(out) @ pinned_view(self.wo, (hq * dh, d)),
+                      "batch", None, None)
         return x + out, new_cache
+
+
+def _like_batch(t: torch.Tensor, cache_t: torch.Tensor) -> torch.Tensor:
+    """A (B,) tensor placed as the batch dim of the cache tensor
+    ``cache_t`` (a no-op meshless)."""
+    if not is_dtensor(cache_t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    want = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in cache_t.placements]
+    return t.redistribute(cache_t.device_mesh, want)
+
+
+def _local_window(cache_t: torch.Tensor, dim: int):
+    """(the local tensor, [lo, hi) of dimension ``dim`` it holds) of a
+    DTensor cache whose sharding splits ``dim`` evenly."""
+    from torch.distributed.tensor import Shard
+    coord = cache_t.device_mesh.get_coordinate()
+    # the mesh dims that split ``dim`` do so in mesh order, outermost first
+    lo, n = 0, cache_t.shape[dim]
+    for i, p in enumerate(cache_t.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            size = cache_t.device_mesh.mesh.shape[i]
+            n //= size
+            lo += coord[i] * n
+    return cache_t.to_local(), lo, lo + n
+
+
+def _value_on(value: torch.Tensor, cache_t: torch.Tensor) -> torch.Tensor:
+    """``value`` (a DTensor) as this rank's local tensor, with its batch
+    and head dims placed as the cache's and every other dim whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    want = [p if isinstance(p, Shard) and p.dim in (0, value.dim() - 2)
+            else Replicate() for p in cache_t.placements]
+    return value.redistribute(cache_t.device_mesh, want).to_local()
+
+
+def write_prefix(cache_t: torch.Tensor, value: torch.Tensor) -> None:
+    """``cache_t[:, :S] = value`` (prefill), in place.  Under a mesh the
+    cache may be sharded over its sequence dim (the dry run's decode
+    sharding): each rank writes the part of the prefix its shard holds."""
+    s = value.shape[1]
+    if not is_dtensor(cache_t):
+        cache_t[:, :s] = value
+        return
+    local, lo, hi = _local_window(cache_t, 1)
+    val = _value_on(value, cache_t)
+    if lo < s:
+        local[:, :min(hi, s) - lo] = val[:, lo:min(hi, s)].to(local.dtype)
+
+
+def write_rows(cache_t: torch.Tensor, lens: torch.Tensor,
+               value: torch.Tensor) -> None:
+    """``cache_t[b, lens[b]] = value[b]`` for every row b (a decode
+    step), in place; under a mesh each rank writes the rows and the
+    positions its shard holds."""
+    if not is_dtensor(cache_t):
+        rows = torch.arange(cache_t.shape[0], device=cache_t.device)
+        cache_t[rows, lens.long()] = value.to(cache_t.dtype)
+        return
+    local, lo, hi = _local_window(cache_t, 1)
+    val = _value_on(value[:, None], cache_t)[:, 0]
+    idx = _like_batch(lens, cache_t).to_local().long()
+    rows = torch.arange(local.shape[0], device=local.device)
+    mine = (idx >= lo) & (idx < hi)
+    # a row whose position another shard holds writes its own old value
+    pos = torch.where(mine, idx - lo, torch.zeros_like(idx))
+    old = local[rows, pos]
+    local[rows, pos] = torch.where(mine[:, None, None], val.to(local.dtype),
+                                   old)
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, max_len: int, device,
@@ -234,9 +319,14 @@ class MLP(nn.Module):
         normal_(self.w_down, generator, s_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.norm(x)
+        # ``up`` is placed (batch, -, ff): the projections need the whole
+        # sequence of the (seq-sharded) residual, gathered once on h
+        h = logical(self.norm(x), "batch", None, None)
+        up = logical(h @ self.w_up, "batch", None, "ff")
         gate = None if self.w_gate is None else h @ self.w_gate
-        return x + activation(self.cfg.act, h @ self.w_up, gate) @ self.w_down
+        out = logical(activation(self.cfg.act, up, gate) @ self.w_down,
+                      "batch", None, None)
+        return x + out
 
 
 # ---------------------------------------------------------------------------
@@ -260,21 +350,120 @@ class EmbedGroup(nn.Module):
         normal_(self.lm_head, generator, std)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens]
+        return logical(embedding(self.embed, tokens), "batch", None, None)
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
-        return self.final_norm(h) @ self.lm_head
+        h = logical(self.final_norm(h), "batch", None, None)
+        return logical(h @ self.lm_head, "batch", None, "vocab")
+
+
+def embedding(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Under a mesh the gather runs on the whole
+    table (each rank's copy, gathered from its shards: the rows a rank
+    needs can sit on any shard of the vocab axis) and this rank's token
+    ids; the result is placed as the ids.  Its backward accumulates the
+    rank's rows into a table gradient that is partial over the mesh dims
+    the ids are split on, reduced into the table's shards by the gather's
+    own backward (a reduce-scatter)."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Replicate
+    mesh = table.device_mesh
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return _LocalEmbedding.apply(whole, replicate_like(tokens, table))
+
+
+class _LocalEmbedding(torch.autograd.Function):
+    """The gather of ``embedding`` on local tensors (DTensor's own
+    sharding rule for an index of a replicated table by split ids is not
+    in every torch release): forward ``whole[ids]`` per rank, backward
+    the same ``index_put_`` accumulation aten's index backward makes."""
+
+    @staticmethod
+    def forward(ctx, whole, tokens):
+        from torch.distributed.tensor import DTensor
+        ids = tokens.to_local()
+        ctx.save_for_backward(ids)
+        ctx.spec = (whole.device_mesh, tuple(tokens.placements),
+                    tuple(whole.shape), whole.to_local().dtype)
+        out = whole.to_local()[ids]
+        return DTensor.from_local(out, tokens.device_mesh, tokens.placements,
+                                  run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        (ids,) = ctx.saved_tensors
+        mesh, placements, shape, dtype = ctx.spec
+        g = grad.redistribute(mesh, placements).to_local()
+        local = torch.zeros(shape, dtype=g.dtype, device=g.device)
+        local.index_put_((ids,), g, accumulate=True)
+        grad_pl = [Replicate() if p.is_replicate() else Partial()
+                   for p in placements]
+        return DTensor.from_local(local, mesh, grad_pl,
+                                  run_check=False), None
 
 
 def _chunk_xent(hx: torch.Tensor, tx: torch.Tensor, head: torch.Tensor,
                 w: torch.Tensor | None) -> torch.Tensor:
     """Summed next-token xent of one (B, c) chunk, f32 logits."""
-    logits = (hx @ head).float()                           # (B, c, V)
-    gold = logits.gather(-1, tx.long()[..., None])[..., 0]
-    xent = torch.logsumexp(logits, dim=-1) - gold          # (B, c)
+    logits = logical(hx @ head, "batch", None, "vocab").float()  # (B, c, V)
+    if _split(logits, 2) > 1:
+        xent = _vocab_parallel_xent(logits, tx)
+    else:
+        tx = replicate_like(tx, logits)
+        gold = logits.gather(-1, tx.long()[..., None])[..., 0]
+        xent = torch.logsumexp(logits, dim=-1) - gold      # (B, c)
     if w is not None:
         xent = xent * w[:, None]                           # LGD weights
     return xent.sum()
+
+
+def _split(t: torch.Tensor, dim: int) -> int:
+    """The ranks a DTensor's ``dim`` is split over (1 meshless)."""
+    if not is_dtensor(t):
+        return 1
+    n = 1
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            n *= t.device_mesh.mesh.shape[i]
+    return n
+
+
+def _vocab_parallel_xent(logits: torch.Tensor,
+                         tx: torch.Tensor) -> torch.Tensor:
+    """``logsumexp - gold`` of logits whose vocab dim is split over ranks,
+    without gathering it: each rank reduces its vocab shard (the max, the
+    sum of exponentials, the gold logit where the target falls in its
+    shard) and the shards' results are reduced across the ranks that
+    split the vocab.  Written on local tensors and partial placements,
+    not on DTensor's gather rule, whose masked partial differs between
+    torch releases."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    b, c, v = logits.shape
+    x = logits.reshape(b * c, v)
+    mesh = x.device_mesh
+    local, lo, _ = _local_window(x, 1)
+    rows = [p if p.is_shard(0) else Replicate() for p in x.placements]
+
+    def across_vocab(t, op):
+        # (N_local,) shard results -> reduced over the vocab's ranks
+        part = [Partial(op) if p.is_shard(1) else r
+                for p, r in zip(x.placements, rows)]
+        return DTensor.from_local(t, mesh, part, run_check=False) \
+            .redistribute(mesh, rows)
+
+    with torch.no_grad():
+        m = across_vocab(local.amax(dim=-1), "max").to_local()
+    s = across_vocab(torch.exp(local - m[:, None]).sum(dim=-1), "sum")
+    t = replicate_like(tx, x).reshape(b * c).redistribute(
+        mesh, rows).to_local() - lo
+    hit = (t >= 0) & (t < local.shape[1])
+    gold = local.gather(-1, torch.where(hit, t, 0)[:, None].long())[:, 0]
+    gold = across_vocab(torch.where(hit, gold, 0.0), "sum")
+    lse = torch.log(s) + DTensor.from_local(m, mesh, rows, run_check=False)
+    return (lse - gold).reshape(b, c)
 
 
 def chunked_cross_entropy(embed_group: EmbedGroup, cfg: ModelConfig,
@@ -291,12 +480,15 @@ def chunked_cross_entropy(embed_group: EmbedGroup, cfg: ModelConfig,
     logits at a time.  The sum is divided by B·S.
     """
     b, s, _ = h.shape
-    h = embed_group.final_norm(h)
+    # the chunks cut the sequence: gather the (seq-sharded) residual once
+    h = logical(embed_group.final_norm(h), "batch", None, None)
     c = min(cfg.loss_chunk, s)
     if s % c != 0:
         c = s
-    w = None if weights is None else weights.to(torch.float32)
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    w = None if weights is None else replicate_like(
+        weights.to(torch.float32), h)
+    total = replicate_like(torch.zeros((), dtype=torch.float32,
+                                       device=h.device), h)
     for i in range(0, s, c):
         args = (h[:, i:i + c], targets[:, i:i + c], embed_group.lm_head, w)
         total = total + (checkpoint(_chunk_xent, *args, use_reentrant=False)

@@ -15,8 +15,10 @@ The ``embed_stub`` frontend takes precomputed embeddings
 (``batch["embeds"]``, cast to the model dtype) in place of token ids.
 
 The reference stacks each pattern position's parameters over repeats
-and runs one ``lax.scan`` (with remat and sequence sharding); those are
-JAX execution knobs, and the port loops over its layers in Python.
+and runs one ``lax.scan`` with remat; the port loops over its layers in
+Python.  Its sequence sharding is the port's too: with ``seq_shard``
+the residual entering each repeat of the pattern is placed
+``logical(x, "batch", "seq", None)`` outside decode (a no-op meshless).
 Layer ``r * len(block_pattern) + j`` of the port is slice ``r`` of the
 reference's ``params["blocks"][j]``; the shared block is ``shared``,
 the reference's ``params["shared"]``, registered once, so it appears
@@ -50,6 +52,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import distribute_cache, logical, replicate_like
 from ..kernels import resolve_device
 from . import ssm
 from .config import ModelConfig
@@ -169,8 +172,11 @@ class LM(nn.Module):
         rope_cs = (rope_tables(positions, cfg.d_head, cfg.rope_theta)
                    if any(k in ATTN_KINDS for k in self.kinds) else None)
         remat = cache is None and cfg.remat and torch.is_grad_enabled()
+        period = len(cfg.block_pattern)
         for i in range(len(self.kinds)):
             blk = self._layer(i)
+            if cfg.seq_shard and not decode and i % period == 0:
+                x = logical(x, "batch", "seq", None)
             if remat:
                 x, _ = checkpoint(blk, x, rope_cs, image_mem,
                                   use_reentrant=False,
@@ -184,19 +190,21 @@ class LM(nn.Module):
 
     def _image_mem(self, batch, dtype):
         mem = batch.get("image_embeds")
-        return None if mem is None else mem.to(dtype)
+        return None if mem is None else replicate_like(
+            mem.to(dtype), self.embed_group.embed)
 
     def _embed(self, batch):
         if self.cfg.frontend == "embed_stub":
-            return batch["embeds"].to(self.dtype)
+            return replicate_like(batch["embeds"].to(self.dtype),
+                                  self.embed_group.embed)
         return self.embed_group.embed_tokens(batch["tokens"])
 
     def _prompt(self, batch):
         """(x, image memory, positions) of a full sequence."""
         x = self._embed(batch)
         b, s = x.shape[:2]
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device)[None].expand(b, s)
+        positions = replicate_like(torch.arange(
+            s, dtype=torch.int32, device=x.device)[None].expand(b, s), x)
         return x, self._image_mem(batch, x.dtype), positions
 
     def forward(self, batch) -> torch.Tensor:
@@ -228,15 +236,18 @@ class LM(nn.Module):
     def init_cache(self, batch: int, max_len: int) -> list:
         """One cache a layer, by kind: ``{"k", "v", "len"}`` for the
         attention kinds (each shared_attn occurrence its own), else
-        ``{"state": ...}`` with the mixer's zero state."""
+        ``{"state": ...}`` with the mixer's zero state.  A model placed on
+        a mesh gets DTensor caches, split over their batch dim where the
+        data axes divide it (``dist.sharding.distribute_cache``)."""
         cfg, dev = self.cfg, self.device
         states = {"mamba2": ssm.init_mamba2_state,
                   "mlstm": ssm.init_mlstm_state,
                   "slstm": ssm.init_slstm_state}
-        return [init_attention_cache(cfg, batch, max_len, dev, self.dtype)
-                if kind in ATTN_KINDS else
-                {"state": states[kind](cfg, batch, dev)}
-                for kind in self.kinds]
+        cache = [init_attention_cache(cfg, batch, max_len, dev, self.dtype)
+                 if kind in ATTN_KINDS else
+                 {"state": states[kind](cfg, batch, dev)}
+                 for kind in self.kinds]
+        return distribute_cache(cache, self.embed_group.embed)
 
     @torch.no_grad()
     def prefill(self, batch, cache: list):
@@ -251,7 +262,7 @@ class LM(nn.Module):
         token id (or ``embeds`` (B, 1, d)), ``positions`` (B, 1), and
         ``image_embeds`` for a cross-attention arch."""
         x = self._embed(batch)
-        return self._run(x, batch["positions"],
+        return self._run(x, replicate_like(batch["positions"], x),
                          self._image_mem(batch, x.dtype), cache, True)
 
     @torch.no_grad()

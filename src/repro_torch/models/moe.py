@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.sharding import is_dtensor, logical
 from .config import ModelConfig
 from .layers import RMSNorm, _param, normal_, rms_norm
 
@@ -80,34 +81,81 @@ class MoE(nn.Module):
         normal_(self.experts_down, generator, s_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, S, d) -> x + moe(x)."""
+        """x (B, S, d) -> x + moe(x).
+
+        Under a mesh the dispatch and the combine run on each rank's own
+        batch rows (a batch row is a dispatch group, so they never cross
+        a mesh axis): ``h`` is pinned to batch-only placement, as the
+        reference pins it, and the expert buffer is placed over
+        ``("batch", "experts")`` for the expert products."""
         cfg = self.cfg
         b, s, d = x.shape
         e, k = cfg.moe_experts, cfg.moe_top_k
         cap = capacity(cfg, s)
-        h = self.norm(x)
-        slot, keep, gate = dispatch_slots(h.float() @ self.router, k, cap)
-        # every entry's row in the B * E * C slots, and one row past them
-        # for the dropped entries: the reference scatters those out of
-        # range (dropped) and gathers zeros for them (the extra row of
-        # ``out_flat``).  No boolean indexing, so no host sync, and no
-        # atomics: the combine sums each token's k entries in order.
-        row = torch.arange(b, device=x.device)[:, None]
-        dest = torch.where(keep, row * (e * cap) + slot,
-                           torch.full_like(slot, b * e * cap)).view(-1)
-        token = (row * s + torch.arange(s * k, device=x.device) // k).view(-1)
-        buf = h.new_zeros((b * e * cap + 1, d)).index_copy(
-            0, dest, h.reshape(b * s, d)[token])[:-1]
-        # the expert products, batched over E: (E, B * C, d) @ (E, d, ff)
-        buf = buf.view(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+        h = logical(self.norm(x), "batch", None, None)
+        logits = h.float() @ self.router
+        buf, dest, gate = dispatch_local(
+            _local(h), _local(logical(logits, "batch", None, None)), k, cap)
+        # (B, E, C, d) placed over batch and experts: the expert products,
+        # batched over E, are (E, B * C, d) @ (E, d, ff)
+        buf = logical(_as_batch_dtensor(buf, h), "batch", "experts", None,
+                      None)
+        buf = buf.transpose(0, 1).reshape(e, b * cap, d)
         act = (F.silu(torch.bmm(buf, self.experts_gate))
                * torch.bmm(buf, self.experts_up))
         out_buf = torch.bmm(act, self.experts_down)          # (E, B*C, d)
-        out_flat = torch.cat([
-            out_buf.view(e, b, cap, d).transpose(0, 1).reshape(-1, d),
-            out_buf.new_zeros((1, d))])
-        contrib = out_flat[dest] * gate.to(h.dtype).view(-1, 1)
-        return x + contrib.view(b, s, k, d).sum(dim=2)
+        out_buf = logical(out_buf.view(e, b, cap, d).transpose(0, 1),
+                          "batch", "experts", None, None)
+        out = combine_local(_local(logical(out_buf, "batch", None, None,
+                                           None)), dest, gate, s, k)
+        return x + logical(_as_batch_dtensor(out, h), "batch", None, None)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a batch-placed DTensor (a plain tensor as
+    it is)."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _as_batch_dtensor(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's rows ``t`` as a DTensor placed as ``like`` (batch
+    only); ``t`` itself meshless."""
+    if not is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              run_check=False)
+
+
+def dispatch_local(h: torch.Tensor, logits: torch.Tensor, k: int, cap: int):
+    """The dispatch of local rows: h (b, S, d), router logits (b, S, E)
+    f32 -> (buf (b, E, C, d), dest, gate).
+
+    Every entry's row in the b * E * C slots, and one row past them for
+    the dropped entries: the reference scatters those out of range
+    (dropped) and gathers zeros for them (the extra row of the combine).
+    No boolean indexing, so no host sync, and no atomics: the combine
+    sums each token's k entries in order."""
+    b, s, d = h.shape
+    e = logits.shape[-1]
+    slot, keep, gate = dispatch_slots(logits, k, cap)
+    row = torch.arange(b, device=h.device)[:, None]
+    dest = torch.where(keep, row * (e * cap) + slot,
+                       torch.full_like(slot, b * e * cap)).view(-1)
+    token = (row * s + torch.arange(s * k, device=h.device) // k).view(-1)
+    buf = h.new_zeros((b * e * cap + 1, d)).index_copy(
+        0, dest, h.reshape(b * s, d)[token])[:-1]
+    return buf.view(b, e, cap, d), dest, gate
+
+
+def combine_local(out_buf: torch.Tensor, dest: torch.Tensor,
+                  gate: torch.Tensor, s: int, k: int) -> torch.Tensor:
+    """The combine of local rows: the expert outputs (b, E, C, d) ->
+    (b, S, d), each token the gated sum of its k entries in order."""
+    b, d = out_buf.shape[0], out_buf.shape[-1]
+    out_flat = torch.cat([out_buf.reshape(-1, d), out_buf.new_zeros((1, d))])
+    contrib = out_flat[dest] * gate.to(out_buf.dtype).view(-1, 1)
+    return contrib.view(b, s, k, d).sum(dim=2)
 
 
 def aux_load_balance_loss(moe: MoE, x: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.sharding import (elementwise, local_map, logical, merge_last,
+                             unflatten_last)
 from .config import ModelConfig
 from .layers import RMSNorm, _param, normal_
+
+# (batch dim, head dim) of the chunked core's operands and results
+_GLA_DIMS = ((0, 2), (0, 2), (0, 2), (0, 2), (0, 1))
+_GLA_STEP_DIMS = ((0, 1), (0, 1), (0, 1), (0, 1), (0, 1))
+_SLSTM_DIMS = ((0, 2),) * 4 + ((0, 1),)
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +101,17 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y[:, :s_orig].to(v.dtype), state
 
 
+def gla_core(q, k, v, log_a, chunk: int, state0=None):
+    """``gla_chunked`` on each rank's batch rows and heads under a mesh
+    (the core is local per row and per head); itself meshless.  A zero
+    initial state is the core's own."""
+    if state0 is None:
+        return local_map(lambda *a: gla_chunked(*a, chunk), (q, k, v, log_a),
+                         _GLA_DIMS[:4], ((0, 2), (0, 1)))
+    return local_map(lambda *a: gla_chunked(*a[:4], chunk, a[4]),
+                     (q, k, v, log_a, state0), _GLA_DIMS, ((0, 2), (0, 1)))
+
+
 def gla_decode_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     log_a: torch.Tensor, state: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -139,10 +157,13 @@ class Mamba2(nn.Module):
         cfg = self.cfg
         d_inner, nh, n = mamba_dims(cfg)
         b, s, _ = x.shape
-        proj = self.norm(x) @ self.in_proj
+        # the projection needs the whole sequence of the (seq-sharded)
+        # residual, gathered once on its norm
+        h = logical(self.norm(x), "batch", None, None)
+        proj = logical(h @ self.in_proj, "batch", None, "ff")
         xin, z, bmat, cmat, dt_raw = torch.split(
             proj, [d_inner, d_inner, n, n, nh], dim=-1)
-        xin = xin.reshape(b, s, nh, cfg.ssm_head_dim)
+        xin = unflatten_last(xin, (nh, cfg.ssm_head_dim))
         # F.softplus returns its input above its threshold of 20, where
         # jax.nn.softplus computes log1p(exp(x)); they differ there by
         # less than e^-20
@@ -156,20 +177,21 @@ class Mamba2(nn.Module):
 
     def _out(self, x, y, xin, z):
         y = y + xin * self.d_skip[:, None].to(xin.dtype)
-        y = y.reshape(x.shape[0], x.shape[1], -1) * F.silu(z)
-        return x + y @ self.out_proj
+        y = merge_last(y) * F.silu(z)
+        return x + logical(y @ self.out_proj, "batch", None, None)
 
     def forward(self, x: torch.Tensor, state: Optional[torch.Tensor] = None):
         """x (B, S, d) -> (x + mamba(x), state (B, H, N, P))."""
         q, k, v, log_a, xin, z = self._project(x)
-        y, state = gla_chunked(q, k, v, log_a, self.cfg.chunk, state)
+        y, state = gla_core(q, k, v, log_a, self.cfg.chunk, state)
         return self._out(x, y, xin, z), state
 
     def decode(self, x: torch.Tensor, state: torch.Tensor):
         """x (B, 1, d): the O(1) state update."""
         q, k, v, log_a, xin, z = self._project(x)
-        y, state = gla_decode_step(q[:, 0], k[:, 0], v[:, 0], log_a[:, 0],
-                                   state)
+        y, state = local_map(gla_decode_step,
+                             (q[:, 0], k[:, 0], v[:, 0], log_a[:, 0], state),
+                             _GLA_STEP_DIMS, ((0, 1), (0, 1)))
         return self._out(x, y[:, None], xin, z), state
 
 
@@ -206,14 +228,15 @@ class MLSTM(nn.Module):
         nh = cfg.n_heads
         dh = cfg.d_model // nh
         b, s, _ = x.shape
-        h = self.norm(x)
-        q, k, v = torch.chunk(h @ self.qkv_proj, 3, dim=-1)
-        q = q.reshape(b, s, nh, dh) * dh ** -0.5
-        k = k.reshape(b, s, nh, dh) * dh ** -0.5
-        v = v.reshape(b, s, nh, dh)
+        h = logical(self.norm(x), "batch", None, None)
+        qkv = logical(h @ self.qkv_proj, "batch", None, "ff")
+        q, k, v = torch.chunk(qkv, 3, dim=-1)
+        q = unflatten_last(q, (nh, dh)) * dh ** -0.5
+        k = unflatten_last(k, (nh, dh)) * dh ** -0.5
+        v = unflatten_last(v, (nh, dh))
         gates = (h @ self.gate_proj).float() + self.gate_bias
         i_gate, f_gate = torch.chunk(gates, 2, dim=-1)       # (B, S, nh)
-        log_f = F.logsigmoid(f_gate)                         # <= 0
+        log_f = elementwise(F.logsigmoid, f_gate)            # <= 0
         i_scale = torch.exp(torch.clamp(i_gate, max=0.0))    # stabilised exp
         # the normaliser is the same recurrence with v = 1: a last column
         v_ext = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
@@ -223,18 +246,20 @@ class MLSTM(nn.Module):
         dh = self.cfg.d_model // self.cfg.n_heads
         y, nrm = y_ext[..., :dh], y_ext[..., dh:]
         y = y / torch.clamp(nrm.abs(), min=1.0)
-        return x + y.reshape(x.shape[0], x.shape[1], -1) @ self.out_proj
+        out = merge_last(y) @ self.out_proj
+        return x + logical(out, "batch", None, None)
 
     def forward(self, x: torch.Tensor, state: Optional[torch.Tensor] = None):
         """x (B, S, d) -> (x + mlstm(x), state (B, H, dh, dh + 1))."""
         q, k, v_ext, log_f = self._project(x)
-        y_ext, state = gla_chunked(q, k, v_ext, log_f, self.cfg.chunk, state)
+        y_ext, state = gla_core(q, k, v_ext, log_f, self.cfg.chunk, state)
         return self._out(x, y_ext), state
 
     def decode(self, x: torch.Tensor, state: torch.Tensor):
         q, k, v_ext, log_f = self._project(x)
-        y_ext, state = gla_decode_step(q[:, 0], k[:, 0], v_ext[:, 0],
-                                       log_f[:, 0], state)
+        y_ext, state = local_map(
+            gla_decode_step, (q[:, 0], k[:, 0], v_ext[:, 0], log_f[:, 0],
+                              state), _GLA_STEP_DIMS, ((0, 1), (0, 1)))
         return self._out(x, y_ext[:, None]), state
 
 
@@ -324,12 +349,22 @@ class SLSTM(nn.Module):
     def forward(self, x: torch.Tensor, state=None):
         """x (B, S, d), state (c, n, m) or None -> (x + slstm(x), state).
         Decode is this call at S = 1 with the carried state."""
-        proj = (self.norm(x) @ self.in_proj).float()
+        h = logical(self.norm(x), "batch", None, None)
+        proj = (h @ self.in_proj).float()
         z, i, f, o = torch.chunk(proj, 4, dim=-1)
         if state is None:
             state = init_slstm_state(self.cfg, x.shape[0], x.device)
-        hs, state = slstm_scan(z, i, f, o, state)
-        return x + hs.to(x.dtype) @ self.out_proj, state
+        # per channel and per batch row: local under a mesh
+        hs, c, n, m = local_map(
+            lambda *a: _flat_scan(*a), (z, i, f, o, *state),
+            _SLSTM_DIMS[:4] + ((0, 1),) * 3, ((0, 2),) + ((0, 1),) * 3)
+        out = logical(hs.to(x.dtype) @ self.out_proj, "batch", None, None)
+        return x + out, (c, n, m)
+
+
+def _flat_scan(z, i, f, o, c0, n0, m0):
+    hs, (c, n, m) = slstm_scan(z, i, f, o, (c0, n0, m0))
+    return hs, c, n, m
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device):

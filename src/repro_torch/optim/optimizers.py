@@ -37,6 +37,8 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
+from repro_torch.kernels import is_dtensor
+
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
 
@@ -130,6 +132,23 @@ class _Optimizer:
         return upd, self.state_cls(state.step + 1, *slots)
 
 
+def _whole(t):
+    """A DTensor's full value on every rank; anything else unchanged."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _placed_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` with the placements of the DTensor ``like``: a DTensor is
+    redistributed (a partial one reduced), a plain whole tensor cut to
+    this rank's shard (no data moves)."""
+    if not is_dtensor(t):
+        from repro_torch.dist.sharding import shard_of
+        return shard_of(t, like.device_mesh, like.placements)
+    if tuple(t.placements) == tuple(like.placements):
+        return t
+    return t.redistribute(like.device_mesh, like.placements)
+
+
 @torch.no_grad()
 def update_in_place(optimizer: _Optimizer, params: dict, grads: dict, state):
     """One optimiser step over dicts of named tensors, IN PLACE.
@@ -137,11 +156,33 @@ def update_in_place(optimizer: _Optimizer, params: dict, grads: dict, state):
     Leaf by leaf: the update is added to ``params[k]`` and the new slots
     are copied into ``state``'s slot tensors, so one leaf's temporaries
     are the only transient memory.  Returns the state with its new step.
+
+    DTensor leaves (a model placed on a mesh): each gradient is first
+    placed as its parameter, the update and the new slots are placed as
+    the parameter and the old slots before the in-place writes, so a
+    slot placed apart from its parameter (the reference places optimiser
+    state by its own tree paths) is redistributed around the update.  An
+    optimiser whose slots do not follow a shard (``Adam8bit``'s
+    256-value blocks of the flattened leaf: ``_whole_leaves``) updates
+    the whole leaf on every rank from the gathered gradient.
     """
     sc = optimizer._scalars(state.step)
+    whole = getattr(optimizer, "_whole_leaves", False)
     for k, p in params.items():
         old = tuple(None if s is None else s[k] for s in state[1:])
-        upd, new = optimizer._leaf(grads[k], old, p, sc)
+        g = grads[k]
+        if is_dtensor(p):
+            g = _placed_as(g, p)
+            if whole:
+                upd, new = optimizer._leaf(
+                    _whole(g), old, None, tuple(_whole(x) for x in sc))
+            else:
+                upd, new = optimizer._leaf(g, old, p, sc)
+            upd = _placed_as(upd, p)
+            new = tuple(ns if o is None or not is_dtensor(o)
+                        else _placed_as(ns, o) for o, ns in zip(old, new))
+        else:
+            upd, new = optimizer._leaf(g, old, p, sc)
         p.add_(upd.to(p.dtype))
         del upd
         for o, ns in zip(old, new):
@@ -336,6 +377,8 @@ class Adam8bit(_Optimizer):
     block: int = 256
 
     state_cls = Adam8bitState
+    # a block of the flattened leaf does not follow a shard of the leaf
+    _whole_leaves = True
 
     def _slots(self, p):
         return (_quantized_zeros(p.shape, self.block, p.device),

@@ -29,6 +29,12 @@ truncated ``arrays.npz``, a deleted member or a flipped manifest byte
 makes the checkpoint INVALID.  ``latest_valid_step`` walks steps newest
 first and returns the first that passes.
 
+A DTensor leaf (a model or optimiser state placed on a mesh) is written
+as its full tensor, in the reference's bytes, so a checkpoint written
+under one mesh restores meshless or onto any other mesh, and the
+reverse: ``restore`` places each leaf as its template leaf (a DTensor
+template leaf keeps its placements) or by ``shardings``.
+
 ``AsyncCheckpointer.save`` copies the tree to host memory before it
 returns (the trainer updates parameters and optimiser slots in place, so
 the next step must not change what is being written); only the
@@ -55,6 +61,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import is_dtensor
 from repro_torch.optim import QTensor
 
 log = logging.getLogger("repro_torch.checkpoint")
@@ -146,6 +153,8 @@ def _host(leaf) -> np.ndarray:
     """A leaf as a numpy array that owns its memory (a copy: the caller
     goes on updating the tensor in place); bf16 as ``|V2`` bits."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(_V2)
@@ -301,11 +310,15 @@ class AsyncCheckpointer:
         self.write_s = 0.0
 
     def save(self, ckpt_dir: str, step: int, tree: Any,
-             extra: Optional[dict] = None):
+             extra: Optional[dict] = None, *, write: bool = True):
+        """``write=False``: the snapshot alone (a rank of a mesh that is not
+        the writer: gathering its DTensor leaves is collective)."""
         self.wait()
         t0 = time.perf_counter()
         host_tree = snapshot(tree)   # before training mutates the tensors
         self.snapshot_s = time.perf_counter() - t0
+        if not write:
+            return
 
         def _write():
             t1 = time.perf_counter()
@@ -372,8 +385,15 @@ def _tensor_like(arr: np.ndarray, tmpl) -> torch.Tensor:
     return t if want is None else t.to(want)
 
 
+def _distribute(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of the whole ``t`` (every rank read the same
+    bytes, so no data moves)."""
+    from repro_torch.dist.sharding import shard_of
+    return shard_of(t, mesh, placements)
+
+
 def restore(ckpt_dir: str, step: int, template: Any, *,
-            in_place: bool = False) -> tuple:
+            in_place: bool = False, shardings=None, mesh=None) -> tuple:
     """Restore into the structure of ``template``: (tree, extra).
 
     Each leaf comes back on the template leaf's device, in its dtype.
@@ -381,7 +401,15 @@ def restore(ckpt_dir: str, step: int, template: Any, *,
     (every leaf must be a tensor) and returns the template: one leaf at
     a time crosses from disk to the device, so no second copy of the
     state is ever held.
+
+    A DTensor template leaf gets this rank's shard under its own
+    placements.  ``shardings(path, template_leaf)`` -> placements (or
+    None: a plain tensor) places the leaves of a plain template onto
+    ``mesh`` (``train.elastic.restore_on_mesh``; not with ``in_place``).
     """
+    if shardings is not None and (mesh is None or in_place):
+        raise ValueError("shardings= needs mesh= and a restore that is "
+                         "not in place")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -397,13 +425,22 @@ def restore(ckpt_dir: str, step: int, template: Any, *,
                 raise ValueError(f"{path}: checkpoint shape {arr.shape} != "
                                  f"template {want}")
             t = _tensor_like(arr, tmpl)
+            if is_dtensor(tmpl):
+                t = _distribute(t.to(tmpl.device), tmpl.device_mesh,
+                                tmpl.placements)
             if in_place:
                 with torch.no_grad():
                     tmpl.copy_(t)
                 return tmpl
+            if is_dtensor(tmpl):
+                return t
+            dev = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
+            placements = (None if shardings is None
+                          else shardings(path, tmpl))
+            if placements is not None:
+                return _distribute(t.to(dev), mesh, placements)
             # a tensor of its own: ``t`` views the member's read-only bytes
-            return t.to(tmpl.device if isinstance(tmpl, torch.Tensor)
-                        else "cpu", copy=True)
+            return t.to(dev, copy=True)
 
         tree = _rebuild(template, load)
     return (template if in_place else tree), manifest.get("extra", {})

@@ -53,6 +53,13 @@ accumulates the host time spent drawing batches and
 
 Host syncs per step are the reference's: the finiteness flag and the
 loss are read once each (``bool``, ``float``).
+
+UNDER A MESH (a model placed by ``dist.sharding.distribute_model``): the
+optimiser state is placed by ``tree_param_shardings`` as the reference
+places its optimiser state (``distribute_state``), the loss and the
+gradients are DTensors, the global clip norm sums every shard's squares
+(a DTensor reduction over the whole mesh, read whole on every rank), and
+``optim.update_in_place`` places each update as its parameter.
 """
 
 from __future__ import annotations
@@ -63,6 +70,12 @@ from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
+from repro_torch.dist.sharding import (
+    distribute_state,
+    is_dtensor,
+    replicate_like,
+    to_local_replicated,
+)
 from repro_torch.optim import compression, update_in_place
 from . import checkpoint as ckpt
 
@@ -149,6 +162,14 @@ class Trainer:
         self.named_params = dict(params.named_parameters())
         self.opt_state = optimizer.init(
             {k: p.detach() for k, p in self.named_params.items()})
+        first = next(iter(self.named_params.values()))
+        self.mesh = first.device_mesh if is_dtensor(first) else None
+        if self.mesh is not None:
+            if tcfg.grad_compress:
+                raise NotImplementedError(
+                    "grad_compress is not ported to a mesh: the int8 "
+                    "compression runs on whole gradients")
+            self.opt_state = distribute_state(self.opt_state, self.mesh, cfg)
         self.loss_fn = loss_fn or (lambda p, b: p.loss(b))
         self.step = 0
         self.metrics_history = []
@@ -180,8 +201,8 @@ class Trainer:
         if accum == 1:
             loss = self.loss_fn(self.params, batch)
             loss.backward()
-            return loss.detach(), {k: p.grad
-                                   for k, p in self.named_params.items()}
+            return to_local_replicated(loss.detach()), {
+                k: p.grad for k, p in self.named_params.items()}
         total, acc = None, None
         for i in range(accum):
             mb = {k: _micro(v, accum, i) for k, v in batch.items()}
@@ -196,7 +217,8 @@ class Trainer:
             for p in self.named_params.values():
                 p.grad = None
         scale = 1.0 / accum
-        return total * scale, {k: g * scale for k, g in acc.items()}
+        return to_local_replicated(total) * scale, {
+            k: g * scale for k, g in acc.items()}
 
     def train_step(self, batch):
         """One optimiser step on ``batch``; returns (loss, grad_norm) as
@@ -214,8 +236,10 @@ class Trainer:
             if clip is not None or guard:
                 # one NaN/Inf anywhere propagates into the norm, so its
                 # finiteness checks the whole gradient
-                gnorm = torch.sqrt(sum(g.float().square().sum()
-                                       for g in grads.values()))
+                # under a mesh each square-sum is a reduction over every
+                # shard of its leaf
+                gnorm = to_local_replicated(torch.sqrt(sum(
+                    g.float().square().sum() for g in grads.values())))
             else:
                 gnorm = torch.zeros((), device=loss.device)
             ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm)) \
@@ -229,7 +253,7 @@ class Trainer:
                     scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9),
                                         max=1.0)
                     for g in grads.values():   # in place, in their dtype
-                        g.copy_(g.float().mul_(scale))
+                        g.copy_(g.float().mul_(replicate_like(scale, g)))
                 if self._sampler is not None:
                     self._sampler.before_param_update()
                 self.opt_state = update_in_place(
@@ -269,9 +293,13 @@ class Trainer:
         if self._sampler is not None and self._sampler.streaming:
             # the explicit append/evict log: a restore replays membership
             extra["mutation_log"] = self._sampler.mutation_log()
+        # under a mesh every rank gathers its shards (collective), rank 0
+        # writes
+        writer = self.mesh is None or self.mesh.get_rank() == 0
         self._ckpt.save(self.tcfg.ckpt_dir, self.step, self._state_tree(),
-                        extra=extra)
-        ckpt.keep_last(self.tcfg.ckpt_dir, self.tcfg.keep_ckpts)
+                        extra=extra, write=writer)
+        if writer:
+            ckpt.keep_last(self.tcfg.ckpt_dir, self.tcfg.keep_ckpts)
 
     def restore(self, step: int):
         """Load checkpoint ``step`` into the live parameters and optimiser

@@ -1,0 +1,208 @@
+"""The dry run on the fake production mesh, on the CPU.
+
+``launch.dryrun.run_cell`` builds each cell as rank 0 of a ``fake``
+group of 256 ranks (16 x 16) under ``FakeTensorMode``.  Here every
+arch's SMOKE config runs the train kind on a cut-down train shape
+(global batch 256, so the 16 data ranks divide it; 16 tokens a row,
+for the tier-1 budget: ``train_4k``'s 4,096 take ~75 s a SMOKE cell),
+and the SMOKE phi4-mini runs ``prefill_32k`` and ``decode_32k`` as
+they stand.  Checks:
+
+* each cell ends, or is skipped with ``shape_applicable``'s reason;
+* FLOPs a rank within a band of the roofline's ``model_flops``: at
+  least the useful 6·N·D (2·N·D) split evenly over the 256 ranks, at
+  most that work replicated over the 16-wide model axis (the SMOKE
+  widths do not divide it) times 4/3 for the remat's second forward,
+  plus, for the prefill, the masked S² attention that 2·N·D leaves out
+  (4·B·S²·H·Dh a layer, per rank);
+* the parameter and optimiser bytes a rank equal the sum of their local
+  shards, computed here from ``param_spec`` and the mesh's sizes (the
+  gradients, as DTensor's backward places them, hold at least as many);
+* a train cell reports a non-zero all-reduce or reduce-scatter; the
+  decode over the sequence-sharded cache all-gathers it in
+  ``gqa_decode``;
+* the FLOPs a rank exactly: on configs whose every width divides the
+  16-wide axes (d_model 256, 16 heads and 16 KV heads of 16, d_ff 512,
+  vocab 512, 16 experts of 256 for the MoE), the work splits evenly, so
+  rank 0's count equals ``FlopCounterMode``'s total of the same step
+  run meshless, over 256 (to rel 1e-9: both are sums of the same
+  integer formulas).  The Mamba-2 archs are left out: their scan does
+  not split over ``model`` (ROADMAP.md queue 3).
+"""
+
+import math
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, shape_applicable
+from repro_torch.dist import sharding as S
+from repro_torch.launch import dryrun, roofline
+
+ARCHS = configs.all_archs()
+TRAIN_CUT = ShapeSpec("train_4k_cut", 16, 256, "train")
+
+
+class Stub:
+    def __init__(self, shape):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+
+
+MESH = Stub({"data": 16, "model": 16})
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fake_group():
+    yield
+    # later tests in this process may build their own groups
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _local_numel(shape, spec) -> int:
+    n = 1
+    for d, axes in zip(shape, spec):
+        if axes is not None:
+            d //= S._axis_size(MESH, axes)
+        n *= d
+    return n
+
+
+def _expected_bytes(arch, cfg):
+    from repro_torch.models import LM
+    lm = LM(cfg, device="meta")
+    named = dict(lm.named_parameters())
+    params = sum(_local_numel(p.shape, S.param_spec(k, p.shape, MESH, cfg))
+                 * p.element_size() for k, p in named.items())
+    opt = dryrun.pick_optimizer(arch)
+    state = opt.init({k: torch.empty(p.shape, device="meta")
+                      for k, p in named.items()})
+    opt_bytes = state.step.element_size()
+    for f in state._fields[1:]:
+        for k, t in getattr(state, f).items():
+            opt_bytes += _local_numel(
+                t.shape, S.param_spec(k, t.shape, MESH, cfg, slot=f)) \
+                * t.element_size()
+    return params, opt_bytes
+
+
+_CELLS: dict = {}
+
+
+def _train_cell(arch):
+    if arch not in _CELLS:
+        _CELLS[arch] = dryrun.run_cell(arch, TRAIN_CUT,
+                                       cfg_override=configs.get_smoke(arch),
+                                       verbose=False)
+    return _CELLS[arch]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_train_cell(arch):
+    cfg = configs.get_smoke(arch)
+    r = _train_cell(arch)
+    assert "skipped" not in r and r["mesh"] == "16x16"
+    assert r["n_devices"] == 256 and r["output_shape"] == ()
+    mf = roofline.model_flops(cfg, TRAIN_CUT, 256)
+    assert mf <= r["flops_per_device"] <= mf * 16 * 4 / 3, \
+        r["flops_per_device"] / mf
+    params, opt_bytes = _expected_bytes(arch, cfg)
+    assert r["param_bytes_per_device"] == params
+    assert r["opt_bytes_per_device"] == opt_bytes
+    assert r["grad_bytes_per_device"] >= params
+    assert r["collectives"].get("all-reduce", 0) + \
+        r["collectives"].get("reduce-scatter", 0) > 0
+    assert r["peak_bytes_per_device"] >= params + opt_bytes
+    assert r["fits_80GB"] and r["bytes_per_device"] > 0
+
+
+def test_phi4_prefill_cell():
+    cfg = configs.get_smoke("phi4_mini_3_8b")
+    sh = SHAPES["prefill_32k"]
+    r = dryrun.run_cell("phi4_mini_3_8b", "prefill_32k", cfg_override=cfg,
+                        verbose=False)
+    assert r["output_shape"] == (sh.global_batch, sh.seq_len, cfg.d_model)
+    mf = roofline.model_flops(cfg, sh, 256)
+    attn = (4.0 * sh.global_batch * sh.seq_len ** 2 * cfg.n_heads
+            * cfg.d_head * cfg.n_layers / 256)
+    assert mf <= r["flops_per_device"] <= (mf + attn) * 16
+    assert r["collectives"]["all-gather"] > 0
+
+
+def test_phi4_decode_cell_gathers_the_sequence_sharded_cache():
+    cfg = configs.get_smoke("phi4_mini_3_8b")
+    sh = SHAPES["decode_32k"]
+    r = dryrun.run_cell("phi4_mini_3_8b", "decode_32k", cfg_override=cfg,
+                        verbose=False)
+    assert r["output_shape"] == (sh.global_batch, 1, cfg.vocab)
+    mf = roofline.model_flops(cfg, sh, 256)
+    assert mf <= r["flops_per_device"] <= mf * 16
+    site, nbytes = r["top_collectives"][0]
+    assert "gqa_decode" in site
+    # the whole K and V caches of each layer for this rank's 8 rows, bf16
+    # or f32 as the config: S_max x Hkv x Dh a row
+    rows = sh.global_batch // 16
+    itemsize = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    assert nbytes == 2 * cfg.n_layers * rows * sh.seq_len * \
+        cfg.n_kv_heads * cfg.d_head * itemsize
+
+
+def test_long_context_cell_is_skipped_for_attention_archs():
+    cfg = configs.get_smoke("phi4_mini_3_8b")
+    r = dryrun.run_cell("phi4_mini_3_8b", "long_500k", cfg_override=cfg,
+                        verbose=False)
+    assert r["skipped"] == shape_applicable(cfg, SHAPES["long_500k"])
+    assert shape_applicable(configs.get_smoke("zamba2_1_2b"),
+                            SHAPES["long_500k"]) is None
+
+
+def test_roofline_table_over_cells():
+    r = {**_train_cell("granite_3_8b"), "shape": "train_4k"}
+    # (the roofline keys its model FLOPs on SHAPES)
+    t = roofline.roofline_terms(r)
+    assert t["dominant"] in ("compute", "memory", "collective")
+    assert math.isfinite(t["step_time_lower_bound_s"])
+    table = roofline.build_table([r, {"arch": "x", "shape": "long_500k",
+                                      "skipped": "reason"}])
+    assert "granite_3_8b" in table and "SKIPPED" in table
+
+
+# widths that the 16-wide data and model axes divide
+EVEN = dict(d_model=256, n_heads=16, n_kv_heads=16, d_head=16, d_ff=512,
+            vocab=512)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("phi4_mini_3_8b", TRAIN_CUT),
+    ("phi4_mini_3_8b", ShapeSpec("prefill_cut", 16, 64, "prefill")),
+    ("granite_3_8b", TRAIN_CUT),
+    ("qwen3_moe_235b_a22b", TRAIN_CUT),
+])
+def test_flops_per_rank_equal_an_even_split(arch, shape):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.shapes import batch_specs, cache_specs
+    from repro_torch.models import LM
+
+    cfg = configs.get_smoke(arch).with_(**EVEN)
+    if cfg.moe_experts:
+        cfg = cfg.with_(moe_experts=16, moe_d_ff=256)
+    r = dryrun.run_cell(arch, shape, cfg_override=cfg, verbose=False)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        model = LM(cfg, device="cpu")
+        batch = {k: torch.zeros(s.shape, dtype=s.dtype)
+                 for k, s in batch_specs(cfg, shape).items()}
+        with FlopCounterMode(display=False) as fc:
+            if shape.kind == "train":
+                model.loss(batch).backward()
+            else:
+                cache = [dryrun._walk_zeros(c)
+                         for c in cache_specs(cfg, shape)]
+                with torch.no_grad():
+                    model.prefill(batch, cache)
+    assert r["flops_per_device"] == pytest.approx(
+        fc.get_total_flops() / 256, rel=1e-9)

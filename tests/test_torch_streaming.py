@@ -15,6 +15,12 @@
   bitwise after appends, a window auto-evict and an explicit evict,
   and batches drawn with the reference's draws (tokens and ids bitwise,
   weights rtol 1e-5).
+* One streaming run's cumulative fallback share (``sampler_stats``):
+  draws, ``fallback_rate``, ``primary_miss_rate`` and the last batch's
+  share equal the reference's exactly (the same projections and draws,
+  K 8 over ~100 live rows, so most exact buckets are empty), with the
+  port's ``index_stats`` (distinct buckets a table, the query-feature
+  cosine) computed on the reference's index too.
 * The reference's streaming contracts, each after the test it names in
   tests/test_streaming.py: append equals a fresh build's membership,
   evict-all-then-append, capacity growth and compaction, the weighted
@@ -346,6 +352,49 @@ def test_pipeline_mutations_and_draws_match_the_reference():
                                    np.asarray(bj["loss_weights"]), rtol=RTOL)
     assert got._refresh_count == ref._refresh_count == 1
     same()
+
+
+def test_cumulative_fallback_rate_matches_the_reference():
+    """A streaming SMOKE run (appends past the window, an evict, refreshes
+    every 4 steps) whose sparse K 8 buckets send many draws to the
+    uniform fallback: the cumulative diagnostics equal the reference's."""
+    toks = _tokens(96)
+    ref = _ref_pipe(toks, window=100, refresh_every=4, k=8)
+    got = _pipe(toks, window=100, refresh_every=4, k=8,
+                projections=t(ref.index.projections))
+    stream = jax.random.fold_in(jax.random.PRNGKey(7), SALT_STEP)
+    for step in range(12):
+        if step == 2:
+            extra = _tokens(10, seed=31)
+            got.append_rows(extra)
+            ref.append_rows(extra)
+        if step == 5:
+            gone = np.flatnonzero(got._live_np)[3:96]
+            got.evict_rows(gone)
+            ref.evict_rows(gone)
+        draws = jax_sample_draws(jax.random.fold_in(stream, step), 8,
+                                 max(2 * got.lsh.l, 8), got.lsh.l,
+                                 got.capacity, n_live=got.n_live)
+        ref.next_batch()
+        got.next_batch(draws=draws)
+    want, have = ref.sampler_stats(), got.sampler_stats()
+    assert have["draws"] == want["draws"] == 96
+    for k in ("fallback_rate", "primary_miss_rate", "last_fallback_rate"):
+        assert have[k] == pytest.approx(want[k], rel=0, abs=1e-12), k
+    assert 0 < have["fallback_rate"] < 1 and have["primary_miss_rate"] > 0
+    assert got._refresh_count == ref._refresh_count == 2
+    st = got.index_stats()
+    assert st["fallback_rate"] == have["fallback_rate"]
+    # the distinct buckets a table over the live prefix, as counted on the
+    # reference's index
+    sc = np.asarray(ref.index.sorted_codes)[:, :ref.n_live]
+    want_b = [len(np.unique(row)) for row in sc]
+    assert st["buckets_per_table"] == want_b
+    q = np.asarray(ref._query(), np.float64)
+    live = np.asarray(ref.features, np.float64)[ref._live_np]
+    mean = live.mean(0)
+    cos = float(q @ mean / (np.linalg.norm(q) * np.linalg.norm(mean)))
+    assert st["query_feature_cos"] == pytest.approx(cos, abs=1e-5)
 
 
 # -- the reference's streaming contracts (tests/test_streaming.py) ------------

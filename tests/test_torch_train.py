@@ -515,6 +515,12 @@ class TestLauncher:
         assert all(math.isfinite(v) for v in res["losses"])
 
     def test_mesh_flags_raise(self):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6c"):
+        """The production mesh is built, not refused: without its 256 (or
+        512) ranks, a process group that cannot hold it raises (the dry
+        run covers those meshes: tests/test_torch_dryrun.py)."""
+        with pytest.raises(RuntimeError, match="needs 256 ranks"):
             launch_train.main(["--arch", ARCH, "--production-mesh",
                                "--device", "cpu"])
+        with pytest.raises(RuntimeError, match="needs 512 ranks"):
+            launch_train.main(["--arch", ARCH, "--production-mesh",
+                               "--multi-pod", "--device", "cpu"])
