@@ -270,14 +270,17 @@ adds:
       bucket_probe and one draw_assemble a draw for each owned shard,
       simhash >= 1;
   4j. after 4i, the same at full width (``multihost_full_width``): two
-      processes share the card, each on zamba2 whole (bf16, Adam, 256
-      corpus rows and 8 x 512 tokens a process, the worker's sync refresh
-      every 10 steps).  A fault-free run (5 steps, the sync and an 11 GB
-      checkpoint at step 5) must show no incident; its longest barrier
+      processes share the card (the worker's ``r % device_count()``),
+      each on zamba2 at full width and MH_LAYERS (19) of its 38 layers,
+      one whole block pattern (bf16, Adam, 256 corpus rows and 8 x 512 tokens a
+      process, the worker's sync refresh every 10 steps).  A fault-free
+      run (5 steps, the sync and a ~5.6 GB checkpoint at step 5) must
+      show no incident; its longest barrier
       wait and longest gap between a rank's beats set the drill's barrier
       and heartbeat timeouts, printed beside them; then 3j(b)'s drill
       and checks.  Reported: each process's build s, step p10 / p50 with
-      two processes on the card beside 4i's one-process zamba2 p50, each
+      two processes on the card beside 4i's one-process zamba2 p50 (38
+      layers) and that p50 scaled by depth to MH_LAYERS, each
       sync's ms with the gloo all-reduce inside it, kill to
       HostLossDetected, the adoption build, reform to first step, the
       checkpoint's bytes, each process's peak memory.
@@ -291,9 +294,14 @@ DTensor parameters) adds:
       same seed: drawn ids, losses and every parameter after step 3
       bitwise, the step p50 both ways; (b) the dry run's prefill step
       (B 4, prompt 2,048) and 16 greedy serve steps on the mesh and
-      meshless: hidden states, logits and cache bitwise.  Launches read
-      from the mesh runs: simhash 1, bucket_probe >= 3, draw_assemble 3,
-      flash_attention 8, flash_decode 128.
+      meshless: hidden states, logits and cache bitwise; (c) one
+      ``grad_compress`` step (int8 compression with error feedback of
+      each leaf's whole gradient, the launcher's Adam and clip) on
+      uniform batches, on the mesh and meshless: the loss, every
+      parameter and the residual bitwise, the residual placed as its
+      parameter.
+      Launches read from the mesh runs: simhash 1, bucket_probe >= 3,
+      draw_assemble 3, flash_attention 8, flash_decode 128.
   4c, 4d, 4h, 4i and 3j / 4j's workers print each LGD index's fallback
   diagnostics after its build and each refresh (``index-stats`` lines:
   primary miss and fallback shares, distinct buckets a table, the
@@ -458,10 +466,13 @@ MH_INTACT = ["--steps", "10", "--sync-every", "5", "--ckpt-every", "10"]
 # 11 GB while rank 1 waits at the barrier), the longest legitimate wait
 # the drill's step 10 holds too
 MH_INTACT_FULL = ["--steps", "5", "--sync-every", "5", "--ckpt-every", "5"]
-# 4j: the arch 4i trains whole (23.7 GB peak with Adam); a corpus of 512
-# rows, 256 a process, and a global batch of 16 (8 x 512 tokens a process,
-# 4i's batch); the worker's sync refresh every 10 steps
+# 4j: an arch 4i trains whole with Adam, here at MH_LAYERS of its 38
+# layers, one whole block pattern (at 38 layers 4j took 295 s of the
+# script: its builds, refreshes and checkpoint I/O scale with depth); a
+# corpus of 512 rows, 256 a process, and a global batch of 16 (8 x 512
+# tokens a process, 4i's batch); the worker's sync refresh every 10 steps
 MH_ARCH, MH_CORPUS, MH_BATCH, MH_REFRESH = "zamba2_1_2b", 512, 16, 10
+MH_LAYERS = 19
 # phase 4k: phi4-mini at full width and CUT_LAYERS deep under the host
 # mesh (1 x 1 on one card), against the same run meshless
 MESH_STEPS, MESH_NEW = 3, 16
@@ -2475,8 +2486,8 @@ def _free_port() -> int:
 
 def mh_stack(name: str):
     """A worker's ``Stack``: "tiny" (the reference worker's model, corpus
-    and pipeline) or "full" (4j: MH_ARCH whole in bf16 on 4i's LGD recipe,
-    srp, K 7, L 10, 512-token rows from MH_CORPUS rows split over the two
+    and pipeline) or "full" (4j: MH_ARCH at MH_LAYERS in bf16 on 4i's LGD
+    recipe, srp, K 7, L 10, 512-token rows from MH_CORPUS rows split over the two
     processes, a global batch of MH_BATCH, with the worker's sync refresh
     every MH_REFRESH steps and raw weights, Adam)."""
     from repro_torch.dist import multihost_worker as mw
@@ -2485,7 +2496,7 @@ def mh_stack(name: str):
     from repro_torch import configs
     from repro_torch.data import LSHPipelineConfig
     from repro_torch.launch.train import feature_batch_for
-    cfg = configs.get(MH_ARCH)
+    cfg = configs.get(MH_ARCH).with_(n_layers=MH_LAYERS)
     return mw.Stack(
         model=cfg,
         pipe=LSHPipelineConfig(minibatch=MH_BATCH, refresh_every=MH_REFRESH,
@@ -2714,7 +2725,8 @@ def _steady_ms(stamps: list, skip: set) -> list:
 
 def multihost_full_width(torch, np, dev, single_p50: float) -> dict:
     """Phase 4j: two worker processes share the card, each running the
-    worker's code on ``mh_stack("full")`` (MH_ARCH whole, bf16, Adam).
+    worker's code on ``mh_stack("full")`` (MH_ARCH at MH_LAYERS, bf16,
+    Adam).
     First a fault-free run (MH_INTACT_FULL, barrier and heartbeat
     windows of MH_WIDE_TIMEOUTS): no incident, the launches, the longest
     barrier wait and the longest gap between a rank's beats; the drill's
@@ -2723,12 +2735,15 @@ def multihost_full_width(torch, np, dev, single_p50: float) -> dict:
     (``mh_check_drill``, the replay in this process).  Reported: each
     process's build s, the steady step p10 / p50 with two processes on
     the card (the fault-free run's steps 2-4 and the survivor's steps
-    2-12 but the syncs at 5 and 10) beside 4i's one-process p50, each
+    2-12 but the syncs at 5 and 10) beside 4i's one-process p50 (the
+    whole arch) and that p50 scaled by depth to MH_LAYERS, each
     sync's ms and the gloo all-reduce inside it, the kill to
     ``HostLossDetected``, the adoption build, reform to first step, the
     checkpoint's bytes, each process's peak memory."""
     import shutil
     import tempfile
+
+    from repro_torch import configs
 
     torch.cuda.synchronize()
     gc.collect()
@@ -2755,10 +2770,16 @@ def multihost_full_width(torch, np, dev, single_p50: float) -> dict:
     ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
                      for dp, _, fs in os.walk(ckpt_dir) for f in fs)
     res = dict(
-        arch=MH_ARCH, batch_per_process=MH_BATCH // 2,
+        arch=MH_ARCH, layers=MH_LAYERS,
+        batch_per_process=MH_BATCH // 2,
         seq=TRAIN_SEQ, corpus=MH_CORPUS, intact_launches=launched,
         build_s=[r["timings"]["build_s"] for r in run["results"]],
         one_process_p50_4i=single_p50,
+        # 4i's p50 times MH_LAYERS over the whole arch's layers (the
+        # embedding and the head, which do not scale, are a small part of
+        # a zamba2 step)
+        one_process_p50_4i_scaled=single_p50 * MH_LAYERS
+        / configs.get(MH_ARCH).n_layers,
         syncs=[dict(rank=r, **s) for r, res_ in enumerate(run["results"])
                for s in res_["timings"]["syncs"]],
         longest_barrier_wait_s=wait_max, longest_beat_gap_s=gap_max,
@@ -2894,6 +2915,42 @@ def _mesh_serve(torch, dev, kernels, LM, cfg, mesh, prompts):
                 prefill_s=prefill_s, decode_ms=dts)
 
 
+def _mesh_compress(torch, dev, launch_train, LM, cfg, mesh):
+    """4k(c) once: one ``grad_compress`` step of ``cfg`` on the launcher's
+    uniform batches (TRAIN_BATCH x TRAIN_SEQ), on ``mesh`` or meshless:
+    the loss, every parameter and the error-feedback residual after it
+    (whole, in host memory: the card holds one run's model, Adam state
+    and residual at a time), and whether each residual leaf is placed
+    as its parameter."""
+    from repro_torch.dist.sharding import distribute_model, use_mesh
+    from repro_torch.train import TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with use_mesh(mesh):
+        model = distribute_model(LM.init(cfg, seed=0, device=dev), mesh)
+        _, batches = launch_train.make_batches(
+            cfg, model, lgd=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            corpus=TRAIN_CORPUS, device=dev, mesh=mesh)
+        tr = launch_train.make_trainer(
+            cfg, model, steps=1, lr=1e-3, batches=batches,
+            tcfg=TrainerConfig(grad_compress=True, log_every=1))
+        losses = tr.run(1)["losses"]
+        tr.finalize()
+        params = {k: _whole(p).detach().cpu()
+                  for k, p in model.named_parameters()}
+        residual = {k: _whole(v).cpu() for k, v in tr._ef_residual.items()}
+        placed = all(
+            getattr(tr._ef_residual[k], "placements", None)
+            == getattr(p, "placements", None)
+            for k, p in model.named_parameters())
+    del tr, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, params=params, residual=residual,
+                placed=placed)
+
+
 def mesh_full_width(torch, np, dev, kernels, configs, launch_train,
                     LM) -> dict:
     """Phase 4k: placement over a mesh on the card.  phi4-mini at full
@@ -2908,7 +2965,10 @@ def mesh_full_width(torch, np, dev, kernels, configs, launch_train,
     SERVE_B, prompt SERVE_PROMPT) and MESH_NEW greedy serve steps
     (``launch.dryrun.make_prefill_step`` / ``make_serve_step``), on the
     mesh and meshless: hidden states, every step's logits and the final
-    cache bitwise.  The launch counts are read from the mesh runs:
+    cache bitwise; (c) one ``grad_compress`` step on uniform batches
+    (``_mesh_compress``) on the mesh and meshless: the loss, every
+    parameter and the residual bitwise, the residual placed as its
+    parameter.  The launch counts are read from the mesh runs:
     simhash, bucket_probe, draw_assemble (a) and flash_attention,
     flash_decode (b) each at least once."""
     from repro_torch.dist.sharding import host_local_mesh, mesh_axes
@@ -2959,9 +3019,30 @@ def mesh_full_width(torch, np, dev, kernels, configs, launch_train,
         fail(f"4k(b): launches on the mesh {used_b}: expected "
              f"flash_attention {CUT_LAYERS}, flash_decode "
              f"{CUT_LAYERS * MESH_NEW}")
+    for run in (plain_s, mesh_s):      # the card's memory, for (c)
+        for k in ("hidden", "logits", "cache"):
+            del run[k]
+    del plain["params"], meshed["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain_c = _mesh_compress(torch, dev, launch_train, LM, cfg, None)
+    mesh_c = _mesh_compress(torch, dev, launch_train, LM, cfg, mesh)
+    same_c = {what: sum(torch.equal(plain_c[what][k], mesh_c[what][k])
+                        for k in plain_c[what]) for what in
+              ("params", "residual")}
+    if plain_c["losses"] != mesh_c["losses"] or not mesh_c["placed"] or \
+            same_c != {w: len(plain_c[w]) for w in same_c}:
+        fail(f"4k(c): the compressed step on the 1 x 1 mesh is not the "
+             f"meshless one: losses {mesh_c['losses']} vs "
+             f"{plain_c['losses']}, bitwise leaves {same_c} of "
+             f"{len(plain_c['params'])}, residual placed as its parameter "
+             f"{mesh_c['placed']}")
+    del plain_c["params"], plain_c["residual"], mesh_c["params"], \
+        mesh_c["residual"]
     return dict(
         mesh=mesh_axes(mesh), layers=CUT_LAYERS, steps=MESH_STEPS,
         train_bitwise=True, losses=meshed["losses"],
+        compress_bitwise=True, compress_losses=mesh_c["losses"],
         step_ms_p50_mesh=meshed["step_ms_p50"],
         step_ms_p50_meshless=plain["step_ms_p50"],
         step_ms_mesh=meshed["step_ms"], step_ms_meshless=plain["step_ms"],

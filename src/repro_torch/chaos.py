@@ -167,6 +167,9 @@ def drill_host_loss(steps: int, verbose: bool = False,
         REFORMED from the newest verified checkpoint on 1 shard;
       * the post-reform stream's digest equals a fresh restore of the
         same checkpoint in THIS process (``replay_post_reform``).
+
+    Each worker takes its own card on a host with two (``worker_device``);
+    ``devices`` lists where each said it ran.
     """
     from repro_torch.dist.multihost_worker import replay_post_reform
     from repro_torch.testing import ProcKill
@@ -185,18 +188,26 @@ def drill_host_loss(steps: int, verbose: bool = False,
                   "--ckpt-dir", os.path.join(d, "ckpt"),
                   "--steps", str(steps), "--sync-every", "5",
                   "--ckpt-every", "10", "--device", device.type]
+        logs = [open(os.path.join(d, f"log{r}.txt"), "w") for r in (0, 1)]
         procs = [subprocess.Popen(
             common + ["--rank", str(r),
                       "--result", os.path.join(d, f"r{r}.json")]
             + (["--kill-at", "12"] if r == 1 else []),
-            env=env,
-            stdout=None if verbose else subprocess.DEVNULL,
-            stderr=None if verbose else subprocess.DEVNULL,
+            env=env, stdout=logs[r], stderr=subprocess.STDOUT,
         ) for r in (0, 1)]
         rcs = [p.wait(timeout=600) for p in procs]
+        devices = []
+        for f in logs:
+            f.close()
+            with open(f.name) as g:
+                text = g.read()
+            if verbose:
+                print(text, end="")
+            devices += [ln.split(" on ", 1)[1] for ln in text.splitlines()
+                        if ln.startswith("worker rank ")]
 
         report = {"fault": "host-loss", "steps": steps,
-                  "exit_codes": rcs, "survived": False}
+                  "exit_codes": rcs, "devices": devices, "survived": False}
         res_path = os.path.join(d, "r0.json")
         if rcs[0] != 0 or rcs[1] != ProcKill.EXIT_CODE or \
                 not os.path.exists(res_path):
@@ -244,6 +255,7 @@ def main(argv=None) -> int:
                             device=args.device)
         verdict = "SURVIVED" if r["survived"] else "DIED"
         print(f"[{verdict}] host-loss exit_codes={r['exit_codes']} "
+              f"devices={r['devices']} "
               f"incident={r.get('incident')} "
               f"reform_shards={r.get('reform_shards')} "
               f"digest_match={r.get('digest_match')} "

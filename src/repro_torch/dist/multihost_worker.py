@@ -40,8 +40,11 @@ config a caller passes to ``run_worker`` / ``build_pipeline`` /
 ``replay_post_reform`` (``chip_smoke.py`` runs zamba2 whole).  Faults are
 the deterministic injectors of ``repro_torch.testing`` (``ProcKill`` /
 ``ProcHang``), armed per rank from the command line.  Runs on the card
-unless ``--device cpu``; on the card the result also carries the kernels'
-launch counts at exit.
+unless ``--device cpu``: process r on card r when the host has a card a
+process, else on card ``r % device_count()`` (the processes share the
+cards; ``worker_device``; each process prints its device first).  On
+the card the result also carries the kernels' launch counts and the
+peak memory at exit.
 
 Usage (one line a process, one shared coordinator address):
 
@@ -347,6 +350,20 @@ def make_step_hook(cluster: ElasticCluster, timings: Optional[dict] = None):
     return hook
 
 
+def worker_device(device, rank: int) -> torch.device:
+    """Process ``rank``'s device, made the current card: a bare
+    ``"cuda"`` is ``cuda:card_for(rank)``, card ``rank`` when the host
+    has one for every process, else one that processes share; no card
+    raises, never falls back to the CPU."""
+    from repro_torch.kernels import card_for, resolve_device
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if torch.device(device).index is None:
+            dev = torch.device("cuda", card_for(rank))
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -354,7 +371,7 @@ def _sync(device):
 
 def run_worker(args, stack: Optional[Stack] = None) -> int:
     from repro_torch import kernels
-    from repro_torch.kernels import require_full_fp32, resolve_device
+    from repro_torch.kernels import require_full_fp32
     from repro_torch.models import LM
     from repro_torch.optim import Adam
     from repro_torch.testing import ProcHang, ProcKill
@@ -363,7 +380,8 @@ def run_worker(args, stack: Optional[Stack] = None) -> int:
     from repro_torch.train.elastic import restore_latest_valid_on_mesh
 
     stack = Stack() if stack is None else stack
-    device = resolve_device(args.device)     # no card: raise, never fall back
+    device = worker_device(args.device, args.rank)
+    print(f"worker rank {args.rank} on {device}", flush=True)
     if device.type == "cuda":
         require_full_fp32()
     mcfg = MultihostConfig(

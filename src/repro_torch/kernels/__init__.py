@@ -33,6 +33,7 @@ dispatch is ``core.sampler.draw_assemble``.
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
@@ -134,14 +135,38 @@ def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+# what torchrun sets in each process it starts
+JOB_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def in_job() -> bool:
+    """True in a process that ``torchrun`` started (its environment holds
+    ``JOB_ENV``); the one test of a job for the device and the group."""
+    return all(k in os.environ for k in JOB_ENV)
+
+
+def card_for(rank: int) -> int:
+    """The card of process ``rank`` on this host: its own card when the
+    host has one for it, else ``rank % device_count()`` (processes share
+    the cards)."""
+    return rank % torch.cuda.device_count()
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU, and an error (never a silent CPU run) when no card exists."""
+    the CPU, and an error (never a silent CPU run) when no card exists.
+
+    A bare ``"cuda"`` is the process's own card: ``cuda:LOCAL_RANK``
+    inside a ``torchrun`` job (``in_job``, ``card_for``), ``cuda:0``
+    outside one, whatever ``LOCAL_RANK`` alone says."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", card_for(
+            int(os.environ["LOCAL_RANK"])) if in_job() else 0)
     return dev
 
 

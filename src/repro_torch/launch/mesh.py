@@ -10,10 +10,15 @@ job launched with ``torchrun``; the dry run builds them on the ``fake``
 backend): a mesh that cannot be built raises.
 
 ``make_host_mesh()`` is the mesh of one host, ``(n, 1)`` ``("data",
-"model")`` over the ranks of the default group; a process that has no
-group yet gets a one-rank group on an in-process store
-(``HashStore``, no network), so one card is a 1 x 1 mesh.  The backend
-is NCCL for ``cuda`` and gloo for ``cpu``.
+"model")`` over the ranks of the default group, the reference's every
+device on ``data``.  Every entry point's group comes from
+``init_job_group``: a process that ``torchrun`` started (one process a
+card: ``torchrun --nproc-per-node n -m repro_torch.launch.train ...``)
+joins the job's group on its own card, ``cuda:LOCAL_RANK``; a lone
+process gets a one-rank group on an in-process store (``HashStore``, no
+network), so a lone process is a 1 x 1 mesh on card 0 however many
+cards the host has.  The backend is NCCL for ``cuda`` and gloo for
+``cpu``.
 
 Functions, so that importing this module touches no process group.
 """
@@ -24,6 +29,8 @@ import contextlib
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.kernels import in_job, resolve_device
 
 PRODUCTION_SHAPE = (16, 16)
 MULTI_POD_SHAPE = (2, 16, 16)
@@ -68,17 +75,40 @@ def init_local_group(device_type: str = "cuda") -> bool:
     return True
 
 
+def init_job_group(device_type: str = "cuda") -> bool:
+    """The default process group every entry point's mesh goes through,
+    unless one exists.  In a ``torchrun`` job (``in_job``) the process
+    takes its own card (``cuda:LOCAL_RANK``) and joins the job's group
+    (``init_method="env://"``); otherwise it is a lone process and gets
+    ``init_local_group``'s one rank.  True when it made a group."""
+    if dist.is_initialized():
+        return False
+    if not in_job():
+        return init_local_group(device_type)
+    if device_type == "cuda":
+        torch.cuda.set_device(resolve_device("cuda"))
+    dist.init_process_group(_backend(device_type), init_method="env://")
+    return True
+
+
 @contextlib.contextmanager
-def host_mesh_scope(device_type: str = "cuda"):
-    """``make_host_mesh(device_type)`` for the block; a process group it
-    had to make is destroyed on the way out, so an entry point called in
-    a longer-lived process leaves no group behind."""
-    made = init_local_group(device_type)
+def job_scope(device_type: str = "cuda"):
+    """``init_job_group(device_type)`` for the block; a group it made is
+    destroyed on the way out, so an entry point called in a longer-lived
+    process leaves no group behind."""
+    made = init_job_group(device_type)
     try:
-        yield make_host_mesh(device_type)
+        yield
     finally:
         if made and dist.is_initialized():
             dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def host_mesh_scope(device_type: str = "cuda"):
+    """``make_host_mesh(device_type)`` for the block, in ``job_scope``."""
+    with job_scope(device_type):
+        yield make_host_mesh(device_type)
 
 
 def init_fake_group(world: int) -> None:
@@ -100,13 +130,13 @@ def init_fake_group(world: int) -> None:
 
 def make_host_mesh(device_type: str = "cuda"):
     """``(n, 1)`` ``("data", "model")`` over the default group's n ranks
-    (a one-rank group on an in-process store when none exists)."""
+    (``init_job_group``'s when none exists: the job's, or one rank)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_host_mesh('cuda'): no CUDA device is "
                            "available; pass device_type='cpu'")
-    init_local_group(device_type)
+    init_job_group(device_type)
     n = dist.get_world_size()
     return DeviceMesh(device_type, torch.arange(n).reshape(n, 1),
                       mesh_dim_names=("data", "model"))

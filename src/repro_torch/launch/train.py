@@ -4,14 +4,21 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi4_mini_3_8b \\
       --steps 50 [--full] [--lgd] [--ckpt DIR] [--batch 8] [--seq 64] \\
       [--production-mesh [--multi-pod]] [--device cuda]
+  PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train ...
 
-As the reference launcher, it runs under ``make_host_mesh()`` ((n, 1)
-over this job's ranks: one card is a 1 x 1 mesh on a one-rank group),
-or ``make_production_mesh()`` with ``--production-mesh`` (16 x 16;
-2 x 16 x 16 with ``--multi-pod``), which needs a job of that many ranks
-(``torchrun``, one process a card); ``launch.dryrun`` rehearses those
-meshes without the devices.  The model's parameters are DTensors placed
-by ``dist.sharding.distribute_model``.
+As the reference launcher, it runs under ``make_host_mesh()``, (n, 1)
+over the job's n ranks, or ``make_production_mesh()`` with
+``--production-mesh`` (16 x 16; 2 x 16 x 16 with ``--multi-pod``), which
+needs a job of that many ranks; ``launch.dryrun`` rehearses those meshes
+without the devices.  Under ``torchrun`` (one process a card) every
+process joins the job's group on its own card (``launch.mesh.
+init_job_group``); a lone process is one rank on card 0, a 1 x 1 mesh,
+and its ``mesh=`` line says how many cards it leaves idle.  The model's
+parameters are DTensors placed by ``dist.sharding.distribute_model``;
+uniform batches are cut to each rank's data-parallel rows when the
+batch divides over the data axes.  Only rank 0 prints; its last line,
+``ranks {...}``, holds every rank's device, peak memory, kernel launches
+and losses.
 
 Without ``--full`` it trains the arch's SMOKE config; every arch of
 ``repro_torch.configs`` builds, and an ``embed_stub`` arch (musicgen,
@@ -23,9 +30,9 @@ in the reference.  With ``--lgd`` batches come from a
 one on one card, with the refresh asynchronous (``refresh_async=True``),
 as the reference launcher builds it: one shard a data-parallel group
 when the batch divides over the mesh's data axes, else one index and
-plain batches.  ``--ckpt DIR`` checkpoints every 50
-steps into DIR and resumes from its newest valid checkpoint, as the
-reference launcher does.  Runs on the card unless ``--device cpu``.
+plain batches.  ``--ckpt DIR`` checkpoints every 50 steps into DIR and
+resumes from its newest valid checkpoint, as the reference launcher
+does.  Runs on the card unless ``--device cpu``.
 
 ``load_model``, ``make_batches`` and ``make_trainer`` keep their meshless
 behaviour when called without a mesh.
@@ -35,9 +42,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 from typing import Optional
 
-from repro_torch import configs
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs, kernels
 from repro_torch.data import (
     LSHPipelineConfig,
     ShardedLSHPipeline,
@@ -47,13 +58,18 @@ from repro_torch.data import (
     uniform_batches,
 )
 from repro_torch.dist.sharding import (
+    compose_sharded_batch,
     data_axis_size,
     distribute_model,
     mesh_axes,
     use_mesh,
 )
-from repro_torch.kernels import resolve_device
-from repro_torch.launch.mesh import host_mesh_scope, make_production_mesh
+from repro_torch.kernels import in_job, resolve_device
+from repro_torch.launch.mesh import (
+    job_scope,
+    make_host_mesh,
+    make_production_mesh,
+)
 from repro_torch.models import LM
 from repro_torch.optim import Adam, schedules
 from repro_torch.train import Trainer, TrainerConfig
@@ -85,12 +101,21 @@ def lgd_shards(mesh, batch: int) -> int:
     group when ``batch`` divides over the data axes, else one."""
     dp = data_axis_size(mesh)
     n_shards = dp if batch % dp == 0 else 1
-    if n_shards != dp:
+    if n_shards != dp and mesh.get_rank() == 0:
         print(f"WARNING: the DP degree {dp} does not divide batch={batch}; "
               f"falling back to ONE global LSH index on plain batches "
               f"(per-shard indexing disabled: every rank re-embeds the full "
               f"corpus on refresh)")
     return n_shards
+
+
+def placed_batches(batches, device, mesh):
+    """Each batch of ``batches`` (the global batch, drawn alike on every
+    rank) under ``batch_sharding(mesh)``: this rank's data-parallel rows
+    (``compose_sharded_batch`` of one part)."""
+    for b in batches:
+        yield {k: compose_sharded_batch([v], device, mesh=mesh)
+               for k, v in b.items()}
 
 
 def make_batches(cfg, model, *, lgd: bool, batch: int, seq: int, corpus: int,
@@ -100,10 +125,13 @@ def make_batches(cfg, model, *, lgd: bool, batch: int, seq: int, corpus: int,
     indexes, or uniform batches.  ``n_shards`` defaults to 1 without a
     mesh and to ``lgd_shards(mesh, batch)`` with one; the composed
     batches are placed on ``mesh`` when the shard count is its
-    data-parallel degree."""
+    data-parallel degree, uniform ones when the batch divides over it."""
     data = make_token_corpus(0, corpus, seq, cfg.vocab)
     if not lgd:
-        return None, uniform_batches(data, batch, seed=1, device=device)
+        batches = uniform_batches(data, batch, seed=1, device=device)
+        if mesh is not None and batch % data_axis_size(mesh) == 0:
+            batches = placed_batches(batches, device, mesh)
+        return None, batches
     if n_shards is None:
         n_shards = 1 if mesh is None else lgd_shards(mesh, batch)
     place = mesh if mesh is not None and \
@@ -119,15 +147,41 @@ def make_batches(cfg, model, *, lgd: bool, batch: int, seq: int, corpus: int,
 
 @contextlib.contextmanager
 def mesh_scope(args, device):
-    """The launcher's mesh for the block: the production mesh, else
-    the host mesh.  A mesh that cannot be built raises; a process group
-    made here is destroyed on the way out."""
-    if args.production_mesh or args.multi_pod:
-        yield make_production_mesh(multi_pod=args.multi_pod,
-                                   device_type=device.type)
-        return
-    with host_mesh_scope(device.type) as mesh:
-        yield mesh
+    """The launcher's mesh for the block, over the job's group
+    (``job_scope``): the production mesh, else the host mesh.  A mesh
+    that cannot be built raises; a process group made here is destroyed
+    on the way out."""
+    with job_scope(device.type):
+        yield (make_production_mesh(multi_pod=args.multi_pod,
+                                    device_type=device.type)
+               if args.production_mesh or args.multi_pod
+               else make_host_mesh(device.type))
+
+
+def mesh_line(cfg, device, mesh) -> str:
+    """The ``mesh=`` line; a lone process on a host of n > 1 cards says
+    that it uses one of them and how to use them all."""
+    line = f"arch={cfg.name}  device={device}  mesh={mesh_axes(mesh)}"
+    if device.type == "cuda" and not in_job() and \
+            torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        line += (f"  (1 of {n} cards; `torchrun --nproc-per-node {n} -m "
+                 f"repro_torch.launch.train ...` for the ({n}, 1) host "
+                 f"mesh)")
+    return line
+
+
+def rank_reports(device, losses) -> list:
+    """Every rank's device, current card, peak memory, kernel launches
+    and losses (a collective: every rank calls it; all get the list)."""
+    mine = {"rank": dist.get_rank(), "device": str(device),
+            "launches": dict(kernels.launches), "losses": losses}
+    if device.type == "cuda":
+        mine.update(current_device=torch.cuda.current_device(),
+                    peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, mine)
+    return out
 
 
 def make_trainer(cfg, model, *, steps: int, lr: float, sampler=None,
@@ -165,10 +219,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     with mesh_scope(args, device) as mesh, use_mesh(mesh):
+        lead = mesh.get_rank() == 0
         cfg, model = load_model(args.arch, args.full, device, mesh)
         n = sum(p.numel() for p in model.parameters())
-        print(f"arch={cfg.name}  device={device}  mesh={mesh_axes(mesh)}")
-        print(f"params: {n / 1e6:.1f}M, placed over {mesh.size()} ranks")
+        if lead:
+            print(mesh_line(cfg, device, mesh))
+            print(f"params: {n / 1e6:.1f}M, placed over {mesh.size()} ranks")
         if cfg.frontend == "embed_stub":
             raise SystemExit(
                 f"{cfg.name} takes precomputed embeddings; use "
@@ -180,14 +236,17 @@ def main(argv=None):
                           sampler=sampler, batches=batches,
                           tcfg=TrainerConfig(ckpt_dir=args.ckpt,
                                              ckpt_every=50, log_every=10))
-        if tr.step:
+        if tr.step and lead:
             print(f"resumed at step {tr.step} from {args.ckpt}")
         out = tr.run(args.steps)
         tr.finalize()
-    for m in tr.metrics_history[-5:]:
-        print(m)
-    print(f"losses: first {out['losses'][0]:.4f}  last "
-          f"{out['losses'][-1]:.4f}")
+        out["ranks"] = rank_reports(device, out["losses"])
+    if lead:
+        for m in tr.metrics_history[-5:]:
+            print(m)
+        print(f"losses: first {out['losses'][0]:.4f}  last "
+              f"{out['losses'][-1]:.4f}")
+        print("ranks " + json.dumps(out["ranks"]), flush=True)
     return out
 
 

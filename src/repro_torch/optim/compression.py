@@ -13,7 +13,14 @@ the long-run compression error stays O(1) rather than O(T).
 
 ``grads`` and ``params`` are a tensor or a dict of named tensors, as in
 ``repro_torch.optim``; a compressed tree is a ``QTensor`` or a dict of
-them.
+them.  A 256-value block of the flattened leaf does not follow a shard
+of the leaf, so a DTensor gradient (a model placed on a mesh) is
+compressed whole, one leaf at a time: its full value on every rank
+(``full_tensor()``, a reduction where it is partial), which gives every
+rank the same quantised tree and residual, and ``wire_bytes`` the
+meshless count.  The residual is kept placed as its parameter (this
+rank's shard of the whole residual), so only the int8 tree and one
+leaf's f32 temporaries are whole on a rank.
 """
 
 from __future__ import annotations
@@ -22,7 +29,13 @@ from typing import Any, Tuple
 
 import torch
 
-from .optimizers import _dequantize_blockwise, _quantize_blockwise
+from .optimizers import (
+    _dequantize_blockwise,
+    _placed_as,
+    _quantize_blockwise,
+    _whole,
+    is_dtensor,
+)
 
 BLOCK = 256
 
@@ -35,8 +48,8 @@ def _map(fn, tree, *rest):
 
 def compress(grads: Any, block: int = BLOCK) -> Any:
     """Quantise every gradient leaf to an int8 ``QTensor``."""
-    return _map(lambda g: _quantize_blockwise(g.to(torch.float32), block),
-                grads)
+    return _map(lambda g: _quantize_blockwise(
+        _whole(g).to(torch.float32), block), grads)
 
 
 def decompress(qtree: Any, like: Any = None) -> Any:
@@ -48,19 +61,21 @@ def decompress(qtree: Any, like: Any = None) -> Any:
 
 
 def init_error_feedback(params: Any) -> Any:
-    """The residual accumulator: f32 zeros shaped like the gradients."""
-    return _map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
+    """The residual accumulator: f32 zeros shaped like the gradients,
+    a DTensor parameter's placed as it is."""
+    return _map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 def compress_with_feedback(grads: Any, residual: Any,
                            block: int = BLOCK) -> Tuple[Any, Any]:
     """Quantise (grads + residual) and carry the quantisation error
-    forward.  Returns (qtree, new_residual)."""
+    forward.  Returns (qtree, new_residual); a DTensor residual stays
+    placed as it was."""
     def one(g, r):
-        corrected = g.to(torch.float32) + r
+        corrected = _whole(g).to(torch.float32) + _whole(r)
         q = _quantize_blockwise(corrected, block)
-        return q, corrected - _dequantize_blockwise(q)
+        new = corrected - _dequantize_blockwise(q)
+        return q, _placed_as(new, r) if is_dtensor(r) else new
 
     if isinstance(grads, dict):
         pairs = {k: one(g, residual[k]) for k, g in grads.items()}

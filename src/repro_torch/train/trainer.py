@@ -59,7 +59,16 @@ optimiser state is placed by ``tree_param_shardings`` as the reference
 places its optimiser state (``distribute_state``), the loss and the
 gradients are DTensors, the global clip norm sums every shard's squares
 (a DTensor reduction over the whole mesh, read whole on every rank), and
-``optim.update_in_place`` places each update as its parameter.
+``optim.update_in_place`` places each update as its parameter.  With
+``grad_compress`` each leaf's gradient is compressed whole, as the
+reference's step compresses whatever gradients it has: made replicated
+first, so the quantised tree and the error-feedback residual are the
+same on every rank; the residual is kept placed as its parameter, and
+each decompressed gradient is placed as its parameter as it is made
+(``optim.optimizers._placed_as``, Adam8bit's whole-leaf
+redistribution), before the clip and the update, so one leaf at a time
+is whole in f32.  As meshless, the residual is not part of a
+checkpoint.
 """
 
 from __future__ import annotations
@@ -77,6 +86,7 @@ from repro_torch.dist.sharding import (
     to_local_replicated,
 )
 from repro_torch.optim import compression, update_in_place
+from repro_torch.optim.optimizers import _placed_as
 from . import checkpoint as ckpt
 
 
@@ -165,10 +175,6 @@ class Trainer:
         first = next(iter(self.named_params.values()))
         self.mesh = first.device_mesh if is_dtensor(first) else None
         if self.mesh is not None:
-            if tcfg.grad_compress:
-                raise NotImplementedError(
-                    "grad_compress is not ported to a mesh: the int8 "
-                    "compression runs on whole gradients")
             self.opt_state = distribute_state(self.opt_state, self.mesh, cfg)
         self.loss_fn = loss_fn or (lambda p, b: p.loss(b))
         self.step = 0
@@ -220,6 +226,11 @@ class Trainer:
         return to_local_replicated(total) * scale, {
             k: g * scale for k, g in acc.items()}
 
+    def _placed(self, name, t):
+        """``t`` placed as parameter ``name`` (unchanged meshless)."""
+        p = self.named_params[name]
+        return _placed_as(t, p) if is_dtensor(p) else t
+
     def train_step(self, batch):
         """One optimiser step on ``batch``; returns (loss, grad_norm) as
         device tensors and ``ok``, whether the update was applied (a
@@ -228,10 +239,13 @@ class Trainer:
         clip, guard = self.tcfg.grad_clip, self.tcfg.skip_nonfinite
         with torch.no_grad():
             if self._ef_residual is not None:
-                # the quantised tree is what a data-parallel reduce sends
+                # the quantised tree is what a data-parallel reduce sends;
+                # a DTensor leaf is compressed whole, and each decompressed
+                # gradient placed as its parameter as it is made
                 qtree, residual = compression.compress_with_feedback(
                     grads, self._ef_residual)
-                grads = compression.decompress(qtree, like=grads)
+                grads = {k: self._placed(k, compression.decompress(
+                    q, like=grads[k])) for k, q in qtree.items()}
                 del qtree
             if clip is not None or guard:
                 # one NaN/Inf anywhere propagates into the norm, so its

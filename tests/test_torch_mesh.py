@@ -19,6 +19,13 @@ Tolerances (the tool's, where a check reads its verdict ``ok``):
   lr / 4 and on average 1e-6 (Adam's first update is lr · g / (|g| +
   eps): a gradient at eps moves it by up to lr / 4 for a reduction-order
   change), and here, on two ranks, within 1e-5;
+* the same step with ``grad_compress`` (each leaf's gradient compressed
+  whole) against the meshless compressed step: as Adam's (a gradient
+  that differs by 1e-6 may flip one int8 level, which lr / 4 allows),
+  the error-feedback residual placed as its parameter and whole bitwise
+  the same on both ranks, each element within one int8 level of the
+  meshless residual and at most 1% of them off it by more than twice
+  the gradient tolerance, and ``wire_bytes`` the meshless count;
 * Adafactor and Adam8bit steps of phi4-mini on (1, 2), and one with a
   single KV head (the q heads split, the KV head whole): as Adam's;
 * the SMOKE qwen3-moe and zamba2 on (1, 2): as Adam's, the loss to rtol
@@ -101,6 +108,34 @@ def test_gradients_and_clip_norm_match_meshless(ranks, rank, shape):
     assert got["clipped"] and got["grad_norm_meshless"] > 0.05
     assert got["grad_norm_rel"] <= 1e-5
     assert got["grad_rel_max"] <= 1e-5, got["grad_worst_leaf"]
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_compressed_step_matches_meshless(ranks, rank, shape):
+    """``Trainer(grad_compress=True)`` on DTensor parameters: the whole
+    leaf is compressed, so the step is the meshless compressed step's."""
+    got = ranks[rank]["meshes"][shape]["compress"]
+    assert got["ok"], got
+    assert got["clipped"] and got["grad_norm_rel"] <= 1e-5
+    assert got["grad_rel_max"] <= 1e-5, got["grad_worst_leaf"]
+    assert got["param_err_max"] <= 1e-3 / 4
+    assert got["param_err_mean"] <= 1e-6
+    # the whole leaves go on the wire: the meshless byte count
+    assert got["wire_bytes"] == got["wire_bytes_meshless"] > 0
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_compressed_residual_same_on_ranks(ranks, shape):
+    a, b = (r["meshes"][shape]["compress"] for r in ranks)
+    assert a["residual_placed"] and b["residual_placed"]
+    assert a["residual_same_on_ranks"] and b["residual_same_on_ranks"]
+    assert a["residual_digest"] == b["residual_digest"]
+    # carried forward as the meshless residual, off it only where a
+    # gradient 1e-6 away flipped one int8 level
+    assert a["residual_err_levels"] <= 1.0
+    assert a["residual_off_share"] <= 1e-2
+    assert a["params_digest"] == b["params_digest"]
 
 
 def test_ranks_agree(ranks):

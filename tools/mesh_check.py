@@ -2,9 +2,12 @@
 """The port on a mesh of several processes against the meshless run.
 
     python3 tools/mesh_check.py [--nprocs 4] [--device cuda|cpu]
-        [--checks train,serve,lgd,batch,optimizers,archs,restore,entries]
+        [--checks train,compress,serve,lgd,batch,optimizers,archs,restore,
+                  entries]
         [--out DIR]
     python3 tools/mesh_check.py --host-mesh [--device cpu] [--out DIR]
+    python3 tools/mesh_check.py --launcher uniform|lgd|production
+        [--nprocs 4] [--device cuda|cpu] [--out DIR]
 
 Starts ``--nprocs`` processes (NCCL on ``cuda``, one card a process;
 gloo on ``cpu``), joined through a ``FileStore`` in a temporary
@@ -24,6 +27,18 @@ the checks marked (1, n), on the mesh that splits only ``model``:
   update is lr · g / (|g| + eps), which a gradient at eps moves by up to
   lr / 4 when its reduction order changes: the gradient check is the one
   that sees a wrong scale);
+* compress: the train check with ``grad_compress`` (int8 compression
+  with error feedback of each leaf's whole gradient), against the
+  meshless compressed step, at the train check's tolerances (a gradient
+  that differs by 1e-6 may flip one int8 level; Adam's lr / 4 allows for
+  it); the error-feedback residual placed as its parameter, the same on
+  every rank (bitwise, whole), each element within one int8 level of its
+  block (the meshless block scale, plus twice the gradient tolerance)
+  of the meshless residual, and at most ``RESIDUAL_OFF_SHARE`` of its
+  elements off by more than twice the gradient tolerance (a level flip
+  is rare; a residual left unchanged is off almost everywhere);
+  ``wire_bytes`` of the model's gradients compressed on the mesh the
+  meshless count;
 * serve: the dry run's prefill step (B 4) and 4 serve steps of
   phi4-mini with ``attn_impl="pallas"`` (on ``cuda`` at full width and 2
   of its 32 layers; on ``cpu`` the SMOKE config with 8 heads over 4 KV
@@ -57,6 +72,26 @@ with and without ``--lgd``, under ``torch.use_deterministic_algorithms``
 (the CPU's accumulating index backward is otherwise not bitwise from run
 to run): the losses equal bitwise.
 
+``--launcher MODE`` runs the entry point as a user types it, a job of
+``--nprocs`` processes, one card a process (``python -m
+torch.distributed.run --standalone --nproc-per-node N -m
+repro_torch.launch.train --arch phi4_mini_3_8b --steps 3``: on ``cuda``
+``--full`` at the launcher's batch 8 x 64 tokens and corpus 2,048; on
+``cpu`` the SMOKE config, batch 4 x 16, corpus 64), and one process
+alone (on ``cuda`` after the job, on card 0): for ``uniform`` the same
+command, for ``lgd`` the same run built in this process from
+``launch.train``'s ``load_model``, ``make_batches(n_shards=N)`` and
+``make_trainer``, meshless, so that it draws the job's batches from the
+job's N shards.  ``uniform`` and ``lgd``: the job's rank 0 reports the
+(N, 1) mesh over N ranks; every rank's losses equal; on ``cuda`` rank r
+on card r and each rank's peak memory; every loss against the lone
+run's within ``LAUNCHER_RTOL`` (f32) on ``cpu`` and
+``LAUNCHER_RTOL_BF16`` on ``cuda``; with ``lgd`` on ``cuda`` each rank
+launching simhash N times (every rank builds every shard's index) and
+bucket_probe and draw_assemble N a draw, 3 draws.  ``production``: the job with
+``--production-mesh`` fails with the world-size error, not the "no
+process group" one.  Writes ``DIR/launcher-MODE.json``.
+
 Rank 0 prints one ``mesh-check`` JSON line a mesh and one for the (1, n)
 checks, and on ``cuda`` the card's name and power limit; with ``--out``
 every rank writes its results to ``DIR/rank<R>.json`` (``DIR/host.json``
@@ -83,8 +118,26 @@ GRAD_RTOL = 1e-5
 PARAM_MAX, PARAM_MEAN = LR / 4, 1e-6
 SERVE_TOL = 1e-5          # relative L2 of the f32 logits
 SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_LAYERS = 4, 256, 4, 2
-CHECKS = ("train", "serve", "lgd", "batch", "optimizers", "archs",
-          "restore", "entries")
+CHECKS = ("train", "compress", "serve", "lgd", "batch", "optimizers",
+          "archs", "restore", "entries")
+# --launcher: the job's losses against the lone process's.  f32 (cpu):
+# the reduction order of the data-parallel sums only.  bf16 (cuda, FULL):
+# the same batches, but each rank's GEMMs run on a quarter of the rows
+# and the loss is reduced across the ranks, so a bf16 logit rounds
+# differently (this tool's bf16 serve rows: logits 1.5-1.8e-2 from f32
+# on and off a mesh); the first loss, a mean over 512 tokens of random-init
+# cross-entropy ~12.2, moves far less: 2e-3 relative, on every loss
+LAUNCHER_RTOL, LAUNCHER_RTOL_BF16 = 1e-5, 2e-3
+LAUNCHER_STEPS, LAUNCHER_LR = 3, 1e-3
+# the launcher's config and batches: FULL at its defaults on cards, the
+# SMOKE config on small batches on the CPU
+LAUNCHER_SIZE = {"cuda": dict(full=True, batch=8, seq=64, corpus=2048),
+                 "cpu": dict(full=False, batch=4, seq=16, corpus=64)}
+# compress: the share of residual elements that may differ from the
+# meshless residual by more than twice the gradient tolerance (an int8
+# level flipped by a gradient 1e-6 away from a rounding edge)
+RESIDUAL_OFF_SHARE = 1e-2
+LAUNCHER_MODES = ("uniform", "lgd", "production")
 PHI4 = "phi4_mini_3_8b"
 
 
@@ -125,13 +178,16 @@ def _lm_batch(device, vocab=128):
 # train: gradients, the clip's norm, one step
 # ---------------------------------------------------------------------------
 
-def _train(mesh, device, *, arch=PHI4, optimizer="adam", **overrides):
-    """The gradient of every leaf (whole), then one clipped step: loss,
-    grad_norm, the parameters after it (whole) and their placements."""
+def _train(mesh, device, *, arch=PHI4, optimizer="adam", compress=False,
+           **overrides):
+    """The gradient of every leaf (whole), then one clipped step (with
+    ``compress``, of the int8-compressed gradient): loss, grad_norm, the
+    parameters after it (whole), their placements and the error-feedback
+    residual."""
     from repro_torch import configs
     from repro_torch.dist.sharding import distribute_model, use_mesh
     from repro_torch.models import LM
-    from repro_torch.optim import make_optimizer
+    from repro_torch.optim import compression, make_optimizer
     from repro_torch.train import Trainer, TrainerConfig
 
     cfg = configs.get_smoke(arch).with_(**overrides)
@@ -141,10 +197,14 @@ def _train(mesh, device, *, arch=PHI4, optimizer="adam", **overrides):
         model.loss(batch).backward()
         grads = {k: _whole(p.grad).detach().clone()
                  for k, p in model.named_parameters()}
+        # what the compressed gradient puts on the wire (whole leaves)
+        wire = compression.wire_bytes(compression.compress(
+            {k: p.grad for k, p in model.named_parameters()}))
         model.zero_grad(set_to_none=True)
         tr = Trainer(cfg, model, make_optimizer(optimizer, lr=LR),
                      iter([batch]),
-                     TrainerConfig(log_every=1, grad_clip=CLIP),
+                     TrainerConfig(log_every=1, grad_clip=CLIP,
+                                   grad_compress=compress),
                      resume=False)
         t0 = time.perf_counter()
         loss = tr.run(1)["losses"][0]
@@ -155,7 +215,12 @@ def _train(mesh, device, *, arch=PHI4, optimizer="adam", **overrides):
                       for k, p in model.named_parameters()}
     return {"loss": loss, "grad_norm": tr.metrics_history[-1]["grad_norm"],
             "grads": grads, "params": params, "placements": placements,
-            "s": dt}
+            "residual": {k: _whole(r).detach().clone()
+                         for k, r in (tr._ef_residual or {}).items()},
+            "residual_placed": all(
+                _placements(r) == placements[k]
+                for k, r in (tr._ef_residual or {}).items()),
+            "wire_bytes": wire, "s": dt}
 
 
 def _compare_train(got, ref, loss_rtol=LOSS_RTOL) -> dict:
@@ -184,6 +249,56 @@ def _compare_train(got, ref, loss_rtol=LOSS_RTOL) -> dict:
                      and grad_err <= GRAD_RTOL
                      and row["param_err_max"] <= PARAM_MAX
                      and row["param_err_mean"] <= PARAM_MEAN)
+    return row
+
+
+def _residual_errors(res, ref) -> dict:
+    """The mesh's residual against the meshless one, leaf by leaf: the
+    largest difference, that difference over its allowance (one int8
+    level of its block, the meshless block scale, plus twice the
+    gradient tolerance of the leaf), and the share of elements off by
+    more than twice the gradient tolerance.  The residual starts at 0,
+    so a block's scale is the meshless gradient's."""
+    import torch
+    from repro_torch.optim.compression import BLOCK
+    from repro_torch.optim.optimizers import _quantize_blockwise
+    err_max = levels = 0.0
+    off = total = 0
+    for k, r0 in ref["residual"].items():
+        g = ref["grads"][k].float()
+        level = _quantize_blockwise(g, BLOCK).scale.repeat_interleave(
+            BLOCK)[:g.numel()]
+        tol = 2 * GRAD_RTOL * float(g.abs().max())
+        d = (res[k] - r0).abs().reshape(-1)
+        err_max = max(err_max, float(d.max()))
+        levels = max(levels, float((d / (level + tol)).max()))
+        off += int((d > tol).sum())
+        total += d.numel()
+    return dict(residual_err_max=err_max, residual_err_levels=levels,
+                residual_off_share=off / total)
+
+
+def _compare_compress(got, ref) -> dict:
+    """The train check's row for the compressed step, plus the residual:
+    placed as its parameter, whole the same on every rank, within one
+    int8 level of the meshless residual and off it only where a level
+    flipped (``_residual_errors``)."""
+    import torch.distributed as dist
+    row = _compare_train(got, ref)
+    res = got["residual"]
+    digest = _digest(res)
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, digest)
+    row.update(
+        residual_placed=got["residual_placed"],
+        residual_same_on_ranks=len(set(digests)) == 1,
+        residual_digest=digest, **_residual_errors(res, ref),
+        wire_bytes=got["wire_bytes"], wire_bytes_meshless=ref["wire_bytes"])
+    row["ok"] = bool(row["ok"] and row["residual_placed"]
+                     and row["residual_same_on_ranks"]
+                     and row["residual_err_levels"] <= 1.0
+                     and row["residual_off_share"] <= RESIDUAL_OFF_SHARE
+                     and row["wire_bytes"] == row["wire_bytes_meshless"])
     return row
 
 
@@ -454,6 +569,8 @@ def child(args) -> int:
     checks = set(args.checks.split(","))
     res = {"meshes": {}}
     ref = _train(None, device) if "train" in checks else None
+    ref_c = _train(None, device, compress=True) \
+        if "compress" in checks else None
     if "serve" in checks:
         gen = torch.Generator().manual_seed(4)
         prompts = torch.randint(0, _serve_cfg(device).vocab,
@@ -470,6 +587,9 @@ def child(args) -> int:
         row = {"mesh": shape}
         if "train" in checks:
             row["train"] = _compare_train(_train(mesh, device), ref)
+        if "compress" in checks:
+            row["compress"] = _compare_compress(
+                _train(mesh, device, compress=True), ref_c)
         if "serve" in checks:
             lg, tok, used, sdt, heads, _ = _serve(mesh, device, prompts,
                                                   forced=tok0)
@@ -567,6 +687,155 @@ def host_mesh(args) -> int:
     return 0 if all(r["ok"] for r in res.values()) else 1
 
 
+def _launcher_run(cmd, env) -> dict:
+    """One launcher process tree: its exit code, output, the rank
+    reports of its ``ranks`` line, its ``mesh=`` and ``placed over``
+    lines."""
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, env=env, cwd=HERE, capture_output=True,
+                       text=True, timeout=1800)
+    text = p.stdout + p.stderr
+    ranks = [json.loads(ln[len("ranks "):]) for ln in p.stdout.splitlines()
+             if ln.startswith("ranks ")]
+    mesh = [ln for ln in p.stdout.splitlines() if ln.startswith("arch=")]
+    placed = [ln for ln in p.stdout.splitlines()
+              if ln.startswith("params:")]
+    return dict(cmd=" ".join(cmd[1:]), rc=p.returncode,
+                ranks=ranks[0] if ranks else None,
+                mesh_line=mesh[0] if mesh else None,
+                placed_line=placed[0] if placed else None,
+                s=time.perf_counter() - t0, tail=text[-6000:])
+
+
+def _lone_lgd(device: str, n: int) -> dict:
+    """The lgd mode's lone run, in this process: the launcher's model,
+    LSH batches from the job's ``n`` shards and trainer
+    (``launch.train``'s ``load_model``, ``make_batches(n_shards=n)``,
+    ``make_trainer``), meshless, on card 0 or the CPU; its report has
+    the launcher's ``ranks`` form."""
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import train as lt
+
+    t0 = time.perf_counter()
+    size = LAUNCHER_SIZE[device]
+    dev = kernels.resolve_device(device)
+    kernels.reset_launch_counts()
+    cfg, model = lt.load_model(PHI4, size["full"], dev)
+    sampler, batches = lt.make_batches(
+        cfg, model, lgd=True, batch=size["batch"], seq=size["seq"],
+        corpus=size["corpus"], device=dev, n_shards=n)
+    tr = lt.make_trainer(cfg, model, steps=LAUNCHER_STEPS, lr=LAUNCHER_LR,
+                         sampler=sampler, batches=batches)
+    report = {"rank": 0, "device": str(dev),
+              "losses": tr.run(LAUNCHER_STEPS)["losses"]}
+    tr.finalize()
+    report["launches"] = dict(kernels.launches)
+    if dev.type == "cuda":      # this process used no card before
+        report.update(current_device=torch.cuda.current_device(),
+                      peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del tr, sampler, batches, model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(cmd=f"in this process: launch.train.load_model, "
+                    f"make_batches(n_shards={n}), make_trainer", rc=0,
+                ranks=[report], mesh_line=None, placed_line=None,
+                s=time.perf_counter() - t0, tail="")
+
+
+def launcher(args) -> int:
+    """``--launcher MODE``: the launcher as a job of ``--nprocs`` ranks
+    against one process alone (see the module docstring)."""
+    n, cuda, mode = args.nprocs, args.device == "cuda", args.launcher
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(HERE, "src")] + [x for x in env.get(
+            "PYTHONPATH", "").split(os.pathsep) if x])
+    env.setdefault("OMP_NUM_THREADS", "1")
+    size = LAUNCHER_SIZE[args.device]
+    flags = ["--arch", PHI4, "--steps", str(LAUNCHER_STEPS), "--lr",
+             str(LAUNCHER_LR), "--batch", str(size["batch"]), "--seq",
+             str(size["seq"]), "--corpus", str(size["corpus"]),
+             "--device", args.device] + (["--full"] if size["full"] else [])
+    if mode == "lgd":
+        flags += ["--lgd"]
+    if mode == "production":
+        flags += ["--production-mesh"]
+    entry = ["-m", "repro_torch.launch.train"]
+    job_cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(n)] + entry + flags
+
+    def alone_run():
+        if mode == "lgd":
+            return _lone_lgd(args.device, n)
+        return _launcher_run([sys.executable] + entry + flags, env)
+
+    if mode == "production":
+        job = _launcher_run(job_cmd, env)
+        want = (f"the production mesh (16, 16) needs 256 ranks, the "
+                f"process group has {n}")
+        res = dict(mode=mode, job=job, want=want, ok=bool(
+            job["rc"] != 0 and want in job["tail"]
+            and "in a process group" not in job["tail"]))
+    else:
+        if cuda:
+            job = _launcher_run(job_cmd, env)
+            alone = alone_run()
+        else:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(1) as ex:
+                pending = ex.submit(_launcher_run, job_cmd, env)
+                alone = alone_run()
+                job = pending.result()
+        res = dict(mode=mode, job=job, alone=alone)
+        reports = job["ranks"] or []
+        ok = job["rc"] == 0 and alone["rc"] == 0 and len(reports) == n \
+            and alone["ranks"] is not None
+        if ok:
+            want_mesh = f"mesh={{'data': {n}, 'model': 1}}"
+            ok &= want_mesh in job["mesh_line"] and \
+                f"placed over {n} ranks" in job["placed_line"]
+            losses = [r["losses"] for r in reports]
+            base = alone["ranks"][0]["losses"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], base)]
+            res.update(losses=losses[0], losses_alone=base, loss_rel=rel,
+                       ranks_equal=all(x == losses[0] for x in losses))
+            ok &= res["ranks_equal"] and len(base) == LAUNCHER_STEPS and \
+                max(rel) <= (LAUNCHER_RTOL_BF16 if cuda else LAUNCHER_RTOL)
+            if cuda:
+                res["cards"] = [r["current_device"] for r in reports]
+                res["peak_gb"] = [r["peak_gb"] for r in reports]
+                res["peak_gb_alone"] = alone["ranks"][0]["peak_gb"]
+                ok &= res["cards"] == list(range(n))
+            if cuda and mode == "lgd":
+                want = {"simhash": n, "bucket_probe": n * LAUNCHER_STEPS,
+                        "draw_assemble": n * LAUNCHER_STEPS}
+                res["launches"] = [{k: r["launches"][k] for k in want}
+                                   for r in reports]
+                res["launches_alone"] = {
+                    k: alone["ranks"][0]["launches"][k] for k in want}
+                res["launches_want"] = want
+                ok &= all(x == want for x in res["launches"]) and \
+                    res["launches_alone"] == want
+        res["ok"] = bool(ok)
+    row = {k: v for k, v in res.items() if k not in ("job", "alone")}
+    row.update({k: {x: y for x, y in res[k].items() if x != "tail"}
+                for k in ("job", "alone") if k in res})
+    print("mesh-check " + json.dumps({"launcher": mode, **row}), flush=True)
+    if not res["ok"]:
+        for k in ("job", "alone"):
+            if k in res:
+                print(f"--- {k} output tail ---\n{res[k]['tail']}",
+                      flush=True)
+    if args.out:
+        with open(os.path.join(args.out, f"launcher-{mode}.json"), "w") as f:
+            json.dump(res, f)
+    return 0 if res["ok"] else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nprocs", type=int, default=4)
@@ -574,6 +843,7 @@ def main(argv=None) -> int:
     ap.add_argument("--checks", default=",".join(CHECKS))
     ap.add_argument("--out", default=None)
     ap.add_argument("--host-mesh", action="store_true")
+    ap.add_argument("--launcher", default=None, choices=LAUNCHER_MODES)
     ap.add_argument("--rank", type=int, default=None)
     ap.add_argument("--dir", default=None)
     args = ap.parse_args(argv)
@@ -599,6 +869,8 @@ def main(argv=None) -> int:
         sys.path.insert(0, os.path.join(HERE, "src"))
         from repro_torch.kernels import build
         build.build_all()       # once, before the processes load them
+    if args.launcher:
+        return launcher(args)
     with tempfile.TemporaryDirectory() as d:
         extra = ["--out", args.out] if args.out else []
         procs = [subprocess.Popen(
