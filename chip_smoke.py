@@ -234,9 +234,11 @@ other archs add:
       llama-3.2-vision at 5 of 100 with Adafactor (the reference
       dryrun's choice for its giant archs); llama4's one layer is held
       against the card's memory first and, needing 94.5 GB, not run: its
-      arithmetic is printed.  Checked: launches (draw_assemble and
-      bucket_probe 6, simhash 2), the refresh swapped in healthy,
-      losses finite, batch-mean weights 1 +- 1e-5.  Reported: build s,
+      arithmetic is printed with the four-card command that trains it
+      (``tools/mesh_check.py --checks giants``).  Checked: launches
+      (draw_assemble and bucket_probe 6, simhash 2), the refresh swapped
+      in healthy, losses finite, batch-mean weights 1 +- 1e-5.
+      Reported: build s,
       step p10 / p50, the refresh's device span, peak memory, a profiled
       step by kind, and the backward of the chunked core and of the MoE
       FFN traced alone (``mixer_backwards``);
@@ -2201,8 +2203,10 @@ def train_arch_full_width(torch, np, dev, kernels, configs, launch_train, LM,
               f"{mem['optimizer_gb']:.2f} GB of optimiser slots + "
               f"{mem['clip_copy_gb']:.2f} GB (the clip's f32 copy of the "
               f"largest gradient leaf) = {mem['total_gb']:.2f} GB, beyond "
-              f"the card's {card_gb:.2f} GB before any activation",
-              flush=True)
+              f"the card's {card_gb:.2f} GB before any activation; it "
+              f"trains at full width on four cards, its experts split "
+              f"over `model`: python3 tools/mesh_check.py --nprocs 4 "
+              f"--device cuda --checks giants", flush=True)
         return res
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()

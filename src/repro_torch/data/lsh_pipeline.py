@@ -53,7 +53,11 @@ calls ``before_param_update``, which makes the step's stream wait for
 the worker's last read of the weights (on the CPU it waits for that
 read to finish).  So the refreshed features are those of the
 launch-time weights, bitwise.  The delta refresh claims the dirty mask
-at the launch.
+at the launch.  Under a mesh of more than one rank the weights are
+DTensors and the worker's forward issues collectives, which every rank
+must issue in one order: the launch then waits for the worker's host
+work (on a card its device work still overlaps the step's, on its own
+stream), and raises if the worker outlasts ``refresh_timeout``.
 
 SELF-HEALING (the degradation ladder, ``data.health``): a failed
 refresh attempt is retried with backoff and deterministic jitter; a
@@ -133,7 +137,7 @@ from repro_torch.dist.sharding import (
     example_shard_bounds,
     shard_store_device,
 )
-from repro_torch.kernels import resolve_device
+from repro_torch.kernels import is_dtensor, resolve_device
 
 from .health import (
     HEALTHY,
@@ -155,6 +159,13 @@ _SALT_SHARD = 0x054AD      # shard s's pipeline seed, ShardedLSHPipeline
 # streaming shards address global example ids by a fixed per-shard stride:
 # gid // _SHARD_STRIDE is the owning shard, gid % _SHARD_STRIDE its slot
 _SHARD_STRIDE = 1 << 20
+
+
+def _reads_collectively(params: Any) -> bool:
+    """Whether the hooks' reads of ``params`` issue collectives: a model
+    whose parameters are DTensors on a mesh of more than one rank."""
+    first = next(iter(getattr(params, "parameters", list)()), None)
+    return is_dtensor(first) and first.device_mesh.size() > 1
 
 
 def _stream_seed(seed: int, salt: int, counter: int) -> int:
@@ -774,6 +785,18 @@ class LSHSampledPipeline:
         fl.thread = threading.Thread(target=work, daemon=True)
         self._flight = fl
         fl.thread.start()
+        if _reads_collectively(self.params):
+            # the hooks' forward issues collectives, which every rank
+            # must issue in one order: the worker's host work ends here,
+            # before the step's (on a card its device work still runs on
+            # its own stream).  A worker past the watchdog would issue
+            # them beside the step's: that is a failure, not a retry
+            fl.thread.join(self.cfg.refresh_timeout)
+            if fl.thread.is_alive():
+                raise RuntimeError(
+                    f"async refresh of a model on a mesh still running "
+                    f"after the watchdog ({self.cfg.refresh_timeout}s): its "
+                    f"collectives would interleave with the step's")
 
     def _swap_refresh(self):
         """Join the in-flight refresh and swap buffers (fixed boundary).

@@ -498,9 +498,28 @@ def batch_sharding(mesh) -> list:
 def shard_of(t: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's shard of ``t``, which every rank holds whole (a seeded
     init, a checkpoint, a whole update): no data moves.  The shard is
-    copied out when it views a larger storage, so the whole tensor can
-    be freed (``distribute_tensor`` cuts a dim-0 shard as a view)."""
+    copied out once when it views a larger storage, so the whole tensor
+    can be freed.  Where every split is even the shard is cut here as a
+    view and copied once: ``distribute_tensor`` copies at each mesh dim,
+    the whole tensor at a split over a mesh dim of size 1 (torch 2.11: a
+    10.7 GB copy of an expert stack of llama4's on (1, 4))."""
     from torch.distributed.tensor import DTensor, distribute_tensor
+    local, coord = t, mesh.get_coordinate()
+    for i, pl in enumerate(placements):
+        if local is None or not pl.is_shard():
+            continue
+        n = mesh.mesh.shape[i]
+        if local.shape[pl.dim] % n:
+            local = None            # uneven: distribute_tensor's split
+        elif n > 1:
+            k = local.shape[pl.dim] // n
+            local = local.narrow(pl.dim, coord[i] * k, k)
+    if local is not None:
+        if local is not t or not t.is_contiguous():
+            local = local.clone(memory_format=torch.contiguous_format)
+        return DTensor.from_local(
+            local, mesh, placements, run_check=False, shape=t.shape,
+            stride=torch.empty(t.shape, device="meta").stride())
     dt = distribute_tensor(t, mesh, placements, src_data_rank=None)
     local = dt._local_tensor
     if local.untyped_storage().nbytes() > local.numel() * \
@@ -511,23 +530,50 @@ def shard_of(t: torch.Tensor, mesh, placements) -> torch.Tensor:
     return dt
 
 
+def _grad_placed_as(placements):
+    """A gradient hook: the gradient placed as its parameter."""
+    def hook(g):
+        if tuple(g.placements) == tuple(placements):
+            return g
+        return g.redistribute(g.device_mesh, placements)
+    return hook
+
 
 @torch.no_grad()
 def distribute_model(lm, mesh):
     """Place an ``LM`` onto ``mesh`` in place: every ``nn.Parameter``
     becomes a DTensor parameter with ``param_spec``'s placements (the
-    shared block's once).  Returns ``lm``."""
+    shared block's once).  Each whole leaf is freed as its shard replaces
+    it, so placing a model drawn whole holds one leaf's shard beyond it.
+
+    On a mesh of more than one rank each parameter's gradient is placed
+    as the parameter as autograd makes it (a hook), as the reference's
+    gradient of a sharded leaf is sharded as the leaf: an op that leaves
+    the weight in place and moves its other operand instead (the MoE's
+    expert products slice the expert buffer along the weights'
+    data-split ``d``) would otherwise leave a partial sum of the WHOLE
+    leaf on every data rank until the optimiser step.  A rank of a
+    1 x 1 mesh holds every leaf whole anyway.  On a card the freed whole leaves' blocks are
+    released (``empty_cache``): left in PyTorch's cache they are out of
+    reach of the buffers NCCL allocates on a collective's first use.
+    Returns ``lm``."""
     if mesh is None:
         return lm
-    for name, p in list(lm.named_parameters()):
-        if is_dtensor(p):
-            continue
+    for name in [n for n, _ in lm.named_parameters()]:
         mod_name, leaf = name.rsplit(".", 1)
         mod = lm.get_submodule(mod_name)
+        p = getattr(mod, leaf)
+        if is_dtensor(p):
+            continue
         dt = shard_of(p.detach(), mesh,
-                         param_placements(name, p.shape, mesh, lm.cfg))
-        setattr(mod, leaf, torch.nn.Parameter(dt,
-                                              requires_grad=p.requires_grad))
+                      param_placements(name, p.shape, mesh, lm.cfg))
+        new = torch.nn.Parameter(dt, requires_grad=p.requires_grad)
+        del p           # the module's reference goes with the setattr
+        if new.requires_grad and mesh.size() > 1:
+            new.register_hook(_grad_placed_as(dt.placements))
+        setattr(mod, leaf, new)
+    if lm.device.type == "cuda":
+        torch.cuda.empty_cache()
     return lm
 
 

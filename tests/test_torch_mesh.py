@@ -28,8 +28,18 @@ Tolerances (the tool's, where a check reads its verdict ``ok``):
   the gradient tolerance, and ``wire_bytes`` the meshless count;
 * Adafactor and Adam8bit steps of phi4-mini on (1, 2), and one with a
   single KV head (the q heads split, the KV head whole): as Adam's;
-* the SMOKE qwen3-moe and zamba2 on (1, 2): as Adam's, the loss to rtol
-  1e-5;
+* the SMOKE qwen3-moe, llama4 and zamba2 on (1, 2): as Adam's, the loss
+  to rtol 1e-5;
+* the giants check (SMOKE llama4 and qwen3-moe, Adafactor, 6 trainer
+  steps on the launcher's LGD batches with an async refresh at step 3)
+  on (2, 1) and (1, 2) against the meshless run of the same shards: the
+  losses to rtol 1e-5, the fixed batch's gradient of every leaf within
+  1e-5 of its largest meshless entry and its clip norm to rtol 1e-5, the
+  ranks' losses equal, the plain LGD entries called once a shard a
+  build, refresh and draw, the batch-mean weight 1 +- 1e-5, the refresh
+  swapped in healthy, each rank's local bytes of weights, gradients
+  and Adafactor slots equal to the tool's prediction, and the fixed
+  batch routed as the first layout giving its own loss and norm;
 * the prefill and decode steps: the f32 logits within a relative L2 of
   1e-5 of the meshless ones;
 * ``ShardedLSHPipeline(mesh=)``'s composed batch, a meshless checkpoint
@@ -145,7 +155,8 @@ def test_ranks_agree(ranks):
         assert a["params_digest"] == b["params_digest"]
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "zamba2_1_2b"])
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b",
+                                  "llama4_maverick_400b_a17b", "zamba2_1_2b"])
 def test_moe_and_mamba_step_on_1x2(ranks, arch):
     got = ranks[0]["1xn"][arch]
     assert got["ok"], got
@@ -230,3 +241,78 @@ def test_mesh_checkpoint_restores_meshless(ranks, rank):
 def test_launcher_host_mesh_matches_meshless_bitwise(host, lgd):
     assert host[lgd]["mesh"] == host[lgd]["meshless"]
     assert len(host[lgd]["mesh"]) == 3
+
+
+GIANTS = ["llama4_maverick_400b_a17b", "qwen3_moe_235b_a22b"]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", GIANTS)
+def test_giants_train_on_every_layout(ranks, arch, shape):
+    """The MoE giants' training path (``LM.init``, ``distribute_model``,
+    ``make_batches(lgd=True, mesh=)``, ``make_trainer`` with the dry
+    run's Adafactor) against the meshless run of the same shards."""
+    got = ranks[0]["giants"][arch]["layouts"][shape]
+    assert got["run"] and got["ok"], got
+    assert len(got["losses"]) == 6
+    assert got["loss_rel_max"] <= 1e-5
+    assert got["grad_rel_max"] <= 1e-5 and got["grad_norm_rel"] <= 1e-5
+    assert got["weight_mean_max_dev"] <= 1e-5
+    assert got["refreshes"] == got["n_shards"] and got["refresh_ok"]
+    # f32: every token routed to the same experts as on the first layout
+    assert got["routes_differ_share"] == 0
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", GIANTS)
+def test_giants_pinned_routing_is_the_routed_one(ranks, arch, shape):
+    """The fixed batch routed as the first layout (``_pinned_routes``,
+    which the cards' layout comparison gates on) gives the loss and clip
+    norm of the batch as this layout routes it, where the two routings
+    are the same (f32)."""
+    got = ranks[0]["giants"][arch]["layouts"][shape]
+    assert got["routes_differ_share"] == 0
+    for k in ("fixed_loss", "fixed_grad_norm"):
+        assert abs(got[k + "_pinned"] - got[k]) <= 1e-6 * abs(got[k]), k
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", GIANTS)
+def test_giants_experts_keep_the_reference_placement(ranks, arch, shape):
+    """The reference's (E, d, ff) -> (model, data, -): on the (data,
+    model) mesh the data axis splits d (dim 1), the model axis E."""
+    got = ranks[0]["giants"][arch]["layouts"][shape]["expert_placements"]
+    assert len(got) == 6            # gate, up, down of 2 layers
+    for k, pl in got.items():
+        assert pl == ["S(1)", "S(0)"], (k, pl)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", GIANTS)
+def test_giants_ranks_agree_and_launch_per_shard(ranks, arch, shape):
+    """Every rank's losses bitwise equal; each rank builds, refreshes and
+    draws from every shard (the stores are replicated mesh-wide): the
+    plain simhash twice a shard, bucket_probe and draw_assemble once a
+    shard a step."""
+    a, b = (r["giants"][arch]["layouts"][shape] for r in ranks)
+    assert a["losses"] == b["losses"] and a["ranks_equal"]
+    dp = int(shape.split("x")[0])
+    want = {"simhash": 2 * dp, "bucket_probe": 6 * dp,
+            "draw_assemble": 6 * dp}
+    assert a["launches"] == b["launches"] == want
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", GIANTS)
+def test_giants_predicted_local_bytes_are_real(ranks, arch, shape, rank):
+    """``rank_memory``'s local bytes of weights, gradients (placed as
+    their parameters) and Adafactor's slots equal the storages this rank
+    holds."""
+    got = ranks[rank]["giants"][arch]["layouts"][shape]
+    pred = got["predicted"]
+    assert got["weight_bytes"] == pred["weights_bytes"]
+    assert got["grad_bytes"] == pred["grads_bytes"]
+    assert got["slot_bytes"] == pred["slots_bytes"]
+    # the whole model drawn before it is placed bounds the init
+    assert pred["init_gb"] >= pred["whole_gb"] > pred["weights_gb"]

@@ -3,7 +3,7 @@
 
     python3 tools/mesh_check.py [--nprocs 4] [--device cuda|cpu]
         [--checks train,compress,serve,lgd,batch,optimizers,archs,restore,
-                  entries]
+                  entries,giants]
         [--out DIR]
     python3 tools/mesh_check.py --host-mesh [--device cpu] [--out DIR]
     python3 tools/mesh_check.py --launcher uniform|lgd|production
@@ -56,15 +56,47 @@ the checks marked (1, n), on the mesh that splits only ``model``:
   meshless pipeline's bitwise, each rank holding its data-parallel rows;
 * optimizers (1, n): the train check with Adafactor, with Adam8bit, and
   with one KV head (the q heads split over ``model``, the KV head not);
-* archs (1, n): the train check of the SMOKE qwen3-moe and zamba2, the
-  loss within 1e-5;
+* archs (1, n): the train check of the SMOKE qwen3-moe, llama4 and
+  zamba2, the loss within 1e-5;
 * restore (1, n): a meshless checkpoint restored by ``restore_on_mesh``
   equal bitwise after ``full_tensor()``, and a checkpoint a meshed
   trainer wrote (rank 0 writes) restored meshless, bitwise;
 * entries (1, n): every kernel entry called with DTensor arguments (the
   attention entries with heads split over ``model``) equal bitwise to
   the call on plain arguments, a DTensor out; ``on_cuda`` refuses a
-  DTensor.
+  DTensor;
+* giants (every layout, (1, n) first): the MoE giants' training path,
+  built from the launcher's own pieces: ``LM.init(cfg, seed=0)`` then
+  ``distribute_model``; the loss and the clip's norm of one fixed
+  uniform batch; ``launch.train.make_batches(lgd=True, mesh=)`` (one
+  shard a data-parallel group) and ``make_trainer`` with the dry run's
+  ``pick_optimizer`` (Adafactor); GIANT_STEPS (6) steps with an async
+  refresh at step GIANT_REFRESH (3), the last step's collectives
+  counted (``collectives()``: kind, bytes, call site), and the first
+  MoE layer's forward and backward alone under the same count.  On
+  ``cuda`` llama4 (2 of 48 layers, 34.41 B parameters) and qwen3-moe (8
+  of 94, 20.86 B) at full width in bf16, batch 8 x 512 tokens, a corpus
+  of 512 rows (4i's recipe); before each layout is built a rank's peak
+  is predicted (``rank_memory``) and a layout that cannot fit the card
+  is not run, its arithmetic printed.  Checked: every rank's losses
+  equal bitwise and finite; the LGD kernels' launches on each rank
+  (simhash twice a shard: its build and its refresh; bucket_probe and
+  draw_assemble once a shard a step; every rank builds every shard);
+  the batch-mean weight 1 +- 1e-5; the refresh swapped in with no
+  health transition; on ``cuda`` the fixed batch's loss and clip norm
+  alike on every layout within ``LAUNCHER_RTOL_BF16`` with every layout
+  routed as the first (``_pinned_routes``: a bf16 logit that rounds
+  another way flips a token's top-k, which moves the norm by more than
+  a placement's rounding; the loss and norm as each layout routes are
+  reported beside them, ``fixed_loss_rel_max`` and
+  ``fixed_grad_norm_rel_max``), each rank's peak
+  reported beside its prediction; on ``cpu`` (the SMOKE configs, 8 x 32
+  tokens, 64 rows) against the meshless run of the same shards: losses
+  within 1e-5, the fixed batch's gradient of every leaf within
+  ``GRAD_RTOL`` of its largest meshless entry and its clip norm to rtol
+  ``GRAD_RTOL``, and the local storages of weights, gradients and slots
+  equal to the prediction's bytes; with the plain LGD entries counted
+  (``_plain_counts``).
 
 ``--host-mesh`` (one process) runs ``python -m repro_torch.launch.train``
 (a 1 x 1 host mesh on a one-rank group) and the same steps meshless,
@@ -92,8 +124,9 @@ bucket_probe and draw_assemble N a draw, 3 draws.  ``production``: the job with
 ``--production-mesh`` fails with the world-size error, not the "no
 process group" one.  Writes ``DIR/launcher-MODE.json``.
 
-Rank 0 prints one ``mesh-check`` JSON line a mesh and one for the (1, n)
-checks, and on ``cuda`` the card's name and power limit; with ``--out``
+Rank 0 prints one ``mesh-check`` JSON line a mesh, one for the (1, n)
+checks, one a giants layout and one a giant arch, and on ``cuda`` the
+card's name and power limit; with ``--out``
 every rank writes its results to ``DIR/rank<R>.json`` (``DIR/host.json``
 for ``--host-mesh``).  The exit code is non-zero when a check fails.
 """
@@ -101,6 +134,8 @@ for ``--host-mesh``).  The exit code is non-zero when a check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
 import hashlib
 import json
 import math
@@ -119,7 +154,7 @@ PARAM_MAX, PARAM_MEAN = LR / 4, 1e-6
 SERVE_TOL = 1e-5          # relative L2 of the f32 logits
 SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_LAYERS = 4, 256, 4, 2
 CHECKS = ("train", "compress", "serve", "lgd", "batch", "optimizers",
-          "archs", "restore", "entries")
+          "archs", "restore", "entries", "giants")
 # --launcher: the job's losses against the lone process's.  f32 (cpu):
 # the reduction order of the data-parallel sums only.  bf16 (cuda, FULL):
 # the same batches, but each rank's GEMMs run on a quarter of the rows
@@ -139,6 +174,19 @@ LAUNCHER_SIZE = {"cuda": dict(full=True, batch=8, seq=64, corpus=2048),
 RESIDUAL_OFF_SHARE = 1e-2
 LAUNCHER_MODES = ("uniform", "lgd", "production")
 PHI4 = "phi4_mini_3_8b"
+# giants: the MoE giants at full width (bf16) on cards, cut to these
+# layers (llama4 34.41 B parameters, 68.8 GB; qwen3 20.86 B, 41.7 GB:
+# neither trains on one 80 GB card), the SMOKE configs on the CPU; 4i's
+# recipe (srp, K 7, L 10, batch 8 x 512 tokens from a corpus of 512 rows,
+# an async refresh at step GIANT_REFRESH, GIANT_STEPS steps), the CPU's
+# on short rows of a small corpus
+GIANT_LAYERS = {"llama4_maverick_400b_a17b": 2, "qwen3_moe_235b_a22b": 8}
+GIANT_SIZE = {"cuda": dict(batch=8, seq=512, corpus=512),
+              "cpu": dict(batch=8, seq=32, corpus=64)}
+GIANT_STEPS, GIANT_REFRESH = 6, 3
+GIANT_LOSS_RTOL = 1e-5       # the CPU's losses against meshless (f32)
+LGD_KERNELS = ("simhash", "bucket_probe", "draw_assemble")
+COLLECTIVE_TIMEOUT = 300     # s, on cards
 
 
 def _whole(t):
@@ -543,8 +591,555 @@ def _entries(mesh, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# giants: the MoE giants trained on LGD batches over every layout
+# ---------------------------------------------------------------------------
+
+def rank_memory(cfg, mesh) -> dict:
+    """A rank's least memory for training ``cfg`` with Adafactor on
+    ``mesh`` (None: one process), from the parameter shapes on the meta
+    device and ``param_placements``: the init (the whole model drawn on
+    the card, plus the larger of its f32 draw of one slice, ``normal_``,
+    and one leaf's local shard cut before its whole leaf is freed) and
+    the step (each leaf's local shard of weights, gradients and
+    Adafactor's row and column slots, plus the clip's f32 copy of the
+    largest local leaf).  The whole leaves are freed before the first
+    step, so the peak is the larger of the two; activations and the
+    optimiser's temporaries come on top."""
+    from repro_torch.dist.sharding import param_placements
+    from repro_torch.models import LM
+    from repro_torch.models.layers import NORMAL_SLICE
+
+    def local(name, shape, elem, slot=None):
+        n = math.prod(shape)
+        if mesh is None or n == 0:
+            return n * elem
+        sizes = tuple(mesh.mesh.shape)
+        for i, p in enumerate(param_placements(name, shape, mesh, cfg,
+                                               slot=slot)):
+            if p.is_shard():
+                n //= sizes[i]
+        return n * elem
+
+    named = dict(LM(cfg, device="meta").named_parameters())
+    whole = sum(p.numel() * p.element_size() for p in named.values())
+    w = slots = big = shard = draw = 0
+    for k, p in named.items():
+        shape = tuple(p.shape)
+        lb = local(k, shape, p.element_size())
+        w += lb
+        shard = max(shard, lb)
+        big = max(big, lb // p.element_size())
+        if p.numel() <= NORMAL_SLICE or p.dim() == 0:
+            draw = max(draw, 4 * p.numel())
+        else:                   # a slice of whole rows of dim 0 at a time
+            row = p.numel() // shape[0]
+            draw = max(draw, 4 * row * min(shape[0],
+                                           max(1, NORMAL_SLICE // row)))
+        if p.dim() >= 2:
+            slots += local(k, shape[:-1], 4, "vr") + \
+                local(k, shape[:-2] + shape[-1:], 4, "vc")
+        else:
+            slots += local(k, shape, 4, "vr")
+    init = whole + max(draw, shard)
+    step = 2 * w + slots + 4 * big
+    return dict(whole_gb=whole / 1e9, init_gb=init / 1e9,
+                weights_gb=w / 1e9, grads_gb=w / 1e9, slots_gb=slots / 1e9,
+                clip_copy_gb=4 * big / 1e9, step_gb=step / 1e9,
+                peak_gb=max(init, step) / 1e9,
+                weights_bytes=w, grads_bytes=w, slots_bytes=slots)
+
+
+def _storage_bytes(tensors) -> int:
+    """The bytes of the local storages behind ``tensors`` (a DTensor's
+    local shard), each storage once."""
+    seen, n = set(), 0
+    for t in tensors:
+        if t is None:
+            continue
+        st = (t.to_local() if hasattr(t, "to_local") else t) \
+            .untyped_storage()
+        if st.nbytes() and st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            n += st.nbytes()
+    return n
+
+
+def _plain_counts():
+    """On the CPU, a count of each LGD kernel's plain version called
+    through its public entry (a kernel's wrapper counts only on a card):
+    the dict the counts go to, and a function that undoes the wrapping."""
+    from repro_torch.core import sampler
+    from repro_torch.kernels.bucket_probe import ops as probe_ops
+    from repro_torch.kernels.simhash import ops as simhash_ops
+
+    counts = dict.fromkeys(LGD_KERNELS, 0)
+    sites = [(simhash_ops, "simhash_codes_ref", "simhash"),
+             (probe_ops, "bucket_probe_ref", "bucket_probe"),
+             (sampler, "draw_assemble_plain", "draw_assemble")]
+    saved = []
+    for mod, attr, name in sites:
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+        setattr(mod, attr, counted)
+
+    def undo():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return counts, undo
+
+
+def _giant_cfg(arch, device):
+    from repro_torch import configs
+    if device.type == "cuda":
+        return configs.get(arch).with_(n_layers=GIANT_LAYERS[arch])
+    return configs.get_smoke(arch)
+
+
+def _giant_run(arch, mesh, device, n_shards, fixed, pin=None) -> dict:
+    """One layout of the giants check: ``arch``'s model drawn whole
+    (``LM.init``) and placed on ``mesh`` (``distribute_model``; None:
+    meshless), the loss and the clip's norm of the ``fixed`` batch, then
+    GIANT_STEPS trainer steps on the launcher's LGD batches
+    (``make_batches`` with ``n_shards`` shards, ``make_trainer`` with the
+    dry run's ``pick_optimizer``), one refresh at GIANT_REFRESH; the last
+    step under ``collectives()``.  The fixed batch runs twice: as it
+    routes on this layout, and with the routing ``pin`` (``_routes``'
+    arrays of another layout; None: this layout's own)."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.dist.sharding import distribute_model, use_mesh
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.dryrun import pick_optimizer
+    from repro_torch.models import LM
+    from repro_torch.train import TrainerConfig
+
+    cuda = device.type == "cuda"
+    size = GIANT_SIZE[device.type]
+    cfg = _giant_cfg(arch, device)
+    if cuda:
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    plain, undo = _plain_counts() if not cuda else (None, None)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    row = {}
+    try:
+        with use_mesh(mesh):
+            t0 = time.perf_counter()
+            model = distribute_model(LM.init(cfg, seed=0, device=device),
+                                     mesh)
+            sync()
+            row["init_s"] = time.perf_counter() - t0
+            named = dict(model.named_parameters())
+            row["expert_placements"] = {
+                k: _placements(p) for k, p in named.items()
+                if ".ffn.experts_" in k}
+            # the fixed batch: the first loss and the clip's norm, each
+            # kind of leaf's share of its square, the experts each
+            # token is routed to
+            with _routes(mesh) as routes:
+                loss = model.loss(fixed)
+            loss.backward()
+            grads = {k: p.grad for k, p in named.items()}
+            row["fixed_loss"] = float(_whole(loss.detach()))
+            sq = {k: _whole(g.float().square().sum())
+                  for k, g in grads.items()}
+            row["fixed_grad_norm"] = float(torch.sqrt(sum(sq.values())))
+            row["fixed_grad_sq_by_leaf"] = {}
+            for k, v in sq.items():
+                leaf = k.rsplit(".", 1)[1]
+                row["fixed_grad_sq_by_leaf"][leaf] = \
+                    row["fixed_grad_sq_by_leaf"].get(leaf, 0.0) + float(v)
+            row["routes"] = routes
+            del grads, loss
+            model.zero_grad(set_to_none=True)
+            # again with the first layout's routing (this layout's on the
+            # first), so that layouts compare with one routing
+            lm_cfg, model.cfg = model.cfg, model.cfg.with_(remat=False)
+            try:
+                with _pinned_routes(mesh, routes if pin is None else pin):
+                    loss = model.loss(fixed)
+            finally:
+                model.cfg = lm_cfg
+            loss.backward()
+            grads = {k: p.grad for k, p in named.items()}
+            row["fixed_loss_pinned"] = float(_whole(loss.detach()))
+            row["fixed_grad_norm_pinned"] = float(torch.sqrt(sum(
+                _whole(g.float().square().sum()) for g in grads.values())))
+            row["grad_bytes"] = _storage_bytes(grads.values())
+            if not cuda:
+                row["grads"] = {k: _whole(g).detach().clone()
+                                for k, g in grads.items()}
+            del grads, loss
+            model.zero_grad(set_to_none=True)
+            row["weight_bytes"] = _storage_bytes(named.values())
+            if mesh is not None:
+                row["expert_products"] = _moe_collectives(model, mesh, size)
+            t0 = time.perf_counter()
+            sampler, _ = launch.make_batches(
+                cfg, model, lgd=True, batch=size["batch"], seq=size["seq"],
+                corpus=size["corpus"], device=device,
+                refresh_every=GIANT_REFRESH, n_shards=n_shards, mesh=mesh)
+            sync()
+            row["build_s"] = time.perf_counter() - t0
+            w_means, next_batch = [], sampler.next_batch
+
+            def kept_batch(*a, **kw):
+                b = next_batch(*a, **kw)
+                w_means.append(_whole(b["loss_weights"]).float().mean())
+                return b
+
+            def one_refresh(tr):
+                if tr.step == GIANT_REFRESH + 1:    # after the swap
+                    for c in [sampler.cfg] + [s.cfg for s in sampler.shards]:
+                        c.refresh_every = 0
+
+            sampler.next_batch = kept_batch
+            tr = launch.make_trainer(
+                cfg, model, steps=GIANT_STEPS, lr=1e-3, sampler=sampler,
+                optimizer=pick_optimizer(arch),
+                tcfg=TrainerConfig(log_every=10 ** 9, step_hook=one_refresh))
+            starts, train_step = [], tr.train_step
+            counter = collectives()
+
+            def timed_step(batch):
+                starts.append(time.perf_counter())
+                if len(starts) < GIANT_STEPS:
+                    return train_step(batch)
+                with counter:                     # the last step
+                    return train_step(batch)
+
+            tr.train_step = timed_step
+            losses = tr.run(GIANT_STEPS)["losses"]
+            sync()
+            starts.append(time.perf_counter())
+            tr.finalize()
+            row["launches"] = dict(plain) if plain is not None else {
+                k: kernels.launches[k] for k in LGD_KERNELS}
+            row["slot_bytes"] = _storage_bytes(
+                t for slots in tr.opt_state[1:] if slots is not None
+                for t in slots.values())
+            if cuda:
+                peaks = [None] * dist.get_world_size()
+                dist.all_gather_object(
+                    peaks, torch.cuda.max_memory_allocated(device) / 1e9)
+                row["peak_gb_ranks"] = peaks
+            dts = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+            # iteration k trains step k and draws batch k + 1: the refresh
+            # launches in iteration GIANT_REFRESH - 2 and is swapped in
+            # the next (``step_ms_refresh``, on a mesh of > 1 rank the
+            # launch's forward is synchronous); the last step ran under
+            # the counter
+            steady = [d for i, d in enumerate(dts[:-1])
+                      if i not in (GIANT_REFRESH - 2, GIANT_REFRESH - 1)]
+            recs = sampler.refresh_records()
+            hs = sampler.health_summary()
+            done = [r for r in recs if r["ok"] is not None]
+            ranks = [None] * dist.get_world_size()
+            dist.all_gather_object(ranks, losses)
+            row.update(
+                losses=losses, ranks_equal=all(x == losses for x in ranks),
+                step_ms=dts, step_ms_p10=_pct(steady, 10),
+                step_ms_p50=_pct(steady, 50),
+                step_ms_refresh=dts[GIANT_REFRESH - 2:GIANT_REFRESH],
+                weight_mean_max_dev=float(
+                    (torch.stack(w_means) - 1).abs().max()),
+                fallback_rate=sampler.sampler_stats()["fallback_rate"],
+                refreshes=len(done),
+                refresh_ok=bool(len(done) == n_shards
+                                and all(r["ok"] for r in done)
+                                and not hs["transitions"]
+                                and not hs["refresh_failures"]),
+                step_collectives=counter.summary(),
+                n_shards=n_shards)
+            del tr, train_step, timed_step, kept_batch, one_refresh
+            del sampler, next_batch, model, named
+    finally:
+        if undo is not None:
+            undo()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return row
+
+
+def collectives():
+    """A dispatch mode counting the collectives this rank issues, by
+    kind (count and output bytes) and by call site (``dryrun.
+    _call_site``; "backward" for autograd's).  Unlike the dry run's
+    ``RankCounter`` it lets DTensor's dispatch run first (it declines
+    DTensor ops, as ``CommDebugMode`` does), so the redistributions
+    DTensor makes inside an op's sharding propagation are counted too."""
+    import collections
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.launch.dryrun import _COLLECTIVES, _call_site
+
+    kinds = dict(_COLLECTIVES, shard_dim_alltoall="all-to-all")
+
+    class Collectives(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = collections.Counter()
+            self.count = collections.Counter()
+            self.by_site = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if isinstance(func, torch._ops.HigherOrderOperator):
+                return func(*args, **(kwargs or {}))
+            if any(t is DTensor for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if func.namespace in ("_c10d_functional", "_dtensor") and \
+                    name in kinds:
+                outs = out if isinstance(out, (list, tuple)) else [out]
+                b = sum(t.numel() * t.element_size() for t in outs
+                        if isinstance(t, torch.Tensor))
+                self.bytes[kinds[name]] += b
+                self.count[kinds[name]] += 1
+                self.by_site[_call_site()] += b
+            return out
+
+        def summary(self) -> dict:
+            return dict(bytes=dict(self.bytes), count=dict(self.count),
+                        by_site=dict(self.by_site))
+
+    return Collectives()
+
+
+@contextlib.contextmanager
+def _routes(mesh):
+    """The experts the MoE layers route each token to within the block
+    (``dispatch_slots``' top-k, a layer at a time), whole: a list of
+    (B, T, k) arrays, this rank's rows gathered over the data axis."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import moe
+
+    mine, dispatch = [], moe.dispatch_slots
+
+    def recorded(logits, k, cap):
+        with torch.no_grad():    # nothing saved: remat recomputes the layer
+            mine.append(torch.topk(logits, k, dim=-1).indices.cpu().numpy())
+        return dispatch(logits, k, cap)
+
+    out = []
+    moe.dispatch_slots = recorded
+    try:
+        yield out
+    finally:
+        moe.dispatch_slots = dispatch
+    if mesh is None:
+        out.extend(mine)
+        return
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, (mesh.get_coordinate()[0], mine))
+    rows = dict(parts)                  # one part a data index
+    out.extend(np.concatenate([rows[i][layer] for i in sorted(rows)])
+               for layer in range(len(mine)))
+
+
+@contextlib.contextmanager
+def _pinned_routes(mesh, routes):
+    """Within the block the MoE layers, called in order (no remat),
+    route each token as ``routes`` says (``_routes``' arrays, whole;
+    this rank takes its data-parallel rows): every logit outside a
+    token's pinned experts is -inf, so the top-k picks them with their
+    own logits, and the gate, the ranks within an expert and the
+    gradient are those of that routing."""
+    import torch
+    from repro_torch.dist.sharding import data_axis_size
+    from repro_torch.models import moe
+
+    layers, dispatch = iter(routes), moe.dispatch_slots
+
+    def pinned(logits, k, cap):
+        rows = next(layers)
+        if mesh is not None:
+            per = rows.shape[0] // data_axis_size(mesh)
+            i = mesh.get_coordinate()[0]
+            rows = rows[i * per:(i + 1) * per]
+        idx = torch.from_numpy(rows).to(logits.device)
+        masked = torch.full_like(logits, -math.inf).scatter(
+            -1, idx, logits.gather(-1, idx))
+        return dispatch(masked, k, cap)
+
+    moe.dispatch_slots = pinned
+    try:
+        yield
+    finally:
+        moe.dispatch_slots = dispatch
+
+
+def _moe_collectives(model, mesh, size) -> dict:
+    """The collectives of the first layer's MoE FFN alone, its forward
+    and backward on a batch-placed input of the training shape."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.dist.sharding import batch_sharding
+
+    moe, cfg = model._layer(0).ffn, model.cfg
+    g = torch.Generator(device=model.device).manual_seed(3)
+    x = torch.randn((size["batch"], size["seq"], cfg.d_model), generator=g,
+                    device=model.device).to(model.dtype)
+    x = distribute_tensor(x, mesh, batch_sharding(mesh), src_data_rank=None)
+    with collectives() as counter:
+        y = moe(x)
+        torch.autograd.backward(y, torch.ones_like(y))
+    model.zero_grad(set_to_none=True)
+    return counter.summary()
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def _giants(device, meshes, rank) -> dict:
+    """``--checks giants``: each of GIANT_LAYERS' archs on every layout
+    of ``meshes``, the layout that splits only ``model`` first (module
+    docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import make_token_corpus
+    from repro_torch.dist.sharding import data_axis_size, mesh_axes
+
+    cuda = device.type == "cuda"
+    size = GIANT_SIZE[device.type]
+    card_gb = torch.cuda.get_device_properties(device).total_memory / 1e9 \
+        if cuda else None
+    out, fixed, routes = {}, {}, {}
+    for arch in GIANT_LAYERS:
+        cfg = _giant_cfg(arch, device)
+        rows = torch.from_numpy(make_token_corpus(
+            7, size["batch"], size["seq"], cfg.vocab).tokens).long()
+        fixed[arch] = {"tokens": rows[:, :-1].to(device),
+                       "targets": rows[:, 1:].to(device)}
+        out[arch] = {"layers": cfg.n_layers, "layouts": {}}
+    for mesh in reversed(meshes):
+        shape = mesh_axes(mesh)
+        name = "x".join(map(str, shape.values()))
+        dp = data_axis_size(mesh)
+        for arch in GIANT_LAYERS:
+            cfg = _giant_cfg(arch, device)
+            pred = rank_memory(cfg, mesh)
+            row = {"mesh": shape, "predicted": pred, "card_gb": card_gb}
+            out[arch]["layouts"][name] = row
+            if cuda and pred["peak_gb"] >= card_gb:
+                row.update(run=False, ok=True)
+                if rank == 0:
+                    print(f"mesh-check giants {cfg.name} {name}: not run: a "
+                          f"rank holds at least {pred['peak_gb']:.2f} GB "
+                          f"({json.dumps(pred)}), beyond the card's "
+                          f"{card_gb:.2f} GB", flush=True)
+                continue
+            got = _giant_run(arch, mesh, device, dp, fixed[arch],
+                             pin=routes.get(arch))
+            want = {"simhash": 2 * dp, "bucket_probe": GIANT_STEPS * dp,
+                    "draw_assemble": GIANT_STEPS * dp}
+            row.update(run=True, launches_want=want,
+                       **{k: v for k, v in got.items()
+                          if k not in ("grads", "routes")})
+            routes.setdefault(arch, got["routes"])
+            first = routes[arch]
+            # the share of (layer, token) routed to another top-k set of
+            # experts than on the first layout run
+            row["routes_differ_share"] = float(np.mean([
+                (np.sort(a, -1) != np.sort(b, -1)).any(-1).mean()
+                for a, b in zip(got["routes"], first)]))
+            ok = (got["ranks_equal"] and len(got["losses"]) == GIANT_STEPS
+                  and all(map(math.isfinite, got["losses"]))
+                  and got["launches"] == want
+                  and got["weight_mean_max_dev"] <= 1e-5
+                  and got["refresh_ok"])
+            if cuda:
+                row["peak_over_predicted"] = [
+                    p / pred["peak_gb"] for p in got["peak_gb_ranks"]]
+            else:
+                # the meshless run of the same shards, batches and step
+                ref = _giant_run(arch, None, device, dp, fixed[arch])
+                grad_err = max(
+                    float((got["grads"][k] - g).abs().max())
+                    / max(float(g.abs().max()), 1e-30)
+                    for k, g in ref["grads"].items())
+                loss_rel = max(abs(a - b) / abs(b) for a, b in
+                               zip(got["losses"], ref["losses"]))
+                row.update(
+                    losses_meshless=ref["losses"], loss_rel_max=loss_rel,
+                    grad_rel_max=grad_err,
+                    fixed_loss_meshless=ref["fixed_loss"],
+                    grad_norm_rel=abs(got["fixed_grad_norm"]
+                                      - ref["fixed_grad_norm"])
+                    / ref["fixed_grad_norm"],
+                    bytes_equal={k: got[f"{k}_bytes"] == pred[f"{k}s_bytes"]
+                                 for k in ("weight", "grad", "slot")})
+                ok &= (loss_rel <= GIANT_LOSS_RTOL and grad_err <= GRAD_RTOL
+                       and row["grad_norm_rel"] <= GRAD_RTOL
+                       and all(row["bytes_equal"].values()))
+            row["ok"] = bool(ok)
+            if rank == 0:
+                print("mesh-check giants " + json.dumps(
+                    {"arch": cfg.name, "layout": name, **row}), flush=True)
+    for arch, res in out.items():
+        ran = [r for r in res["layouts"].values() if r["run"]]
+        if cuda and len(ran) > 1:
+            # the same fixed batch on every layout: bf16 GEMMs split
+            # another way, the loss reduced across ranks; as routed on
+            # each layout, and with the first layout's routing
+            for k in ("fixed_loss", "fixed_grad_norm", "fixed_loss_pinned",
+                      "fixed_grad_norm_pinned"):
+                base = ran[0][k]
+                res[f"{k}_rel_max"] = max(abs(r[k] - base) / abs(base)
+                                          for r in ran)
+            # the layouts routed as the first gate; as each routes is
+            # reported
+            res["layouts_agree"] = bool(max(
+                res["fixed_loss_pinned_rel_max"],
+                res["fixed_grad_norm_pinned_rel_max"]) <= LAUNCHER_RTOL_BF16)
+        res["ok"] = bool(ran and all(r["ok"] for r in res["layouts"].values())
+                         and res.get("layouts_agree", True))
+        if rank == 0:
+            print("mesh-check giants " + json.dumps(
+                {"arch": arch, **{k: v for k, v in res.items()
+                                  if k != "layouts"}}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the processes
 # ---------------------------------------------------------------------------
+
+def _warm_collectives(device, n: int) -> None:
+    """One small collective of each kind DTensor issues (all-gather,
+    reduce-scatter, all-reduce, all-to-all), while the card is empty:
+    NCCL allocates its buffers outside PyTorch's cache on a kind's first
+    use, which a card filled by a model can refuse ("unhandled cuda
+    error")."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(n * 1024, device=device)
+    out = torch.empty_like(x)
+    dist.all_gather_into_tensor(torch.empty(n * x.numel(), device=device), x)
+    dist.reduce_scatter_tensor(torch.empty(1024, device=device), x)
+    dist.all_reduce(x)
+    dist.all_to_all_single(out, x)
+    torch.cuda.synchronize(device)
+
 
 def child(args) -> int:
     import torch
@@ -562,10 +1157,17 @@ def child(args) -> int:
     else:
         torch.set_num_threads(1)
         device = torch.device("cpu")
+    # on cards a collective that waits past COLLECTIVE_TIMEOUT aborts the
+    # process (no step of these checks waits that long for a peer), and
+    # the parent then ends the others
     dist.init_process_group(
         "nccl" if cuda else "gloo",
         store=dist.FileStore(os.path.join(args.dir, "store"), args.nprocs),
-        rank=args.rank, world_size=args.nprocs)
+        rank=args.rank, world_size=args.nprocs,
+        **({"timeout": datetime.timedelta(seconds=COLLECTIVE_TIMEOUT)}
+           if cuda else {}))
+    if cuda:
+        _warm_collectives(device, args.nprocs)
     checks = set(args.checks.split(","))
     res = {"meshes": {}}
     ref = _train(None, device) if "train" in checks else None
@@ -627,8 +1229,9 @@ def child(args) -> int:
                          adam8bit=dict(optimizer="adam8bit"),
                          one_kv_head=dict(n_kv_heads=1))
         if "archs" in checks:
-            cases.update({a: dict(arch=a) for a in ("qwen3_moe_235b_a22b",
-                                                     "zamba2_1_2b")})
+            cases.update({a: dict(arch=a) for a in (
+                "qwen3_moe_235b_a22b", "llama4_maverick_400b_a17b",
+                "zamba2_1_2b")})
         for name, kw in cases.items():
             rtol = 1e-5 if "arch" in kw else LOSS_RTOL
             one_n[name] = _compare_train(_train(model_mesh, device, **kw),
@@ -642,9 +1245,12 @@ def child(args) -> int:
         if args.rank == 0:
             print("mesh-check " + json.dumps(
                 {"mesh": mesh_axes(model_mesh), **one_n}), flush=True)
+    if "giants" in checks:
+        res["giants"] = _giants(device, meshes, args.rank)
     ok = all(c["ok"] for row in res["meshes"].values()
              for c in row.values() if isinstance(c, dict) and "ok" in c)
     ok &= all(c["ok"] for c in one_n.values())
+    ok &= all(c["ok"] for c in res.get("giants", {}).values())
     res["ok"] = ok
     if args.out:
         with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
@@ -836,6 +1442,23 @@ def launcher(args) -> int:
     return 0 if res["ok"] else 1
 
 
+def _wait_all(procs, grace: float = 60.0) -> list:
+    """The exit codes of ``procs``; ``grace`` seconds after one has
+    failed, the others are killed (they may wait for it in a collective
+    for ever)."""
+    failed_at = None
+    while any(p.poll() is None for p in procs):
+        if failed_at is None and any(p.poll() not in (None, 0)
+                                     for p in procs):
+            failed_at = time.monotonic()
+        if failed_at is not None and time.monotonic() - failed_at > grace:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        time.sleep(0.5)
+    return [p.returncode for p in procs]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nprocs", type=int, default=4)
@@ -878,7 +1501,7 @@ def main(argv=None) -> int:
              str(args.nprocs), "--device", args.device, "--checks",
              args.checks, "--rank", str(r), "--dir", d] + extra)
             for r in range(args.nprocs)]
-        rcs = [p.wait() for p in procs]
+        rcs = _wait_all(procs)
     print(f"mesh-check exit codes {rcs}", flush=True)
     return 0 if all(rc == 0 for rc in rcs) else 1
 
