@@ -304,6 +304,25 @@ DTensor parameters) adds:
       parameter.
       Launches read from the mesh runs: simhash 1, bucket_probe >= 3,
       draw_assemble 3, flash_attention 8, flash_decode 128.
+The production-sequence slice (the chunked attention recomputed one
+q-block at a time in the backward) adds:
+  4l. after 4k (``long_rows_full_width``): (a) the chunked attention at
+      phi4-mini's heads (B 2, S 4,096: 8 q-blocks of 512, causal), f32
+      and bf16, as training runs it (each q-block checkpointed) and as
+      the module's ``q_block`` composed here without a checkpoint, the
+      same inputs and cotangent: q / k / v gradients and outputs
+      bitwise; (b) ``max_memory_allocated`` over each version's forward
+      and backward beside a prediction from the bytes its forward saves
+      (``saved_tensors_hooks``): the checkpointed one must be lower;
+      (c) phi4-mini at full width and CUT_LAYERS of its 32 layers, bf16,
+      Adam, 4c's LGD recipe on LONG_CORPUS rows of 4,096 tokens,
+      LONG_STEPS steps, at the largest batch whose peak the dry run's
+      counter predicts (``predicted_step_bytes``, on the host under
+      FakeTensorMode) within 80 GB; counts set to 0 before the index
+      build and read after the last step (simhash 1, bucket_probe and
+      draw_assemble one a step), every loss finite, batch-mean weights
+      1 +- 1e-5; the step's peak beside its prediction and its p50
+      beside 4c's.
   4c, 4d, 4h, 4i and 3j / 4j's workers print each LGD index's fallback
   diagnostics after its build and each refresh (``index-stats`` lines:
   primary miss and fallback shares, distinct buckets a table, the
@@ -478,6 +497,18 @@ MH_LAYERS = 19
 # phase 4k: phi4-mini at full width and CUT_LAYERS deep under the host
 # mesh (1 x 1 on one card), against the same run meshless
 MESH_STEPS, MESH_NEW = 3, 16
+# phase 4l: phi4-mini at full width and CUT_LAYERS deep trained on rows
+# of train_4k's 4,096 tokens (8 q-blocks at attn_block_q 512), 4c's LGD
+# recipe on a corpus of LONG_CORPUS rows, LONG_STEPS steps, at the
+# largest batch whose predicted peak fits LONG_FIT_BYTES (the card's 80
+# GB).  The peak is counted on the host at the batches LONG_PROBE_B and
+# is affine in the batch beyond them: the backward, not the optimiser's
+# temporaries, sets it there
+LONG_SEQ, LONG_CORPUS, LONG_STEPS = 4096, 64, 3
+LONG_FIT_BYTES = 80e9
+LONG_PROBE_B = (8, 12)
+# 4l(a, b): the chunked attention at phi4-mini's heads, B 2, S LONG_SEQ
+LONG_ATTN_B = 2
 # 4j's fault-free run: windows wide enough that no legitimate wait ends
 # it; the drill's timeouts come from the waits it measures
 MH_WIDE_TIMEOUTS = ["--barrier-timeout", "600", "--heartbeat-timeout",
@@ -3062,6 +3093,242 @@ def mesh_full_width(torch, np, dev, kernels, configs, launch_train,
         launches={**used_a, **used_b})
 
 
+def predicted_step_bytes(torch, LM, cfg, batch: int, seq: int) -> int:
+    """The peak live bytes of one ``Trainer.train_step`` of ``cfg`` (Adam,
+    the clip) on ``batch`` rows of ``seq`` tokens, counted by the dry
+    run's counter (``launch.dryrun.RankCounter``) on the host under
+    ``FakeTensorMode``: the weights and Adam's moments, the batch, every
+    activation the remat keeps and every temporary, each from its
+    allocation to its free."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.dryrun import RankCounter
+    from repro_torch.optim import Adam
+    from repro_torch.train import Trainer, TrainerConfig
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        model = LM(cfg, device="cpu")
+        tr = Trainer(cfg, model, Adam(lr=1e-3), batches=iter(()),
+                     tcfg=TrainerConfig(skip_nonfinite=False))
+        b = {"tokens": torch.zeros((batch, seq), dtype=torch.int32),
+             "targets": torch.zeros((batch, seq), dtype=torch.int32),
+             "loss_weights": torch.ones((batch,))}
+        counter = RankCounter(ops=False)
+        counter.track((dict(model.named_parameters()),
+                       tuple(tr.opt_state), b))
+        with counter:
+            tr.train_step(b)
+    return counter.peak_bytes
+
+
+def long_attention_remat(torch, dev, attention_xla, cfg, dtype) -> dict:
+    """4l(a, b) in one dtype: the chunked attention at ``cfg``'s heads (B
+    LONG_ATTN_B, S LONG_SEQ, causal, its attn_block_q), as the model
+    runs it in training (each q-block checkpointed) and as the same
+    q-block function composed without a checkpoint; the same inputs and
+    cotangent.  Returned: whether the q / k / v gradients and the
+    outputs are bitwise equal, and for each version the bytes its
+    forward saves for the backward (``saved_tensors_hooks``, storages
+    not among the inputs), ``max_memory_allocated`` over the forward and
+    backward above what was allocated before, its prediction from the
+    saved bytes, and the forward-and-backward ms."""
+    b, s, bq = LONG_ATTN_B, LONG_SEQ, cfg.attn_block_q
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = torch.randn((b, s, hq, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    gy = torch.randn((b, s, hq, d), generator=g, device=dev).to(dtype)
+    scale = d ** -0.5
+
+    def composed(q_, k_, v_):
+        kg = k_.permute(0, 2, 1, 3).float()
+        vg = v_.permute(0, 2, 1, 3).float()
+        return torch.cat([attention_xla.q_block(
+            q_[:, q0:q0 + bq], kg, vg, q0, causal=True, scale=scale)
+            for q0 in range(0, s, bq)], dim=1)
+
+    def checkpointed(q_, k_, v_):
+        return attention_xla.chunked_gqa_attention(q_, k_, v_, causal=True,
+                                                   block_q=bq)
+
+    for fn in (checkpointed, composed):         # warm: cuBLAS's plans
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        torch.autograd.backward(fn(*leaves), gy)
+    del leaves
+    runs = {}
+    for name, fn in (("checkpointed", checkpointed), ("composed", composed)):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        inputs = {x.untyped_storage().data_ptr() for x in leaves}
+        saved = {}
+
+        def pack(x):
+            st = x.untyped_storage()
+            if st.data_ptr() not in inputs:
+                saved[st.data_ptr()] = st.nbytes()
+            return x
+
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+            y = fn(*leaves)
+        torch.autograd.backward(y, gy)
+        torch.cuda.synchronize()
+        runs[name] = dict(
+            ms=(time.perf_counter() - t0) * 1e3,
+            peak=torch.cuda.max_memory_allocated() - base,
+            saved=sum(saved.values()), y=y.detach(),
+            grads=[x.grad for x in leaves])
+        del y, leaves
+    rc, rp = runs["checkpointed"], runs["composed"]
+    n_blocks = -(-s // bq)
+    # beside what a version saves: its output, the inputs' gradients and
+    # the backward's f32 working set of one block (the scores' and the
+    # softmax's gradients); the checkpointed one rebuilds one block's
+    # saved tensors at a time on top
+    extra = q.numel() * q.element_size() * 2 + \
+        2 * k.numel() * k.element_size() + 2 * b * hq * bq * s * 4
+    pred = {"checkpointed": rc["saved"] + rp["saved"] / n_blocks + extra,
+            "composed": rp["saved"] + extra}
+    out = dict(
+        dtype=str(dtype).replace("torch.", ""), batch=b, seq=s, block_q=bq,
+        q_blocks=n_blocks, heads=[hq, hkv, d],
+        grads_bitwise=all(torch.equal(x, y_) for x, y_ in zip(
+            rc["grads"], rp["grads"])),
+        out_bitwise=torch.equal(rc["y"], rp["y"]))
+    for name, r in runs.items():
+        out[name] = dict(saved_gb=r["saved"] / 1e9, peak_gb=r["peak"] / 1e9,
+                         predicted_peak_gb=pred[name] / 1e9,
+                         fwd_bwd_ms=r["ms"])
+    del runs, rc, rp, q, k, v, gy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_rows_full_width(torch, np, dev, kernels, configs, launch_train,
+                         LM) -> dict:
+    """Phase 4l: training at the production sequence length.  (a, b)
+    ``long_attention_remat`` in f32 and bf16: the checkpointed chunked
+    attention's gradients bitwise those of the composition without a
+    checkpoint, its peak below that one's.  (c) phi4-mini at full width
+    and CUT_LAYERS of its 32 layers, bf16, 4c's LGD recipe (Adam,
+    ``make_batches(lgd=True)``, ``make_trainer``) on LONG_CORPUS rows of
+    LONG_SEQ tokens, LONG_STEPS steps, at the largest batch whose peak
+    ``predicted_step_bytes`` (affine in the batch from LONG_PROBE_B)
+    fits LONG_FIT_BYTES; the launch counts set to 0 before the index
+    build and read after the last step (simhash 1, bucket_probe and
+    draw_assemble one a step), every loss finite, every batch-mean weight
+    1 +- 1e-5.  Reported: the step's peak beside its prediction, the
+    step p50, the build and the fallback share."""
+    from repro_torch.models import attention_xla
+
+    cfg = configs.get(SERVE_ARCH).with_(n_layers=CUT_LAYERS)
+    res = {"attention": [long_attention_remat(torch, dev, attention_xla,
+                                              cfg, dt)
+                         for dt in (torch.float32, torch.bfloat16)]}
+    for row in res["attention"]:
+        print("long-4l-attention " + json.dumps(row), flush=True)
+        if not (row["grads_bitwise"] and row["out_bitwise"]):
+            fail(f"4l(a): the checkpointed chunked attention is not the "
+                 f"composed one bitwise ({row['dtype']}): gradients "
+                 f"{row['grads_bitwise']}, output {row['out_bitwise']}")
+        if row["checkpointed"]["peak_gb"] >= row["composed"]["peak_gb"]:
+            fail(f"4l(b): the checkpointed backward's peak "
+                 f"{row['checkpointed']['peak_gb']:.3f} GB is not below the "
+                 f"composed one's {row['composed']['peak_gb']:.3f} GB "
+                 f"({row['dtype']})")
+
+    t0 = time.perf_counter()
+    (b1, b2) = LONG_PROBE_B
+    p1, p2 = (predicted_step_bytes(torch, LM, cfg, b_, LONG_SEQ)
+              for b_ in LONG_PROBE_B)
+    per_row = (p2 - p1) / (b2 - b1)
+    batch = b1 + int((LONG_FIT_BYTES - p1) // per_row)
+    predicted = p1 + (batch - b1) * per_row
+    res.update(predict_s=time.perf_counter() - t0, batch=batch,
+               predicted_peak_gb=predicted / 1e9,
+               predicted_gb_per_row=per_row / 1e9,
+               predicted_at={b1: p1 / 1e9, b2: p2 / 1e9})
+    if batch < 1:
+        fail(f"4l(c): not one row of {LONG_SEQ} tokens fits: {res}")
+
+    print("long-4l-prediction " + json.dumps(res), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    # The step frees and allocates f32 loss-chunk logits of ~0.82 GB a row
+    # (13 GB at B 16); in fixed segments the cache holds them only with
+    # ~12 GB of its reserve split unusably (an out-of-memory at 62 GiB
+    # allocated, on an H100 80GB).  Expandable segments map the bytes
+    # that are allocated, so the counted peak is what must fit.
+    torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
+    kernels.reset_launch_counts()
+    model = LM.init(cfg, seed=0, device=dev)
+    t0 = time.perf_counter()
+    sampler, _ = launch_train.make_batches(
+        cfg, model, lgd=True, batch=batch, seq=LONG_SEQ, corpus=LONG_CORPUS,
+        device=dev, refresh_every=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    w_means, next_batch = [], sampler.next_batch
+
+    def kept_batch(*a, **kw):
+        b_ = next_batch(*a, **kw)
+        w_means.append(b_["loss_weights"].mean())
+        return b_
+
+    sampler.next_batch = kept_batch
+    tr = launch_train.make_trainer(cfg, model, steps=LONG_STEPS, lr=1e-3,
+                                   sampler=sampler)
+    starts, train_step = [], tr.train_step
+
+    def timed_step(b_):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return train_step(b_)
+
+    tr.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    losses = tr.run(LONG_STEPS)["losses"]
+    torch.cuda.synchronize()
+    starts.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated()
+    del tr.train_step
+    tr.finalize()
+    used = {k: kernels.launches[k] for k in (
+        "simhash", "bucket_probe", "draw_assemble")}
+    if used != {"simhash": 1, "bucket_probe": LONG_STEPS,
+                "draw_assemble": LONG_STEPS}:
+        fail(f"4l(c): launches {used}: expected simhash 1, bucket_probe "
+             f"and draw_assemble {LONG_STEPS}")
+    if len(losses) != LONG_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"4l(c): losses {losses}")
+    w_mean = torch.stack(w_means).float().cpu()
+    if not torch.allclose(w_mean, torch.ones_like(w_mean), rtol=0,
+                          atol=1e-5):
+        fail(f"4l(c): batch-mean weights are not 1: {w_mean}")
+    dts = [(b_ - a_) * 1e3 for a_, b_ in zip(starts, starts[1:])]
+    res.update(
+        arch=cfg.name, layers=CUT_LAYERS, seq=LONG_SEQ,
+        q_blocks=-(-LONG_SEQ // cfg.attn_block_q), corpus=LONG_CORPUS,
+        steps=LONG_STEPS, tokens_per_step=batch * LONG_SEQ,
+        feature_batch=sampler.feature_batch, build_s=build_s,
+        step_ms=dts, step_ms_p50=float(np.percentile(dts, 50)),
+        peak_gb=peak / 1e9, losses=losses,
+        weight_mean_max_dev=float((w_mean - 1).abs().max()),
+        fallback_rate=sampler.sampler_stats()["fallback_rate"],
+        launches=used)
+    del tr, train_step, timed_step, sampler, model, next_batch, kept_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._accelerator_setAllocatorSettings("expandable_segments:False")
+    return res
+
+
 def main() -> int:
     t_script = time.perf_counter()
 
@@ -4613,6 +4880,19 @@ def main() -> int:
                                      launch_train, LM)
     print("mesh-4k " + json.dumps(report["mesh"]), flush=True)
     for kname, n_launch in report["mesh"]["launches"].items():
+        report["kernels"][kname]["launches"] += n_launch
+    # -- 4l. training at the production sequence length --------------------
+    stamp("4l")
+    report["long"] = long_rows_full_width(torch, np, dev, kernels, configs,
+                                          launch_train, LM)
+    print("long-4l " + json.dumps(report["long"]), flush=True)
+    print(f"4l: step peak {report['long']['peak_gb']:.2f} GB (predicted "
+          f"{report['long']['predicted_peak_gb']:.2f}) at B "
+          f"{report['long']['batch']} x {LONG_SEQ}; step p50 "
+          f"{report['long']['step_ms_p50']:.1f} ms against 4c's "
+          f"{report['train']['step_ms_p50']:.1f} ms (B {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, 32 layers)", flush=True)
+    for kname, n_launch in report["long"]["launches"].items():
         report["kernels"][kname]["launches"] += n_launch
     print(f"chip_smoke total: {time.perf_counter() - t_script:.1f} s",
           flush=True)

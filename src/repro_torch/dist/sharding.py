@@ -99,7 +99,8 @@ def mesh_axes(mesh) -> Dict[str, int]:
     with ``shape`` (a dict) and ``axis_names``."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
-        return dict(zip(names, tuple(mesh.mesh.shape)))
+        # ``size`` reads the layout; ``mesh.mesh`` builds a rank tensor
+        return {a: mesh.size(i) for i, a in enumerate(names)}
     return {a: int(mesh.shape[a]) for a in mesh.axis_names}
 
 
@@ -289,7 +290,7 @@ def unflatten_last(t: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
              if isinstance(p, Shard) and p.dim == last]
     m = 1
     for i in split:
-        m *= t.device_mesh.mesh.shape[i]
+        m *= t.device_mesh.size(i)
     if m > 1 and sizes[0] % m:
         t = t.redistribute(t.device_mesh, [
             Replicate() if i in split else p
@@ -329,7 +330,7 @@ def kv_heads_like_q(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
              if pq.is_shard(2) and not pk.is_shard(2)]
     m = 1
     for i in split:
-        m *= q.device_mesh.mesh.shape[i]
+        m *= q.device_mesh.size(i)
     b, s, hkv, d = kv.shape
     if m == 1 or q.shape[2] % m or m % hkv or any(
             kv.placements[i].is_partial() for i in split):
@@ -366,7 +367,7 @@ def local_map(fn, args: Sequence, dims: Sequence, out_dims: Sequence):
     kinds = []
     for i in range(mesh.ndim):
         kind = None
-        size = mesh.mesh.shape[i]
+        size = mesh.size(i)
         for which in (0, 1):
             have = [(a.placements[i], d[which], a.shape[d[which]])
                     for a, d in zip(args, dims)
@@ -508,7 +509,7 @@ def shard_of(t: torch.Tensor, mesh, placements) -> torch.Tensor:
     for i, pl in enumerate(placements):
         if local is None or not pl.is_shard():
             continue
-        n = mesh.mesh.shape[i]
+        n = mesh.size(i)
         if local.shape[pl.dim] % n:
             local = None            # uneven: distribute_tensor's split
         elif n > 1:
@@ -675,7 +676,7 @@ def _data_index(mesh) -> int:
     idx = 0
     for a in (("pod", "data") if "pod" in names else ("data",)):
         i = names.index(a)
-        idx = idx * mesh.mesh.shape[i] + coord[i]
+        idx = idx * mesh.size(i) + coord[i]
     return idx
 
 

@@ -26,13 +26,17 @@ below are rank 0's of the production run:
 * Collectives: the count and the bytes of each kind's results a rank
   (all-gather: the gathered tensor; reduce-scatter: the shard;
   all-reduce: the tensor), as the reference sums the HLO result shapes,
-  read off the functional collectives DTensor issues (what
-  ``CommDebugMode`` counts; its module tracker refuses a module called
-  twice in a step, as zamba2's shared block is, so the counter does it).
-  The ops that issued the most bytes are named.
+  read off the functional collectives DTensor issues on local tensors,
+  inside an op's sharding propagation too (what ``CommDebugMode``
+  counts; its module tracker refuses a module called twice in a step,
+  as zamba2's shared block is, so the counter does it).  The ops that
+  issued the most bytes are named.  The fake mesh is a CPU one, so
+  DTensor's ``shard_dim_alltoall`` takes its gloo fallback and counts
+  as an all-gather.
 * Memory: the parameter, gradient and optimiser bytes a rank (the local
   shards), and the peak of the live local storages a rank (the state,
-  the batch and cache, and every op's outputs until they are freed),
+  the batch and cache, and every local op's outputs, DTensor's
+  temporaries among them, from their allocation until they are freed),
   held against the H100's 80 GB.  (``MemTracker`` refuses a module
   called twice in a step, as zamba2's shared block is.)
 * Bytes accessed a rank: every non-view op's inputs and outputs, local.
@@ -57,7 +61,9 @@ import argparse
 import collections
 import json
 import os
+import threading
 import time
+import weakref
 from typing import Optional
 
 import torch
@@ -210,6 +216,7 @@ _COLLECTIVES = {
     "reduce_scatter_tensor": "reduce-scatter",
     "all_reduce": "all-reduce",
     "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",      # namespace _dtensor
 }
 
 
@@ -239,7 +246,7 @@ def _split(t) -> int:
     n = 1
     for i, p in enumerate(t.placements):
         if not p.is_replicate():
-            n *= t.device_mesh.mesh.shape[i]
+            n *= t.device_mesh.size(i)
     return n
 
 
@@ -258,28 +265,51 @@ def _call_site() -> str:
 
 
 class RankCounter:
-    """A dispatch mode counting rank 0's matmul FLOPs, collectives and
-    bytes accessed (module docstring).  A collective is named by its call
-    site (``_call_site``)."""
+    """Counts rank 0's step (module docstring) in two dispatch modes.
 
-    def __init__(self):
+    The outer one sees a DTensor op at its global shapes and counts the
+    matmul FLOPs and the bytes accessed (``ops=False`` leaves it out).
+    The inner one declines DTensor ops, as ``CommDebugMode`` does, so it
+    sees the local ops DTensor runs, the redistributions its sharding
+    propagation makes inside an op among them: it counts the collectives
+    (each named by its call site, ``_call_site``) and the live local
+    storages.  A storage is counted from the op that allocates it until
+    it is freed (a weakref callback on its storage object, which lives
+    as long as the storage), and the peak is taken at every
+    allocation.  DTensor's sharding propagation runs an op it has not
+    seen on global-shaped fake tensors to learn its output's shape; those
+    are no rank's memory and are not counted."""
+
+    def __init__(self, ops: bool = True):
+        from torch.distributed.tensor import DTensor
         from torch.utils._python_dispatch import TorchDispatchMode
         from torch.utils.flop_counter import flop_registry
 
         counter = self
 
-        class _Mode(TorchDispatchMode):
+        class _Ops(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 out = func(*args, **(kwargs or {}))
-                counter._record(func, args, kwargs or {}, out)
+                counter._record_op(func, args, kwargs or {}, out)
                 return out
 
-        self._mode = _Mode()
+        class _Local(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if isinstance(func, torch._ops.HigherOrderOperator):
+                    return func(*args, **(kwargs or {}))
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                out = func(*args, **(kwargs or {}))
+                counter._record_local(func, out)
+                return out
+
+        self._modes = [_Local()] + ([_Ops()] if ops else [])
         self._registry = flop_registry
         self._live: dict = {}     # storage key -> (weak ref, bytes)
         self._live_bytes = 0
+        self._meta = 0            # > 0 inside sharding propagation
+        self._unpatch = None
         self.peak_bytes = 0
-        self._ops = 0
         self.flops = 0.0
         self.bytes = 0
         self.collectives = collections.Counter()
@@ -287,51 +317,75 @@ class RankCounter:
         self.coll_by_op = collections.Counter()
 
     def __enter__(self):
-        self._mode.__enter__()
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator as SP
+
+        meta = SP._propagate_tensor_meta_non_cached
+        mine = threading.get_ident()      # the modes are this thread's
+
+        def counted(sp, *a, **kw):
+            if threading.get_ident() != mine:
+                return meta(sp, *a, **kw)
+            self._meta += 1
+            try:
+                return meta(sp, *a, **kw)
+            finally:
+                self._meta -= 1
+
+        SP._propagate_tensor_meta_non_cached = counted
+        self._unpatch = lambda: setattr(
+            SP, "_propagate_tensor_meta_non_cached", meta)
+        for m in self._modes:
+            m.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self._update()
-        return self._mode.__exit__(*exc)
+        for m in reversed(self._modes):
+            m.__exit__(*exc)
+        self._unpatch()
+
+    def summary(self) -> dict:
+        """The collectives: bytes and count by kind, bytes by call site."""
+        return dict(bytes=dict(self.collectives),
+                    count=dict(self.coll_counts),
+                    by_site=dict(self.coll_by_op))
 
     def track(self, tree) -> None:
         """Count the local storages of ``tree`` as live (the state that
         exists before the step)."""
         for t in _tensors(tree):
             self._add(t)
-        self._update()
 
     def _add(self, t) -> None:
-        from torch.multiprocessing.reductions import StorageWeakRef
-        t = _local(t)
-        st = t.untyped_storage()
-        ref = StorageWeakRef(st)
-        if ref.cdata in self._live:
+        st = _local(t).untyped_storage()
+        key = st._cdata
+        if key in self._live:
             return
         nb = st.nbytes()
-        self._live[ref.cdata] = (ref, nb)
+        self._live[key] = (weakref.ref(st, lambda _: self._free(key)), nb)
         self._live_bytes += nb
-
-    def _update(self) -> None:
-        for k in [k for k, (ref, _) in self._live.items() if ref.expired()]:
-            self._live_bytes -= self._live.pop(k)[1]
         self.peak_bytes = max(self.peak_bytes, self._live_bytes)
 
-    def _record(self, func, args, kwargs, out):
+    def _free(self, key) -> None:
+        self._live_bytes -= self._live.pop(key)[1]
+
+    def _record_local(self, func, out) -> None:
+        if not self._meta:
+            for t in _tensors(out):
+                self._add(t)
         name = func.overloadpacket.__name__
-        for t in _tensors(out):
-            self._add(t)
-        self._ops += 1
-        if self._ops % 32 == 0:
-            self._update()
-        ns = func.namespace
-        if ns == "_c10d_functional" and name in _COLLECTIVES:
+        kind = _COLLECTIVES.get(name) if func.namespace in (
+            "_c10d_functional", "_dtensor") else None
+        if kind is not None:
             b = sum(_nbytes(t) for t in _tensors(out))
-            self.collectives[_COLLECTIVES[name]] += b
-            self.coll_counts[_COLLECTIVES[name]] += 1
+            self.collectives[kind] += b
+            self.coll_counts[kind] += 1
             self.coll_by_op[_call_site()] += b
-            return
-        if ns != "aten" or func.is_view or name in ("detach", "alias"):
+
+    def _record_op(self, func, args, kwargs, out) -> None:
+        name = func.overloadpacket.__name__
+        if func.namespace != "aten" or func.is_view or \
+                name in ("detach", "alias"):
             return
         dt = any(is_dtensor(t) for t in _tensors(args))
         self.bytes += (sum(_nbytes(t) for t in _tensors(args))

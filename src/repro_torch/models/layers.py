@@ -227,7 +227,7 @@ def _local_window(cache_t: torch.Tensor, dim: int):
     lo, n = 0, cache_t.shape[dim]
     for i, p in enumerate(cache_t.placements):
         if isinstance(p, Shard) and p.dim == dim:
-            size = cache_t.device_mesh.mesh.shape[i]
+            size = cache_t.device_mesh.size(i)
             n //= size
             lo += coord[i] * n
     return cache_t.to_local(), lo, lo + n
@@ -426,7 +426,7 @@ def _split(t: torch.Tensor, dim: int) -> int:
     n = 1
     for i, p in enumerate(t.placements):
         if p.is_shard(dim):
-            n *= t.device_mesh.mesh.shape[i]
+            n *= t.device_mesh.size(i)
     return n
 
 

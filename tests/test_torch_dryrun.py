@@ -21,6 +21,12 @@ they stand.  Checks:
 * a train cell reports a non-zero all-reduce or reduce-scatter; the
   decode over the sequence-sharded cache all-gathers it in
   ``gqa_decode``;
+* the collectives DTensor issues inside an op's sharding propagation
+  are counted: every SMOKE train cell's counts equal those of
+  ``tools/mesh_check.py``'s ``collectives()`` on the same step;
+* the peak live bytes are a true maximum: a temporary that lives for a
+  few ops is in it, and a SMOKE arch's peak does not fall when a layer
+  is added;
 * the FLOPs a rank exactly: on configs whose every width divides the
   16-wide axes (d_model 256, 16 heads and 16 KV heads of 16, d_ff 512,
   vocab 512, 16 experts of 256 for the MoE), the work splits evenly, so
@@ -30,7 +36,9 @@ they stand.  Checks:
   not split over ``model`` (ROADMAP.md queue 3).
 """
 
+import importlib.util
 import math
+import os
 
 import pytest
 import torch
@@ -95,14 +103,43 @@ def _expected_bytes(arch, cfg):
     return params, grads, opt_bytes
 
 
+def _mesh_check():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "mesh_check.py")
+    spec = importlib.util.spec_from_file_location("mesh_check", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 _CELLS: dict = {}
+_TOOL_COUNTS: dict = {}     # arch -> mesh_check's counter's summary()
 
 
 def _train_cell(arch):
+    """The SMOKE train cell, with ``tools/mesh_check.py``'s collective
+    counter run beneath the dry run's on the same step."""
     if arch not in _CELLS:
-        _CELLS[arch] = dryrun.run_cell(arch, TRAIN_CUT,
-                                       cfg_override=configs.get_smoke(arch),
-                                       verbose=False)
+        tool = _mesh_check().collectives()
+        counter = dryrun.RankCounter
+
+        class Both(counter):
+            def __enter__(self):
+                tool.__enter__()
+                return super().__enter__()
+
+            def __exit__(self, *exc):
+                super().__exit__(*exc)
+                tool.__exit__(*exc)
+
+        dryrun.RankCounter = Both
+        try:
+            _CELLS[arch] = dryrun.run_cell(
+                arch, TRAIN_CUT, cfg_override=configs.get_smoke(arch),
+                verbose=False)
+        finally:
+            dryrun.RankCounter = counter
+        _TOOL_COUNTS[arch] = tool.summary()
     return _CELLS[arch]
 
 
@@ -123,6 +160,50 @@ def test_smoke_train_cell(arch):
         r["collectives"].get("reduce-scatter", 0) > 0
     assert r["peak_bytes_per_device"] >= params + opt_bytes
     assert r["fits_80GB"] and r["bytes_per_device"] > 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_counts_the_collectives_dtensor_issues_inside_ops(arch):
+    """The dry run's counts are those of the counter that declines
+    DTensor ops (``mesh_check.collectives()``), by kind and by call site:
+    the redistributions inside an op's sharding propagation included
+    (SMOKE qwen3-moe: 133 all-gathers, 82 of them outside ops)."""
+    r = _train_cell(arch)
+    tool = _TOOL_COUNTS[arch]
+    assert r["collective_counts"] == tool["count"]
+    assert r["collectives"] == tool["bytes"]
+    assert dict(r["top_collectives"]) == dict(
+        sorted(tool["by_site"].items(), key=lambda kv: -kv[1])[:8])
+    if arch == "qwen3_moe_235b_a22b":
+        assert r["collective_counts"] == {
+            "all-gather": 133, "all-reduce": 70, "reduce-scatter": 25}
+
+
+def test_peak_catches_a_short_lived_temporary():
+    """The peak is taken at every allocation, so a temporary freed a few
+    ops later is in it; a freed storage leaves the live bytes."""
+    with dryrun.RankCounter() as c:
+        x = torch.zeros(1000)                   # 4,000 B, kept
+        y = torch.ones(100_000)                 # 400,000 B, a temporary
+        z = y.sum()                             # 4 B
+        del y
+        for _ in range(40):
+            x = x + 1
+    assert c.peak_bytes == 4000 + 400_000 + 4
+    assert c._live_bytes == 4000 + 4
+    assert float(z) == 100_000 and float(x[0]) == 40
+
+
+def test_peak_does_not_fall_with_depth():
+    """One layer more keeps one more block input for the remat's
+    backward: the peak a rank rises."""
+    cfg = configs.get_smoke("phi4_mini_3_8b")
+    one = dryrun.run_cell("phi4_mini_3_8b", TRAIN_CUT,
+                          cfg_override=cfg.with_(n_layers=1),
+                          verbose=False)
+    two = _train_cell("phi4_mini_3_8b")
+    assert cfg.n_layers == 2
+    assert two["peak_bytes_per_device"] > one["peak_bytes_per_device"]
 
 
 def test_phi4_prefill_cell():

@@ -876,49 +876,14 @@ def _giant_run(arch, mesh, device, n_shards, fixed, pin=None) -> dict:
 
 
 def collectives():
-    """A dispatch mode counting the collectives this rank issues, by
-    kind (count and output bytes) and by call site (``dryrun.
-    _call_site``; "backward" for autograd's).  Unlike the dry run's
-    ``RankCounter`` it lets DTensor's dispatch run first (it declines
-    DTensor ops, as ``CommDebugMode`` does), so the redistributions
-    DTensor makes inside an op's sharding propagation are counted too."""
-    import collections
-    import torch
-    from torch.distributed.tensor import DTensor
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from repro_torch.launch.dryrun import _COLLECTIVES, _call_site
+    """The dry run's counter (``dryrun.RankCounter``) without its
+    DTensor-level FLOP and byte counts: the collectives this rank issues,
+    the redistributions DTensor makes inside an op's sharding
+    propagation among them, by kind (count and output bytes) and by call
+    site ("backward" for autograd's), in ``summary()``."""
+    from repro_torch.launch.dryrun import RankCounter
 
-    kinds = dict(_COLLECTIVES, shard_dim_alltoall="all-to-all")
-
-    class Collectives(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.bytes = collections.Counter()
-            self.count = collections.Counter()
-            self.by_site = collections.Counter()
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if isinstance(func, torch._ops.HigherOrderOperator):
-                return func(*args, **(kwargs or {}))
-            if any(t is DTensor for t in types):
-                return NotImplemented
-            out = func(*args, **(kwargs or {}))
-            name = func.overloadpacket.__name__
-            if func.namespace in ("_c10d_functional", "_dtensor") and \
-                    name in kinds:
-                outs = out if isinstance(out, (list, tuple)) else [out]
-                b = sum(t.numel() * t.element_size() for t in outs
-                        if isinstance(t, torch.Tensor))
-                self.bytes[kinds[name]] += b
-                self.count[kinds[name]] += 1
-                self.by_site[_call_site()] += b
-            return out
-
-        def summary(self) -> dict:
-            return dict(bytes=dict(self.bytes), count=dict(self.count),
-                        by_site=dict(self.by_site))
-
-    return Collectives()
+    return RankCounter(ops=False)
 
 
 @contextlib.contextmanager
