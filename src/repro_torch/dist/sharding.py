@@ -37,6 +37,12 @@ DTensor placements (``Shard``, ``Replicate``):
   the data axes.
 * ``host_local_mesh`` is the mesh over this host's ranks, None for
   fewer than two local devices, as in the reference.
+* ``with_batch_view`` readies a multi-pod (``pod``, ``data``,
+  ``model``) mesh where it is made: (``pod``, ``data``) flattened into
+  one group, and the batch view, a (``pod`` · ``data``, ``model``) mesh
+  over the same ranks, on which ``to_batch_view`` / ``from_batch_view``
+  run the ops whose reshape merges the batch dim (the expert products,
+  the embedding's lookup).
 
 The mesh helpers touch only a mesh's axis names and sizes
 (``mesh_axes``), so the spec tests pass stub meshes (an object with a
@@ -397,6 +403,63 @@ def local_map(fn, args: Sequence, dims: Sequence, out_dims: Sequence):
             o, mesh, placed(d), run_check=False)
         for o, d in zip(outs, out_dims))
     return wrapped[0] if single else wrapped
+
+
+# the batch view of each mesh whose batch is split over ("pod", "data")
+_BATCH_VIEWS: Dict[Any, Any] = {}
+
+
+def with_batch_view(mesh):
+    """``mesh``, made ready where its batch is split over ``("pod",
+    "data")``: the two data axes flattened into one group, through which
+    DTensor moves a tensor over both in one collective (a weight's FSDP
+    gather, a reduction) where it would issue one a mesh dim, and its
+    batch view, the ``("data", "model")`` mesh over the same ranks with
+    the two data axes merged into one, pod-major (the order in which a
+    ``Shard`` over pod and then data splits a dim: ``to_batch_view``).
+    Both make process groups, so every rank calls this where it makes
+    the mesh, and every step on the mesh sees the same groups."""
+    if mesh.mesh_dim_names == ("pod", "data", "model"):
+        from torch.distributed.device_mesh import DeviceMesh
+        mesh["pod", "data"]._flatten()          # a group of this mesh's
+        if mesh not in _BATCH_VIEWS:            # one view for equal meshes
+            _BATCH_VIEWS[mesh] = DeviceMesh(
+                mesh.device_type, mesh.mesh.reshape(-1, mesh.size(2)),
+                mesh_dim_names=("data", "model"))
+    return mesh
+
+
+def to_batch_view(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor on a mesh that has a batch view (``with_batch_view``):
+    the same local tensor on the view, its pod and data placements (which
+    must agree) one data placement.  DTensor cannot keep a dim split over
+    two mesh dims through an op that merges it with another dim (the
+    expert products' reshape): it gathers the dim over both.  On the view
+    one mesh dim splits it.  Any other tensor as it is."""
+    view = _BATCH_VIEWS.get(t.device_mesh) if is_dtensor(t) else None
+    if view is None:
+        return t
+    pod, data, model = t.placements
+    if pod != data:
+        raise ValueError(f"{t.placements}: the batch view needs the same "
+                         "placement on pod and data")
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t.to_local(), view, [data, model],
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def from_batch_view(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``to_batch_view`` undone: ``t``, a DTensor on the batch view of
+    ``mesh``, placed on ``mesh`` (its data placement on pod and data).
+    Any other tensor as it is."""
+    if not is_dtensor(t) or t.device_mesh == mesh:
+        return t
+    data, model = t.placements
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t.to_local(), mesh, [data, data, model],
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 # ---------------------------------------------------------------------------

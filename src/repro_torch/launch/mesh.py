@@ -30,6 +30,7 @@ import contextlib
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist.sharding import with_batch_view
 from repro_torch.kernels import in_job, resolve_device
 
 PRODUCTION_SHAPE = (16, 16)
@@ -41,8 +42,9 @@ def _backend(device_type: str) -> str:
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
-    """The 16 x 16 (or 2 x 16 x 16) ``DeviceMesh`` over the default
-    group's ranks; raises unless the group has exactly that many."""
+    """The 16 x 16 (or 2 x 16 x 16, with its batch view:
+    ``with_batch_view``) ``DeviceMesh`` over the default group's ranks;
+    raises unless the group has exactly that many."""
     from torch.distributed.device_mesh import DeviceMesh
 
     shape = MULTI_POD_SHAPE if multi_pod else PRODUCTION_SHAPE
@@ -59,8 +61,8 @@ def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
         raise RuntimeError(
             f"the production mesh {shape} needs {need} ranks, the process "
             f"group has {dist.get_world_size()}")
-    return DeviceMesh(device_type, torch.arange(need).reshape(shape),
-                      mesh_dim_names=axes)
+    return with_batch_view(DeviceMesh(
+        device_type, torch.arange(need).reshape(shape), mesh_dim_names=axes))
 
 
 def init_local_group(device_type: str = "cuda") -> bool:

@@ -29,9 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.sharding import (is_dtensor, kv_heads_like_q, logical,
-                             merge_last, pinned_view, replicate_like,
-                             unflatten_last)
+from ..dist.sharding import (from_batch_view, is_dtensor, kv_heads_like_q,
+                             logical, merge_last, pinned_view,
+                             replicate_like, to_batch_view, unflatten_last)
 from ..kernels.flash_attention import gqa_attention, gqa_decode
 from .attention_xla import chunked_gqa_attention
 from .config import ModelConfig
@@ -92,7 +92,8 @@ class RMSNorm(nn.Module):
 # ---------------------------------------------------------------------------
 
 def rope_tables(positions: torch.Tensor, d: int, theta: float):
-    """(cos, sin), each (B, S, 1, D/2) f32, for positions (B, S) or (S,).
+    """(cos, sin), each (B, S, 1, D/2) f32, for positions (B, S), or
+    (1, S, 1, D/2) for positions (S,) (the same for every row).
 
     Every layer of a step rotates by the same positions, so a model
     computes the tables once per step and hands them to each layer."""
@@ -358,50 +359,50 @@ class EmbedGroup(nn.Module):
 
 
 def embedding(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``.  Under a mesh the gather runs on the whole
-    table (each rank's copy, gathered from its shards: the rows a rank
-    needs can sit on any shard of the vocab axis) and this rank's token
-    ids; the result is placed as the ids.  Its backward accumulates the
-    rank's rows into a table gradient that is partial over the mesh dims
-    the ids are split on, reduced into the table's shards by the gather's
-    own backward (a reduce-scatter)."""
+    """``table[tokens]``.  Under a mesh the lookup is vocab-parallel, the
+    twin of ``_vocab_parallel_xent``, on local tensors: the table is
+    gathered over the mesh dims that do not split its vocab (the data
+    axes: a rank holds its (V / model, d) window, the whole (V, d) where
+    the vocab does not divide ``model``), each rank looks up its ids that
+    fall in its window (the others read zero), and the rows are summed
+    across the ranks that split the vocab, placed as the ids.  The
+    lookup's backward accumulates the rank's rows into its window's
+    gradient, partial over the mesh dims the ids are split on and
+    reduce-scattered into the table's shards.  No rank holds more of the
+    table than its window (DTensor's own index rule, where a torch
+    release has one, gathers the whole table, and its backward builds a
+    zero table of the global shape).  On a mesh whose batch is split over
+    ``("pod", "data")`` this runs on its batch view, so that the table is
+    gathered over both data axes in one all-gather."""
     if not is_dtensor(table):
         return table[tokens]
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = table.device_mesh
-    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
-    return _LocalEmbedding.apply(whole, replicate_like(tokens, table))
-
-
-class _LocalEmbedding(torch.autograd.Function):
-    """The gather of ``embedding`` on local tensors (DTensor's own
-    sharding rule for an index of a replicated table by split ids is not
-    in every torch release): forward ``whole[ids]`` per rank, backward
-    the same ``index_put_`` accumulation aten's index backward makes."""
-
-    @staticmethod
-    def forward(ctx, whole, tokens):
-        from torch.distributed.tensor import DTensor
-        ids = tokens.to_local()
-        ctx.save_for_backward(ids)
-        ctx.spec = (whole.device_mesh, tuple(tokens.placements),
-                    tuple(whole.shape), whole.to_local().dtype)
-        out = whole.to_local()[ids]
-        return DTensor.from_local(out, tokens.device_mesh, tokens.placements,
-                                  run_check=False)
-
-    @staticmethod
-    def backward(ctx, grad):
-        from torch.distributed.tensor import DTensor, Partial, Replicate
-        (ids,) = ctx.saved_tensors
-        mesh, placements, shape, dtype = ctx.spec
-        g = grad.redistribute(mesh, placements).to_local()
-        local = torch.zeros(shape, dtype=g.dtype, device=g.device)
-        local.index_put_((ids,), g, accumulate=True)
-        grad_pl = [Replicate() if p.is_replicate() else Partial()
-                   for p in placements]
-        return DTensor.from_local(local, mesh, grad_pl,
-                                  run_check=False), None
+    ids = to_batch_view(replicate_like(tokens, table))
+    table = to_batch_view(table)
+    view = table.device_mesh
+    vocab = [p.is_shard(0) for p in table.placements]
+    # the ids whole over the mesh dims that split the vocab, as they are
+    # (split over the batch, or whole) elsewhere
+    ids = ids.redistribute(view, [Replicate() if v or p.is_partial() else p
+                                  for v, p in zip(vocab, ids.placements)])
+    local = table.redistribute(
+        view, [Shard(0) if v else Replicate() for v in vocab]).to_local(
+        grad_placements=[Shard(0) if v else Partial() if p.is_shard()
+                         else Replicate()
+                         for v, p in zip(vocab, ids.placements)])
+    _, lo, hi = _local_window(table, 0)
+    idx = ids.to_local()
+    if hi - lo == table.shape[0]:
+        out = local[idx]
+    else:
+        mine = (idx >= lo) & (idx < hi)
+        out = local[torch.where(mine, idx - lo, torch.zeros_like(idx))]
+        out = torch.where(mine[..., None], out, torch.zeros_like(out))
+    rows = DTensor.from_local(out, view, [
+        Partial() if v else p for v, p in zip(vocab, ids.placements)],
+        run_check=False)
+    return from_batch_view(rows.redistribute(view, ids.placements), mesh)
 
 
 def _chunk_xent(hx: torch.Tensor, tx: torch.Tensor, head: torch.Tensor,
@@ -411,9 +412,7 @@ def _chunk_xent(hx: torch.Tensor, tx: torch.Tensor, head: torch.Tensor,
     if _split(logits, 2) > 1:
         xent = _vocab_parallel_xent(logits, tx)
     else:
-        tx = replicate_like(tx, logits)
-        gold = logits.gather(-1, tx.long()[..., None])[..., 0]
-        xent = torch.logsumexp(logits, dim=-1) - gold      # (B, c)
+        xent = _local_rows_xent(logits, tx)
     if w is not None:
         xent = xent * w[:, None]                           # LGD weights
     return xent.sum()
@@ -428,6 +427,29 @@ def _split(t: torch.Tensor, dim: int) -> int:
         if p.is_shard(dim):
             n *= t.device_mesh.size(i)
     return n
+
+
+def _xent(logits: torch.Tensor, tx: torch.Tensor) -> torch.Tensor:
+    """``logsumexp - gold`` of whole-vocab logits (B, c, V) and targets
+    (B, c)."""
+    gold = logits.gather(-1, tx.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def _local_rows_xent(logits: torch.Tensor, tx: torch.Tensor) -> torch.Tensor:
+    """``_xent`` of logits whose vocab dim is whole, on each rank's own
+    rows: on a DTensor the gather's backward would build a zero tensor of
+    the logits' GLOBAL shape, which DTensor replicates (the whole batch's
+    chunk on every rank), so the op runs on the local rows and the
+    result comes back placed over them."""
+    if not is_dtensor(logits):
+        return _xent(logits, tx)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = logits.device_mesh
+    rows = [p if p.is_shard(0) else Replicate() for p in logits.placements]
+    local = logits.redistribute(mesh, rows).to_local()
+    t = replicate_like(tx, logits).redistribute(mesh, rows).to_local()
+    return DTensor.from_local(_xent(local, t), mesh, rows, run_check=False)
 
 
 def _vocab_parallel_xent(logits: torch.Tensor,

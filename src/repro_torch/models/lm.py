@@ -202,9 +202,11 @@ class LM(nn.Module):
     def _prompt(self, batch):
         """(x, image memory, positions) of a full sequence."""
         x = self._embed(batch)
-        b, s = x.shape[:2]
+        # (S,): every row's positions, so the RoPE tables broadcast over
+        # the batch (a (B, S) table would be the whole batch's on every
+        # rank of a mesh)
         positions = replicate_like(torch.arange(
-            s, dtype=torch.int32, device=x.device)[None].expand(b, s), x)
+            x.shape[1], dtype=torch.int32, device=x.device), x)
         return x, self._image_mem(batch, x.dtype), positions
 
     def forward(self, batch) -> torch.Tensor:

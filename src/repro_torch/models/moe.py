@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.sharding import is_dtensor, logical
+from ..dist.sharding import (from_batch_view, is_dtensor, logical,
+                             to_batch_view)
 from .config import ModelConfig
 from .layers import RMSNorm, _param, normal_, rms_norm
 
@@ -97,18 +98,58 @@ class MoE(nn.Module):
         buf, dest, gate = dispatch_local(
             _local(h), _local(logical(logits, "batch", None, None)), k, cap)
         # (B, E, C, d) placed over batch and experts: the expert products,
-        # batched over E, are (E, B * C, d) @ (E, d, ff)
+        # batched over E, are (E, B * C, d) @ (E, d, ff), on the mesh's
+        # batch view where the batch is split over (pod, data) (that
+        # reshape would gather the buffer over both: ``to_batch_view``).
+        # Each weight is placed where it is used, so that autograd, which
+        # runs the node made last first, reduces each weight's gradient
+        # as soon as its product's backward has made it.
         buf = logical(_as_batch_dtensor(buf, h), "batch", "experts", None,
                       None)
-        buf = buf.transpose(0, 1).reshape(e, b * cap, d)
-        act = (F.silu(torch.bmm(buf, self.experts_gate))
-               * torch.bmm(buf, self.experts_up))
-        out_buf = torch.bmm(act, self.experts_down)          # (E, B*C, d)
-        out_buf = logical(out_buf.view(e, b, cap, d).transpose(0, 1),
-                          "batch", "experts", None, None)
+        rows = to_batch_view(buf).transpose(0, 1).reshape(e, b * cap, d)
+        act = (F.silu(torch.bmm(rows, _weight_for(rows, self.experts_gate)))
+               * torch.bmm(rows, _weight_for(rows, self.experts_up)))
+        out_buf = torch.bmm(act, _weight_for(act, self.experts_down))
+        out_buf = logical(from_batch_view(
+            out_buf.view(e, b, cap, d).transpose(0, 1),
+            getattr(buf, "device_mesh", None)), "batch", "experts", None,
+            None)
         out = combine_local(_local(logical(out_buf, "batch", None, None,
                                            None)), dest, gate, s, k)
         return x + logical(_as_batch_dtensor(out, h), "batch", None, None)
+
+
+def _weight_for(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The expert weight ``w`` (E, n, m) placed for ``rows @ w``: ``rows``
+    (E, B * C, n) are split along B * C over the data axes, where ``w``'s
+    n is split too (the d-FSDP placement), so one of the two moves.  ``w``
+    is gathered over those axes, its gradient reduce-scattered back, where
+    that moves fewer bytes than DTensor's own choice, which moves the rows
+    and leaves a partial product of the whole batch to reduce
+    (``gathers_weight``): a training batch gathers, a decode step does
+    not."""
+    w = to_batch_view(w)
+    if not is_dtensor(rows):
+        return w
+    data = [i for i, q in enumerate(rows.placements) if q.is_shard(1)]
+    p = 1
+    for i in data:
+        p *= rows.device_mesh.size(i)
+    if not gathers_weight(*rows.to_local().shape, w.shape[2],
+                          w.to_local().numel(), p):
+        return w
+    from torch.distributed.tensor import Replicate
+    return w.redistribute(w.device_mesh, [
+        Replicate() if i in data else q for i, q in enumerate(w.placements)])
+
+
+def gathers_weight(e: int, bc: int, n: int, m: int, w_local: int,
+                   p: int) -> bool:
+    """Whether ``_weight_for`` gathers a weight of ``w_local`` elements a
+    rank over ``p`` data ranks for the product of a rank's rows (e, bc, n)
+    into m columns: (p - 1) shards of the weight against the rows and the
+    (p - 1) local outputs of the partial product's reduce-scatter."""
+    return p > 1 and (p - 1) * w_local < e * bc * n + (p - 1) * e * bc * m
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -163,7 +204,32 @@ def aux_load_balance_loss(moe: MoE, x: torch.Tensor) -> torch.Tensor:
     router on x (B, S, d): f_e the share of tokens whose top-1 is e, p_e
     the mean router probability."""
     cfg = moe.cfg
+    if is_dtensor(x):
+        return _aux_loss_on_rows(moe, x)
     h = rms_norm(x, moe.norm.scale, cfg.norm_eps).reshape(-1, cfg.d_model)
     probs = torch.softmax(h.float() @ moe.router, dim=-1)
     f = F.one_hot(probs.argmax(dim=-1), cfg.moe_experts).float().mean(dim=0)
     return cfg.moe_experts * torch.sum(f * probs.mean(dim=0))
+
+
+def _aux_loss_on_rows(moe: MoE, x: torch.Tensor) -> torch.Tensor:
+    """``aux_load_balance_loss`` of a DTensor x: each rank sums the top-1
+    counts and the router probabilities of its own rows, and the sums are
+    reduced across the ranks that split the batch.  On DTensors the
+    means' backward expands their gradient to the whole batch's (B·S, E)
+    on every rank, and ``one_hot`` builds its zeros at the global shape."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    cfg, e = moe.cfg, moe.cfg.moe_experts
+    h = logical(rms_norm(x, moe.norm.scale, cfg.norm_eps), "batch", None,
+                None)
+    logits = logical(h.float() @ moe.router, "batch", None, None)
+    probs = torch.softmax(logits.to_local().reshape(-1, e), dim=-1)
+    sums = torch.stack([F.one_hot(probs.argmax(dim=-1), e).float().sum(0),
+                        probs.sum(dim=0)])                    # (2, E)
+    mesh = logits.device_mesh
+    sums = DTensor.from_local(
+        sums, mesh, [Partial() if p.is_shard(0) else Replicate()
+                     for p in logits.placements], run_check=False
+    ).redistribute(mesh, [Replicate()] * mesh.ndim) / (x.shape[0]
+                                                       * x.shape[1])
+    return e * torch.sum(sums[0] * sums[1])

@@ -65,8 +65,10 @@ from repro_torch.core.tables import (
     mutate_index,
 )
 from repro_torch.data.lsh_pipeline import _stream_seed
+from repro_torch.dist.sharding import is_dtensor, replicate_like
 
 from .config import ModelConfig
+from .layers import embedding
 from .lm import LM
 
 # the reference's fold_in salts of the head-index streams (disjoint from
@@ -141,14 +143,35 @@ def sampled_head_xent(q: torch.Tensor, lm_head: torch.Tensor,
     and reached by the gradient.  Returns (T,) losses."""
     t_, m = neg_ids.shape
     d = lm_head.shape[0]
-    w_neg = lm_head.index_select(1, neg_ids.reshape(-1)).float().reshape(
-        d, t_, m)
-    l_neg = torch.einsum("td,dtm->tm", q, w_neg)            # (T, m)
+    if is_dtensor(lm_head):
+        l_neg, l_gold = _head_logits_on_mesh(q, lm_head, targets, neg_ids)
+    else:
+        w_neg = lm_head.index_select(1, neg_ids.reshape(-1)).float() \
+            .reshape(d, t_, m)
+        l_neg = torch.einsum("td,dtm->tm", q, w_neg)        # (T, m)
+        w_gold = lm_head.index_select(1, targets.reshape(-1)).float()
+        l_gold = torch.einsum("td,dt->t", q, w_gold)        # (T,)
     logp = torch.log(torch.clamp(neg_probs.detach(), min=p_floor))
     log_zhat = torch.logsumexp(l_neg - logp, dim=-1) - float(np.log(m))
-    w_gold = lm_head.index_select(1, targets.reshape(-1)).float()  # (d, T)
-    l_gold = torch.einsum("td,dt->t", q, w_gold)
     return log_zhat - l_gold
+
+
+def _head_logits_on_mesh(q, lm_head, targets, neg_ids):
+    """The sampled and gold logits of a DTensor head, on each rank's own
+    rows: the ids placed as q's rows, the head's columns looked up
+    vocab-parallel (``layers.embedding`` on the head's (V, d) view).
+    DTensor's ``index_select`` gathers the whole head and its backward
+    builds a zero head of the global shape, replicated."""
+    from torch.distributed.tensor import Replicate
+    rows = [p if p.is_shard(0) else Replicate() for p in q.placements]
+
+    def on_rows(ids):
+        return replicate_like(ids, q).redistribute(q.device_mesh, rows)
+
+    w_neg = embedding(lm_head.t(), on_rows(neg_ids)).float()   # (T, m, d)
+    w_gold = embedding(lm_head.t(), on_rows(targets.reshape(-1))).float()
+    return (torch.einsum("td,tmd->tm", q, w_neg),
+            torch.einsum("td,td->t", q, w_gold))
 
 
 def sampled_softmax_loss(lm: LM, cfg: ModelConfig,

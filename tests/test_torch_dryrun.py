@@ -37,6 +37,7 @@ they stand.  Checks:
 """
 
 import importlib.util
+import inspect
 import math
 import os
 
@@ -116,30 +117,37 @@ _CELLS: dict = {}
 _TOOL_COUNTS: dict = {}     # arch -> mesh_check's counter's summary()
 
 
+def _counted_cell(arch, cfg, multi_pod=False, shapes=None):
+    """(the cut train cell of ``cfg``, the summary of
+    ``tools/mesh_check.py``'s collective counter run beneath the dry
+    run's on the same step); with ``shapes`` (a set), the shape of every
+    local tensor the step allocates is added to it (``_recording``)."""
+    tool = _mesh_check().collectives()
+    counter = dryrun.RankCounter
+
+    class Both(counter if shapes is None else _recording(shapes)):
+        def __enter__(self):
+            tool.__enter__()
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            super().__exit__(*exc)
+            tool.__exit__(*exc)
+
+    dryrun.RankCounter = Both
+    try:
+        cell = dryrun.run_cell(arch, TRAIN_CUT, cfg_override=cfg,
+                               multi_pod=multi_pod, verbose=False)
+    finally:
+        dryrun.RankCounter = counter
+    return cell, tool.summary()
+
+
 def _train_cell(arch):
-    """The SMOKE train cell, with ``tools/mesh_check.py``'s collective
-    counter run beneath the dry run's on the same step."""
+    """The SMOKE train cell (``_counted_cell``), once a module."""
     if arch not in _CELLS:
-        tool = _mesh_check().collectives()
-        counter = dryrun.RankCounter
-
-        class Both(counter):
-            def __enter__(self):
-                tool.__enter__()
-                return super().__enter__()
-
-            def __exit__(self, *exc):
-                super().__exit__(*exc)
-                tool.__exit__(*exc)
-
-        dryrun.RankCounter = Both
-        try:
-            _CELLS[arch] = dryrun.run_cell(
-                arch, TRAIN_CUT, cfg_override=configs.get_smoke(arch),
-                verbose=False)
-        finally:
-            dryrun.RankCounter = counter
-        _TOOL_COUNTS[arch] = tool.summary()
+        _CELLS[arch], _TOOL_COUNTS[arch] = _counted_cell(
+            arch, configs.get_smoke(arch))
     return _CELLS[arch]
 
 
@@ -166,8 +174,14 @@ def test_smoke_train_cell(arch):
 def test_counts_the_collectives_dtensor_issues_inside_ops(arch):
     """The dry run's counts are those of the counter that declines
     DTensor ops (``mesh_check.collectives()``), by kind and by call site:
-    the redistributions inside an op's sharding propagation included
-    (SMOKE qwen3-moe: 133 all-gathers, 82 of them outside ops)."""
+    the redistributions inside an op's sharding propagation included.
+    SMOKE qwen3-moe: 120 all-gathers, 65 all-reduces, 21 reduce-scatters
+    (133 / 70 / 25 before): the embedding is vocab-parallel (one gather
+    of the rank's window where the whole table was gathered, and an
+    all-reduce of the looked-up rows across ``model``), and each expert
+    product gathers its weight over ``data`` where DTensor moved the
+    dispatch buffer and reduced a partial product (``moe._weight_for``):
+    3.23 MB of collectives where there were 4.13."""
     r = _train_cell(arch)
     tool = _TOOL_COUNTS[arch]
     assert r["collective_counts"] == tool["count"]
@@ -176,7 +190,7 @@ def test_counts_the_collectives_dtensor_issues_inside_ops(arch):
         sorted(tool["by_site"].items(), key=lambda kv: -kv[1])[:8])
     if arch == "qwen3_moe_235b_a22b":
         assert r["collective_counts"] == {
-            "all-gather": 133, "all-reduce": 70, "reduce-scatter": 25}
+            "all-gather": 120, "all-reduce": 65, "reduce-scatter": 21}
 
 
 def test_peak_catches_a_short_lived_temporary():
@@ -293,3 +307,175 @@ def test_flops_per_rank_equal_an_even_split(arch, shape):
                     model.prefill(batch, cache)
     assert r["flops_per_device"] == pytest.approx(
         fc.get_total_flops() / 256, rel=1e-9)
+
+
+# -- the placements the dry run found over a shard (each fails on the tree
+# before they were repaired) ---------------------------------------------------
+
+def _recording(shapes: set):
+    """``dryrun.RankCounter`` that also records the shape of every local
+    tensor the step allocates."""
+    class Recording(dryrun.RankCounter):
+        def _record_local(self, func, out):
+            if not self._meta:
+                shapes.update(tuple(t.shape) for t in dryrun._tensors(out))
+            return super()._record_local(func, out)
+    return Recording
+
+
+_ODD: dict = {}
+
+
+def _odd_vocab_cell():
+    """SMOKE granite with a vocab the 16-wide model axis does not divide
+    (granite's own 49,155 does not either): the loss chunk's logits are
+    whole over the vocab on each rank."""
+    if not _ODD:
+        shapes: set = set()
+        cfg = configs.get_smoke("granite_3_8b").with_(vocab=130)
+        _ODD.update(cfg=cfg, shapes=shapes, cell=_counted_cell(
+            "granite_3_8b", cfg, shapes=shapes)[0])
+    return _ODD
+
+
+def test_loss_of_a_whole_vocab_runs_on_the_ranks_rows():
+    """The gather's backward on the DTensor logits built zeros of the
+    chunk's GLOBAL (B, c, V) shape, which DTensor replicates: at granite's
+    ``train_4k`` 51.5 GB a rank where its rows' chunk is 3.22.  Now no
+    tensor of that shape exists, and the odd vocab costs the peak no more
+    than one local chunk over the vocab-parallel SMOKE cell's."""
+    odd = _odd_vocab_cell()
+    c, v = odd["cfg"].loss_chunk, odd["cfg"].vocab
+    rows = TRAIN_CUT.global_batch // 16
+    assert (rows, c, v) in odd["shapes"]
+    assert (TRAIN_CUT.global_batch, c, v) not in odd["shapes"]
+    base = _train_cell("granite_3_8b")
+    assert odd["cell"]["peak_bytes_per_device"] - \
+        base["peak_bytes_per_device"] <= rows * c * v * 4
+
+
+def test_rope_tables_are_not_the_whole_batchs():
+    """The prompt's positions broadcast over the batch: no rank builds
+    the RoPE tables of the global batch's rows (phi4-mini's ``train_4k``:
+    three (256, 4,096, 64) f32 tensors, 0.8 GB, on every rank)."""
+    odd = _odd_vocab_cell()
+    half = odd["cfg"].d_head // 2
+    assert (1, TRAIN_CUT.seq_len, 1, half) in odd["shapes"]
+    assert (TRAIN_CUT.global_batch, TRAIN_CUT.seq_len, 1, half) \
+        not in odd["shapes"]
+
+
+def test_serve_peak_holds_no_whole_table():
+    """A table that dominates (SMOKE phi4-mini, vocab 2^20: 268 MB in
+    f32 whole): the lookup gathered the whole table on every rank, three
+    copies live at once.  Now a rank holds its (V / 16, d) window over
+    the data axis, beside what the decode step holds anyway."""
+    cfg = configs.get_smoke("phi4_mini_3_8b")
+    wide = cfg.with_(vocab=1 << 20)
+    base = dryrun.run_cell("phi4_mini_3_8b", "decode_32k", cfg_override=cfg,
+                           verbose=False)
+    r = dryrun.run_cell("phi4_mini_3_8b", "decode_32k", cfg_override=wide,
+                        verbose=False)
+    table = wide.vocab * wide.d_model * 4
+    assert r["peak_bytes_per_device"] < table
+    assert r["peak_bytes_per_device"] - base["peak_bytes_per_device"] <= \
+        table // 16
+
+
+def _shapes_of(cfg, fn):
+    """The local shapes ``fn(model, mesh)`` allocates on rank 0 of a fake
+    16 x 16 group under ``FakeTensorMode``, ``model`` an ``LM`` of
+    ``cfg`` placed on that mesh before."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.mesh import init_fake_group, make_production_mesh
+    from repro_torch.models import LM
+    init_fake_group(256)
+    mesh = make_production_mesh(device_type="cpu")
+    shapes: set = set()
+    with FakeTensorMode(allow_non_fake_inputs=True), S.use_mesh(mesh):
+        model = S.distribute_model(LM(cfg, device="cpu"), mesh)
+        with _recording(shapes)():
+            fn(model, mesh)
+    return shapes
+
+
+def test_aux_loss_runs_on_the_ranks_rows():
+    """The means' backward expanded their gradient to the global (B·S,
+    E) on every rank; now each rank sums its own rows."""
+    from repro_torch.models.moe import aux_load_balance_loss
+
+    cfg = configs.get_smoke("qwen3_moe_235b_a22b").with_(n_layers=1)
+
+    def step(model, mesh):
+        x = S.shard_of(torch.zeros(256, 16, cfg.d_model), mesh,
+                       S.batch_sharding(mesh)).requires_grad_()
+        aux_load_balance_loss(model._layer(0).ffn, x).backward()
+
+    shapes = _shapes_of(cfg, step)
+    assert (16 * 16, cfg.moe_experts) in shapes
+    assert (256 * 16, cfg.moe_experts) not in shapes
+
+
+def test_sampled_head_reads_the_ranks_columns():
+    """DTensor's ``index_select`` of the (d, V) head by the replicated
+    draws built (d, T·m) over the global batch's tokens, and a zero head
+    of the global shape in the backward; now each rank looks up its own
+    rows' columns in its vocab window."""
+    from repro_torch.models import LM
+    from repro_torch.models.sampled_softmax import (LMHeadIndex,
+                                                    SampledSoftmaxConfig,
+                                                    sampled_softmax_loss)
+
+    cfg = configs.get_smoke("phi4_mini_3_8b").with_(vocab=512)
+    scfg = SampledSoftmaxConfig(k=3, l=4, n_samples=8)
+    head = LMHeadIndex(LM.init(cfg, seed=0, device="cpu"), scfg)
+    toks = torch.randint(0, cfg.vocab, (256, 3),
+                         generator=torch.Generator().manual_seed(0))
+
+    def step(model, mesh):
+        batch = {k: S.shard_of(v.contiguous(), mesh, S.batch_sharding(mesh))
+                 for k, v in (("tokens", toks[:, :-1]),
+                              ("targets", toks[:, 1:]))}
+        sampled_softmax_loss(model, cfg, scfg,
+                             head.inject(batch, step=1)).backward()
+
+    shapes = _shapes_of(cfg, step)
+    tokens = 256 * 2
+    assert (tokens // 16, scfg.n_samples, cfg.d_model) in shapes
+    assert not any(s and s[0] == cfg.d_model and tokens in s[1:]
+                   for s in shapes)
+    assert (cfg.d_model, cfg.vocab) not in shapes
+
+
+# last in the module: a fake group of another size replaces the 256 ranks'
+# (DTensor's caches would carry the destroyed group's meshes to a later
+# 16 x 16 cell)
+def test_multi_pod_expert_products_move_no_buffer():
+    """On 2 x 16 x 16 the batch is split over (pod, data): the expert
+    products merged that split into E's rows and gathered the dispatch
+    buffer over the data axes (qwen3-moe ``train_4k``: 140.22 GB a rank).
+    Now they run on the mesh's batch view, one data axis of 32: no line
+    of the expert products (their weights' gathers, ``moe._weight_for``,
+    among them) issues a collective that the 16 x 16 cell does not, nor
+    more bytes than there (the multi-pod rank holds half the rows), and
+    the peak is no larger."""
+    from repro_torch.models import moe
+    arch = "qwen3_moe_235b_a22b"
+    flat = _train_cell(arch)
+    pod, pod_tool = _counted_cell(arch, configs.get_smoke(arch),
+                                  multi_pod=True)
+    sites, flat_sites = pod_tool["by_site"], _TOOL_COUNTS[arch]["by_site"]
+    # the lines from the buffer's placement to the combine
+    src, first = inspect.getsourcelines(moe.MoE.forward)
+    lo, hi = (first + next(i for i, line in enumerate(src) if key in line)
+              for key in ("_as_batch_dtensor(buf", "combine_local("))
+    products = [k for k in sites if k.startswith("models/moe.py:")
+                and (lo <= int(k.split(":")[1].split()[0]) < hi
+                     or k.endswith(" _weight_for"))]
+    assert products
+    for k in products:
+        assert sites[k] <= flat_sites.get(k, 0), (k, sites[k],
+                                                   flat_sites.get(k))
+    assert pod["mesh"] == "2x16x16"
+    assert pod["peak_bytes_per_device"] <= flat["peak_bytes_per_device"]

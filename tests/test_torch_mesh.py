@@ -42,6 +42,16 @@ Tolerances (the tool's, where a check reads its verdict ``ok``):
   batch routed as the first layout giving its own loss and norm;
 * the prefill and decode steps: the f32 logits within a relative L2 of
   1e-5 of the meshless ones;
+* the placement check: the SMOKE granite with an odd vocab (131, whole
+  over ``model``) on (2, 1) and (1, 2), the loss to rtol 1e-6 and every
+  leaf's gradient within 1e-5; the SMOKE nemotron's prefill and decode
+  logits within a relative L2 of 1e-5; the SMOKE qwen3-moe on the pod
+  layout (pod 2, data 1, model 1) against (2, 1) and meshless, on 8 x 32
+  tokens (each expert weight gathered) and 4 x 4 (the rows moved), the
+  loss to rtol 1e-5, every gradient within 1e-5, the collective bytes
+  within 5% of (2, 1)'s; the MoE auxiliary loss and the LSH-sampled head on
+  each rank's rows, the loss to rtol 1e-6 and every gradient within
+  1e-5;
 * ``ShardedLSHPipeline(mesh=)``'s composed batch, a meshless checkpoint
   restored onto (1, 2), a (1, 2) checkpoint restored meshless, the
   kernel entries on DTensors and the launcher's 1 x 1 host-mesh losses:
@@ -316,3 +326,78 @@ def test_giants_predicted_local_bytes_are_real(ranks, arch, shape, rank):
     assert got["slot_bytes"] == pred["slots_bytes"]
     # the whole model drawn before it is placed bounds the init
     assert pred["init_gb"] >= pred["whole_gb"] > pred["weights_gb"]
+
+
+# -- placement: the three placements the dry run found, on real ranks ---------
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_whole_vocab_loss_step_matches_meshless(ranks, shape):
+    """A vocab that does not divide ``model`` (granite's 49,155; 131
+    here): the loss runs on each rank's rows, the embedding gathers the
+    whole table over ``data`` only; the loss and every leaf's gradient,
+    the embedding's included, as meshless."""
+    got = ranks[0]["placement"]["granite"]
+    assert got["vocab"] % 2 == 1
+    row = got["layouts"][shape]
+    assert row["ok"], row
+    assert row["loss_rel"] <= 1e-6 and row["grad_rel_max"] <= 1e-5
+    # the table's d split on ``data``; its vocab whole over a 2-wide
+    # ``model`` (a 1-wide one "splits" it)
+    want = ["S(1)", "R"] if shape == "1x2" else ["S(1)", "S(0)"]
+    assert row["embed"] == want
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_vocab_parallel_lookup_serves_as_meshless(ranks, shape):
+    """The embedding's window lookup, summed across the vocab's ranks:
+    the prefill's and decode steps' f32 logits as meshless."""
+    row = ranks[0]["placement"]["nemotron"]["layouts"][shape]
+    assert row["ok"] and row["rel_l2"] <= 1e-5, row
+    assert row["embed"] == ["S(1)", "S(0)"]
+
+
+def test_moe_step_on_a_pod_layout(ranks):
+    """The batch over (pod, data) against over data alone, the same
+    data-parallel degree: the expert products on each rank's rows with
+    the weights gathered once over both data axes.  The loss as (2, 1)'s
+    and as meshless, every gradient too, and the collective bytes within
+    5% of (2, 1)'s."""
+    for r in ranks:
+        got = r["placement"]["qwen3_moe"]["variants"]["f32"]
+        assert got["ok"], got
+        assert got["layouts"] == ["2x1", "2x1x1"]
+        assert got["loss_rel"] <= 1e-5 and got["grad_rel_max"] <= 1e-5
+        assert got["loss_rel_meshless"] <= 1e-5
+        assert got["grad_rel_max_meshless"] <= 1e-5
+        assert abs(got["collective_ratio"] - 1) <= 0.05
+        # experts (E, d, ff): d over pod and data, E over model
+        assert got["expert_placements"] == ["S(1)", "S(1)", "S(0)"]
+        # 8 x 32 tokens: each product gathers its weight on both layouts
+        assert got["weights_gathered"] == [True, True]
+
+
+def test_moe_short_batch_on_a_pod_layout(ranks):
+    """The pod layout on 4 x 4 tokens, where a weight's gather would
+    move more bytes than the rows (``moe._weight_for``): DTensor moves
+    the rows on both layouts, and the loss and every gradient are as
+    (2, 1)'s and as meshless, the collective bytes within 5%."""
+    for r in ranks:
+        got = r["placement"]["qwen3_moe"]["variants"]["f32 short"]
+        assert got["ok"], got
+        assert (got["rows"], got["seq"]) == (4, 4)
+        assert got["weights_gathered"] == [False, False]
+        assert got["loss_rel"] <= 1e-5 and got["grad_rel_max"] <= 1e-5
+        assert got["loss_rel_meshless"] <= 1e-5
+        assert got["grad_rel_max_meshless"] <= 1e-5
+        assert abs(got["collective_ratio"] - 1) <= 0.05
+
+
+@pytest.mark.parametrize("loss", ["aux", "head"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_losses_on_local_rows_match_meshless(ranks, shape, loss):
+    """The MoE auxiliary loss and the LSH-sampled head (each rank its own
+    rows and vocab window): the loss and every gradient as meshless."""
+    row = ranks[0]["placement"]["local_rows"]["layouts"][shape]
+    got = row[loss]
+    assert got["same_leaves"], got
+    assert got["loss_rel"] <= 1e-6 and got["grad_rel_max"] <= 1e-5, got

@@ -4,6 +4,7 @@ without four cards.
 
     python3 tools/giants_probe.py fake [--out FILE]
     python3 tools/giants_probe.py place [--out FILE]
+    python3 tools/giants_probe.py pod [--device cuda|cpu] [--out FILE]
 
 ``fake`` (CPU only): rank 0 of a ``fake`` four-rank group, the models
 under ``FakeTensorMode`` at full width and one layer (llama4 and
@@ -21,6 +22,16 @@ four-rank group (``distribute_model``; no data moves): the card's
 allocated, reserved and peak memory after the draw and after each leaf
 is placed, as the four-card run's ranks see them before their first
 collective.
+
+``pod`` (one card): qwen3-moe at full width, 3 of its 94 layers in f32,
+one training step (loss and backward) on 8 rows of 512 tokens, on the
+(4, 1) mesh and on the pod layout (``pod`` 2, ``data`` 2, ``model`` 1)
+of a fake four-rank group (collectives move no data, but allocate as a
+card's do): rank 0's peak allocated memory over the step, and the
+count of ``tools/mesh_check.py``'s ``collectives()``: what
+``tools/mesh_check.py --checks placement`` reads for the pod layout on
+four cards, on one.  On ``--device cpu`` the SMOKE config (the count
+only).
 
 One JSON line a measurement, prefixed ``giants-probe``.
 """
@@ -166,9 +177,58 @@ def place(emit) -> None:
     mem(at="placed")
 
 
+def pod(emit, device: str) -> None:
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from mesh_check import _pod_mesh, _token_batch, collectives
+    from repro_torch import configs
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import init_fake_group
+    from repro_torch.models import LM
+
+    cuda = device == "cuda"
+    dev = torch.device("cuda:0" if cuda else "cpu")
+    if cuda:
+        torch.cuda.set_device(0)
+    init_fake_group(4)
+    arch = "qwen3_moe_235b_a22b"
+    cfg = (configs.get(arch).with_(n_layers=3, dtype="float32") if cuda
+           else configs.get_smoke(arch))
+    batch = _token_batch(cfg, 8, 512 if cuda else 32, dev)
+
+    flat = DeviceMesh(dev.type, torch.arange(4).reshape(4, 1),
+                      mesh_dim_names=("data", "model"))
+    for name, mesh in (("4x1", flat), ("2x2x1", _pod_mesh(4, dev))):
+        with sharding.use_mesh(mesh):
+            model = sharding.distribute_model(
+                LM.init(cfg, seed=0, device=dev), mesh)
+            part = {k: sharding.shard_of(v, mesh, sharding.batch_sharding(
+                mesh)) for k, v in batch.items()}
+            counter = collectives()
+            counter.track((dict(model.named_parameters()), part))
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            with counter:
+                model.loss(part).backward()
+            row = {"layout": name, "config": cfg.name, "dtype": cfg.dtype,
+                   "layers": cfg.n_layers, "torch": torch.__version__,
+                   "counted_peak_gb": counter.peak_bytes / 1e9,
+                   "collective_gb": sum(
+                       counter.summary()["bytes"].values()) / 1e9}
+            if cuda:
+                torch.cuda.synchronize()
+                row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            emit(row)
+            del model, part
+            if cuda:
+                torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("what", choices=("fake", "place"))
+    ap.add_argument("what", choices=("fake", "place", "pod"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     sink = open(args.out, "w") if args.out else None
@@ -179,7 +239,10 @@ def main(argv=None) -> int:
         if sink:
             sink.write(line + "\n")
 
-    (fake if args.what == "fake" else place)(emit)
+    if args.what == "pod":
+        pod(emit, args.device)
+    else:
+        (fake if args.what == "fake" else place)(emit)
     if sink:
         sink.close()
     return 0

@@ -3,7 +3,7 @@
 
     python3 tools/mesh_check.py [--nprocs 4] [--device cuda|cpu]
         [--checks train,compress,serve,lgd,batch,optimizers,archs,restore,
-                  entries,giants]
+                  entries,giants,placement]
         [--out DIR]
     python3 tools/mesh_check.py --host-mesh [--device cpu] [--out DIR]
     python3 tools/mesh_check.py --launcher uniform|lgd|production
@@ -98,6 +98,38 @@ the checks marked (1, n), on the mesh that splits only ``model``:
   equal to the prediction's bytes; with the plain LGD entries counted
   (``_plain_counts``).
 
+* placement: the three placements the dry run found over a shard, each
+  against its yardstick in the same process, each row with the step's
+  peak a rank (``max_memory_allocated`` on cards), the dry run's count
+  of the same step (``collectives()``' live storages, the model and the
+  batch included: ``counted_peak_gb``) and its collectives.  granite
+  (its vocab, 49,155, does not divide ``model``: the loss runs on each
+  rank's rows) on every (data, model) layout: the loss within
+  ``LOSS_RTOL`` and every leaf's gradient within ``GRAD_RTOL`` of the
+  meshless run; on cards (``PLACEMENT``: f32, 2 of 40 layers, 40 rows of
+  4,096 tokens) the meshless run sums the gradients of 4 blocks of 10
+  rows so that it fits one card, and each layout runs in the blocks that
+  give each rank 10 rows a block, so that every GEMM sums the tokens the
+  yardstick's does; beside the step, the chunked loss alone on a block
+  of a random final hidden state (``head_peak_gb``), where the replicated
+  logits zeros lived.  nemotron (the vocab-parallel embedding) serving on
+  every layout, ``_serve``'s steps in f32 at 2 of 32 layers: every
+  step's logits within ``SERVE_TOL`` of meshless.  qwen3-moe (8 x 512
+  tokens) on the pod layout (``pod`` 2, ``data`` n / 2, ``model`` 1: the
+  batch over two mesh axes) against (n, 1), the same data-parallel
+  degree, routed as (n, 1) routed (``_pinned_routes``, the recompute
+  too): the collective bytes and, on cards, the peak within
+  ``PLACEMENT_SAME`` (5%); the loss within 1e-5 in f32 (3 of 94 layers
+  on cards) and within ``LAUNCHER_RTOL_BF16`` in bf16 (the giants' 8 of
+  94 layers; the giants check read 2.06e-5 between layouts routed
+  alike on four H100s).  On
+  ``cpu`` the SMOKE configs (granite's vocab 131), qwen3-moe also against
+  meshless (loss and every gradient) on 8 x 32 tokens, where each expert
+  product gathers its weight, and on 4 x 4, where DTensor moves the rows
+  instead (``moe._weight_for``; each row says which: ``weights_gathered``
+  a layout), and the MoE auxiliary loss and the
+  LSH-sampled head on each rank's rows against meshless on every layout.
+
 ``--host-mesh`` (one process) runs ``python -m repro_torch.launch.train``
 (a 1 x 1 host mesh on a one-rank group) and the same steps meshless,
 with and without ``--lgd``, under ``torch.use_deterministic_algorithms``
@@ -154,7 +186,7 @@ PARAM_MAX, PARAM_MEAN = LR / 4, 1e-6
 SERVE_TOL = 1e-5          # relative L2 of the f32 logits
 SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_LAYERS = 4, 256, 4, 2
 CHECKS = ("train", "compress", "serve", "lgd", "batch", "optimizers",
-          "archs", "restore", "entries", "giants")
+          "archs", "restore", "entries", "giants", "placement")
 # --launcher: the job's losses against the lone process's.  f32 (cpu):
 # the reduction order of the data-parallel sums only.  bf16 (cuda, FULL):
 # the same batches, but each rank's GEMMs run on a quarter of the rows
@@ -187,6 +219,32 @@ GIANT_STEPS, GIANT_REFRESH = 6, 3
 GIANT_LOSS_RTOL = 1e-5       # the CPU's losses against meshless (f32)
 LGD_KERNELS = ("simhash", "bucket_probe", "draw_assemble")
 COLLECTIVE_TIMEOUT = 300     # s, on cards
+# placement: on cards granite (f32, 2 of 40 layers) at 40 rows of 4,096
+# tokens (its replicated logits zeros were 8.05 GB a rank), in blocks of
+# 10 rows a rank; nemotron (f32, 2 of 32 layers); qwen3-moe at 8 x 512
+# tokens in bf16 at 8 of 94 layers (the loss to the giants' bf16 layout
+# tolerance: the giants check read 2.06e-5 between layouts routed alike
+# on four H100s) and in f32 at 3 (the loss to 1e-5); on the CPU their
+# SMOKE configs, granite's vocab odd (131: whole over any model axis)
+# and 8 rows of 32 tokens, qwen3-moe also at 4 rows of 4 (one a rank of
+# four), where its expert products move the rows, not the weights; each
+# qwen3-moe variant: (name, config, loss tolerance, rows, tokens a row)
+PLACEMENT = {
+    "cuda": {"granite_3_8b": dict(cfg=dict(n_layers=2, dtype="float32"),
+                                  batch=40, seq=4096, micro=4),
+             "nemotron_4_15b": dict(cfg=dict(n_layers=2, dtype="float32")),
+             "qwen3_moe_235b_a22b": dict(cfg=dict(), variants=(
+                 ("bf16", dict(n_layers=8), LAUNCHER_RTOL_BF16, 8, 512),
+                 ("f32", dict(n_layers=3, dtype="float32"), 1e-5, 8,
+                  512)))},
+    "cpu": {"granite_3_8b": dict(cfg=dict(vocab=131), batch=8, seq=32,
+                                 micro=1),
+            "nemotron_4_15b": dict(cfg=dict()),
+            "qwen3_moe_235b_a22b": dict(cfg=dict(), variants=(
+                ("f32", dict(), 1e-5, 8, 32),
+                ("f32 short", dict(), 1e-5, 4, 4)))},
+}
+PLACEMENT_SAME = 0.05        # the pod layout's collective bytes and peak
 
 
 def _whole(t):
@@ -363,43 +421,66 @@ def _serve_cfg(device, dtype="float32"):
         n_heads=8, n_kv_heads=4, attn_impl="pallas", dtype=dtype)
 
 
-def _serve(mesh, device, prompts, forced=None, dtype="float32"):
+def _serve(mesh, device, prompts, forced=None, dtype="float32", cfg=None):
+    """The dry run's prefill step and SERVE_NEW serve steps of ``cfg``
+    (``_serve_cfg``'s phi4-mini by default), teacher-forced by
+    ``forced`` when given: each step's logits (on the host), the greedy
+    tokens, the flash launches, the seconds, the q projection's and the
+    embedding's placements, the steps' peak a rank (the placed model
+    included; ``max_memory_allocated`` on cards), the dry run's count of
+    it and their collectives."""
+    import gc
     import torch
     from repro_torch import kernels
     from repro_torch.dist.sharding import distribute_model, use_mesh
     from repro_torch.launch import dryrun
     from repro_torch.models import LM
 
-    cfg = _serve_cfg(device, dtype)
+    cfg = cfg or _serve_cfg(device, dtype)
     kernels.reset_launch_counts()
     with use_mesh(mesh), torch.no_grad():
         model = distribute_model(LM.init(cfg, seed=0, device=device), mesh)
         b, s = prompts.shape
-        cache = model.init_cache(b, s + SERVE_NEW)
+        counter = collectives()
+        counter.track((dict(model.named_parameters()), prompts))
+
+        def steps():
+            cache = model.init_cache(b, s + SERVE_NEW)
+            h, cache = dryrun.make_prefill_step(cfg)(
+                model, {"tokens": prompts}, cache)
+            nxt = _whole(model.embed_group.lm_logits(h[:, -1:])).argmax(-1)
+            logits, toks = [], [nxt]
+            step = dryrun.make_serve_step(cfg)
+            for i in range(SERVE_NEW):
+                inp = nxt if forced is None else forced[i]
+                lg, cache = step(model, {
+                    "tokens": inp.to(torch.int32),
+                    "positions": torch.full((b, 1), s + i, dtype=torch.int32,
+                                            device=device)}, cache)
+                lg = _whole(lg).float()
+                nxt = lg.argmax(-1)
+                logits.append(lg.cpu())
+                toks.append(nxt)
+            return logits, toks
+
         t0 = time.perf_counter()
-        h, cache = dryrun.make_prefill_step(cfg)(
-            model, {"tokens": prompts}, cache)
-        nxt = _whole(model.embed_group.lm_logits(h[:, -1:])).argmax(-1)
-        logits, toks = [], [nxt]
-        step = dryrun.make_serve_step(cfg)
-        for i in range(SERVE_NEW):
-            # teacher-forced by the meshless run's tokens when given
-            inp = nxt if forced is None else forced[i]
-            lg, cache = step(model, {
-                "tokens": inp.to(torch.int32),
-                "positions": torch.full((b, 1), s + i, dtype=torch.int32,
-                                        device=device)}, cache)
-            lg = _whole(lg).float()
-            nxt = lg.argmax(-1)
-            logits.append(lg)
-            toks.append(nxt)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        with counter:
+            (logits, toks), peak = _step_peak(device, steps)
         dt = time.perf_counter() - t0
-        heads = _placements(model.blocks[0].attn.wq)
-    used = {k: kernels.launches[k] for k in ("flash_attention",
-                                              "flash_decode")}
-    return logits, toks, used, dt, heads, cfg
+        out = dict(logits=logits, toks=toks, s=dt, cfg=cfg, peak_gb=peak,
+                   counted_peak_gb=counter.peak_bytes / 1e9,
+                   heads=_placements(model.blocks[0].attn.wq),
+                   embed=_placements(model.embed_group.embed),
+                   launches={k: kernels.launches[k] for k in (
+                       "flash_attention", "flash_decode")})
+    del model
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    summary = counter.summary()
+    out.update(collectives=summary,
+               collective_gb=sum(summary["bytes"].values()) / 1e9)
+    return out
 
 
 def _rel_l2(got, want):
@@ -594,7 +675,7 @@ def _entries(mesh, device) -> dict:
 # giants: the MoE giants trained on LGD batches over every layout
 # ---------------------------------------------------------------------------
 
-def rank_memory(cfg, mesh) -> dict:
+def rank_memory(cfg, mesh, rows: int, seq: int) -> dict:
     """A rank's least memory for training ``cfg`` with Adafactor on
     ``mesh`` (None: one process), from the parameter shapes on the meta
     device and ``param_placements``: the init (the whole model drawn on
@@ -602,12 +683,16 @@ def rank_memory(cfg, mesh) -> dict:
     and one leaf's local shard cut before its whole leaf is freed) and
     the step (each leaf's local shard of weights, gradients and
     Adafactor's row and column slots, plus the clip's f32 copy of the
-    largest local leaf).  The whole leaves are freed before the first
-    step, so the peak is the larger of the two; activations and the
-    optimiser's temporaries come on top."""
-    from repro_torch.dist.sharding import param_placements
+    largest local leaf, plus one MoE layer's expert weights gathered
+    over the data axes where a step of ``rows`` rows of ``seq`` tokens
+    gathers them: ``moe.gathers_weight``, each kept for its product's
+    backward).  The whole leaves are freed before the first step, so the
+    peak is the larger of the two; activations and the optimiser's
+    temporaries come on top."""
+    from repro_torch.dist.sharding import data_axis_size, param_placements
     from repro_torch.models import LM
     from repro_torch.models.layers import NORMAL_SLICE
+    from repro_torch.models.moe import capacity, gathers_weight
 
     def local(name, shape, elem, slot=None):
         n = math.prod(shape)
@@ -640,11 +725,23 @@ def rank_memory(cfg, mesh) -> dict:
                 local(k, shape[:-2] + shape[-1:], 4, "vc")
         else:
             slots += local(k, shape, 4, "vr")
+    gathered = 0
+    if cfg.is_moe and mesh is not None:
+        p = data_axis_size(mesh)
+        sizes = tuple(mesh.mesh.shape)
+        for k in [k for k in named if k.startswith("blocks.0.ffn.experts_")]:
+            e, n, m = shape = tuple(named[k].shape)
+            e //= math.prod(sizes[i] for i, q in enumerate(
+                param_placements(k, shape, mesh, cfg)) if q.is_shard(0))
+            if gathers_weight(e, rows // p * capacity(cfg, seq), n, m,
+                              local(k, shape, 1), p):
+                gathered += e * n * m * named[k].element_size()
     init = whole + max(draw, shard)
-    step = 2 * w + slots + 4 * big
+    step = 2 * w + slots + 4 * big + gathered
     return dict(whole_gb=whole / 1e9, init_gb=init / 1e9,
                 weights_gb=w / 1e9, grads_gb=w / 1e9, slots_gb=slots / 1e9,
-                clip_copy_gb=4 * big / 1e9, step_gb=step / 1e9,
+                clip_copy_gb=4 * big / 1e9, gathered_gb=gathered / 1e9,
+                step_gb=step / 1e9,
                 peak_gb=max(init, step) / 1e9,
                 weights_bytes=w, grads_bytes=w, slots_bytes=slots)
 
@@ -767,13 +864,9 @@ def _giant_run(arch, mesh, device, n_shards, fixed, pin=None) -> dict:
             model.zero_grad(set_to_none=True)
             # again with the first layout's routing (this layout's on the
             # first), so that layouts compare with one routing
-            lm_cfg, model.cfg = model.cfg, model.cfg.with_(remat=False)
-            try:
-                with _pinned_routes(mesh, routes if pin is None else pin):
-                    loss = model.loss(fixed)
-            finally:
-                model.cfg = lm_cfg
-            loss.backward()
+            with _pinned_routes(mesh, routes if pin is None else pin, model):
+                loss = model.loss(fixed)
+                loss.backward()
             grads = {k: p.grad for k, p in named.items()}
             row["fixed_loss_pinned"] = float(_whole(loss.detach()))
             row["fixed_grad_norm_pinned"] = float(torch.sqrt(sum(
@@ -912,43 +1005,52 @@ def _routes(mesh):
     if mesh is None:
         out.extend(mine)
         return
+    from repro_torch.dist.sharding import _data_index
     parts = [None] * dist.get_world_size()
-    dist.all_gather_object(parts, (mesh.get_coordinate()[0], mine))
+    dist.all_gather_object(parts, (_data_index(mesh), mine))
     rows = dict(parts)                  # one part a data index
     out.extend(np.concatenate([rows[i][layer] for i in sorted(rows)])
                for layer in range(len(mine)))
 
 
 @contextlib.contextmanager
-def _pinned_routes(mesh, routes):
-    """Within the block the MoE layers, called in order (no remat),
-    route each token as ``routes`` says (``_routes``' arrays, whole;
-    this rank takes its data-parallel rows): every logit outside a
-    token's pinned experts is -inf, so the top-k picks them with their
+def _pinned_routes(mesh, routes, model):
+    """Within the block the MoE layers of ``model`` route each token as
+    ``routes`` says (``_routes``' arrays, whole, one a layer in module
+    order; this rank takes its data-parallel rows): every logit outside
+    a token's pinned experts is -inf, so the top-k picks them with their
     own logits, and the gate, the ranks within an expert and the
-    gradient are those of that routing."""
+    gradient are those of that routing.  Each MoE module takes its own
+    layer's routing, so a backward's recompute (remat) is routed as its
+    forward was."""
     import torch
-    from repro_torch.dist.sharding import data_axis_size
+    from repro_torch.dist.sharding import _data_index, data_axis_size
     from repro_torch.models import moe
 
-    layers, dispatch = iter(routes), moe.dispatch_slots
+    dispatch, forward, current = moe.dispatch_slots, moe.MoE.forward, [None]
+    order = {id(m): i for i, m in enumerate(
+        m for m in model.modules() if isinstance(m, moe.MoE))}
+
+    def keyed(self, x):
+        current[0] = order[id(self)]
+        return forward(self, x)
 
     def pinned(logits, k, cap):
-        rows = next(layers)
+        rows = routes[current[0]]
         if mesh is not None:
             per = rows.shape[0] // data_axis_size(mesh)
-            i = mesh.get_coordinate()[0]
+            i = _data_index(mesh)
             rows = rows[i * per:(i + 1) * per]
         idx = torch.from_numpy(rows).to(logits.device)
         masked = torch.full_like(logits, -math.inf).scatter(
             -1, idx, logits.gather(-1, idx))
         return dispatch(masked, k, cap)
 
-    moe.dispatch_slots = pinned
+    moe.dispatch_slots, moe.MoE.forward = pinned, keyed
     try:
         yield
     finally:
-        moe.dispatch_slots = dispatch
+        moe.dispatch_slots, moe.MoE.forward = dispatch, forward
 
 
 def _moe_collectives(model, mesh, size) -> dict:
@@ -1002,7 +1104,7 @@ def _giants(device, meshes, rank) -> dict:
         dp = data_axis_size(mesh)
         for arch in GIANT_LAYERS:
             cfg = _giant_cfg(arch, device)
-            pred = rank_memory(cfg, mesh)
+            pred = rank_memory(cfg, mesh, size["batch"], size["seq"])
             row = {"mesh": shape, "predicted": pred, "card_gb": card_gb}
             out[arch]["layouts"][name] = row
             if cuda and pred["peak_gb"] >= card_gb:
@@ -1086,6 +1188,351 @@ def _giants(device, meshes, rank) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# placement: the three placements the dry run found over a shard
+# ---------------------------------------------------------------------------
+
+def _pod_mesh(n: int, device):
+    """The (pod 2, data n / 2, model 1) mesh: the batch over two mesh
+    axes, as on the multi-pod production mesh (with its batch view)."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.dist.sharding import with_batch_view
+    return with_batch_view(DeviceMesh(
+        device.type, torch.arange(n).reshape(2, n // 2, 1),
+        mesh_dim_names=("pod", "data", "model")))
+
+
+def _placement_cfg(arch, device):
+    from repro_torch import configs
+    size = PLACEMENT[device.type][arch]
+    if device.type == "cuda":
+        return configs.get(arch).with_(**size["cfg"])
+    return configs.get_smoke(arch).with_(**size["cfg"])
+
+
+def _token_batch(cfg, rows, seq, device):
+    import torch
+    from repro_torch.data import make_token_corpus
+    t = torch.from_numpy(make_token_corpus(   # rows of seq + 1 tokens
+        11, rows, seq, cfg.vocab).tokens).long()
+    return {"tokens": t[:, :-1].to(device), "targets": t[:, 1:].to(device)}
+
+
+def _step_peak(device, fn):
+    """``fn()`` and the most bytes allocated a rank while it ran, what
+    was live before it included (``max_memory_allocated``, GB, on cards;
+    None on the CPU)."""
+    import torch
+    if device.type != "cuda":
+        return fn(), None
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def _grad_step(cfg, mesh, device, batch, micro: int = 1, pin=None,
+               record=None, grads: bool = True,
+               loss_head: bool = False) -> dict:
+    """The loss of ``batch`` and every leaf's gradient (whole, on the
+    host) of ``cfg`` drawn with seed 0 and placed on ``mesh`` (None:
+    meshless), in ``micro`` blocks of rows whose gradients are summed (a
+    large batch's meshless yardstick fits one card so; a layout whose
+    ranks each take a block's rows sums the same groups of tokens in one
+    GEMM as the yardstick), with the step's peak a rank
+    (``max_memory_allocated``, on cards) and the dry run's count of it
+    (``collectives()``' live storages, the model and batch included),
+    and its collectives (``grads=False``: no gradient read back).
+    ``loss_head``: the chunked loss alone on one block's rows of a
+    random final hidden state, its peak and count (``head_*``).
+    ``record`` (a list) receives the MoE routing (``_routes``), ``pin``
+    routes the layers as given (``_pinned_routes``)."""
+    import gc
+    import torch
+    from repro_torch.dist.sharding import (batch_sharding, distribute_model,
+                                           shard_of, use_mesh)
+    from repro_torch.models import LM
+    from repro_torch.models.layers import chunked_cross_entropy
+
+    out = {}
+    with use_mesh(mesh):
+        model = distribute_model(LM.init(cfg, seed=0, device=device), mesh)
+        named = dict(model.named_parameters())
+        rows = batch["tokens"].shape[0] // micro
+        blocks = [{k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                  for i in range(micro)]
+        if mesh is not None:
+            blocks = [{k: shard_of(v, mesh, batch_sharding(mesh))
+                       for k, v in blk.items()} for blk in blocks]
+        counter = collectives()
+        counter.track((named, blocks))
+
+        def step():
+            total = 0.0
+            for part in blocks:
+                if record is not None:          # the forward's routing
+                    with _routes(mesh) as got:
+                        loss = model.loss(part) / micro
+                    record.extend(got)
+                    loss.backward()
+                else:                           # the recompute's too
+                    with (_pinned_routes(mesh, pin, model) if pin is not None
+                          else contextlib.nullcontext()):
+                        loss = model.loss(part) / micro
+                        loss.backward()
+                total += float(_whole(loss.detach()))
+            return total
+
+        with counter:
+            out["loss"], out["peak_gb"] = _step_peak(device, step)
+        out["counted_peak_gb"] = counter.peak_bytes / 1e9
+        out["grads"] = {k: _whole(p.grad).detach().float().cpu()
+                        for k, p in named.items()} if grads else None
+        out["placements"] = {k: _placements(p) for k, p in named.items()}
+        summary = counter.summary()
+        out.update(collectives=summary,
+                   collective_gb=sum(summary["bytes"].values()) / 1e9)
+        model.zero_grad(set_to_none=True)
+        if loss_head:
+            g = torch.Generator(device=device).manual_seed(5)
+            h = torch.randn((rows,) + tuple(batch["tokens"].shape[1:])
+                            + (cfg.d_model,), generator=g, device=device,
+                            dtype=getattr(torch, cfg.dtype))
+            tgt = batch["targets"][:rows]
+            if mesh is not None:
+                h = shard_of(h, mesh, batch_sharding(mesh))
+                tgt = shard_of(tgt, mesh, batch_sharding(mesh))
+            h.requires_grad_(True)
+            head = collectives()
+            head.track((named, h, tgt))
+            with head:
+                _, out["head_peak_gb"] = _step_peak(device, lambda: (
+                    chunked_cross_entropy(model.embed_group, cfg, h,
+                                          tgt).backward()))
+            out["head_counted_peak_gb"] = head.peak_bytes / 1e9
+            del h, tgt
+        del model, named, blocks
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _grad_errors(got, ref) -> dict:
+    err, worst = 0.0, None
+    for k, g0 in ref["grads"].items():
+        e = float((got["grads"][k] - g0).abs().max()) / max(
+            float(g0.abs().max()), 1e-30)
+        if e >= err:
+            err, worst = e, k
+    return dict(loss=got["loss"], loss_meshless=ref["loss"],
+                loss_rel=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                grad_rel_max=err, grad_worst_leaf=worst)
+
+
+def _placement(device, meshes, rank) -> dict:
+    """``--checks placement`` (module docstring): granite's loss with its
+    vocab whole over ``model``, nemotron's embedding and qwen3-moe's
+    expert products under a batch over two mesh axes, each against its
+    yardstick."""
+    import torch
+    from repro_torch.dist.sharding import data_axis_size, mesh_axes
+
+    cuda = device.type == "cuda"
+    n = meshes[0].size()
+    out = {}
+
+    def show(name, row):
+        if rank == 0:
+            print("mesh-check placement " + json.dumps(
+                {"case": name, **row}), flush=True)
+
+    def layout(mesh):
+        return "x".join(map(str, mesh_axes(mesh).values()))
+
+    # granite: the loss chunk's logits whole over the vocab.  On cards the
+    # meshless yardstick runs in blocks of rows (it fits one card so), and
+    # each layout runs in the blocks that give each rank the same rows a
+    # block: every GEMM sums the same tokens as the yardstick's, so the
+    # gradients differ by a placement, not by another grouping of a
+    # 163,840-token f32 sum (2.3e-5 of lm_head's largest entry on (1, 4)
+    # in one block against four)
+    size = PLACEMENT[device.type]["granite_3_8b"]
+    cfg = _placement_cfg("granite_3_8b", device)
+    batch = _token_batch(cfg, size["batch"], size["seq"], device)
+    ref = _grad_step(cfg, None, device, batch, micro=size["micro"])
+    rows = {}
+    for mesh in meshes:
+        micro = max(1, size["micro"] // data_axis_size(mesh))
+        got = _grad_step(cfg, mesh, device, batch, micro=micro,
+                         loss_head=True)
+        row = dict(_grad_errors(got, ref), micro=micro,
+                   embed=got["placements"]["embed_group.embed"],
+                   **{k: got[k] for k in (
+                       "peak_gb", "counted_peak_gb", "head_peak_gb",
+                       "head_counted_peak_gb", "collective_gb")})
+        row["ok"] = bool(row["loss_rel"] <= LOSS_RTOL
+                         and row["grad_rel_max"] <= GRAD_RTOL)
+        rows[layout(mesh)] = row
+        show("granite " + layout(mesh), row)
+    out["granite"] = dict(config=cfg.name, vocab=cfg.vocab,
+                          layers=cfg.n_layers, batch=size["batch"],
+                          seq=size["seq"], micro=size["micro"],
+                          peak_gb_meshless=ref["peak_gb"], layouts=rows,
+                          ok=all(r["ok"] for r in rows.values()))
+    del ref
+
+    # nemotron: the embedding's table, serving
+    cfg = _placement_cfg("nemotron_4_15b", device)
+    gen = torch.Generator().manual_seed(4)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, dtype=torch.int32).to(device)
+    ref = _serve(None, device, prompts, cfg=cfg)
+    rows = {}
+    for mesh in meshes:
+        got = _serve(mesh, device, prompts, forced=ref["toks"], cfg=cfg)
+        rel = _rel_l2(got["logits"], ref["logits"])
+        row = dict(rel_l2=rel, tol=SERVE_TOL, peak_gb=got["peak_gb"],
+                   counted_peak_gb=got["counted_peak_gb"],
+                   collective_gb=got["collective_gb"], embed=got["embed"],
+                   ok=bool(rel <= SERVE_TOL))
+        rows[layout(mesh)] = row
+        show("nemotron " + layout(mesh), row)
+    out["nemotron"] = dict(config=cfg.name, vocab=cfg.vocab,
+                           layers=cfg.n_layers, peak_gb_meshless=ref[
+                               "peak_gb"], layouts=rows,
+                           ok=all(r["ok"] for r in rows.values()))
+    del ref
+
+    # qwen3-moe: the batch over (pod, data) against over data alone, the
+    # same data-parallel degree, routed alike; on cards at the giants'
+    # bf16 (8 of 94 layers) and in f32 (3 of 94), the loss held to each
+    # dtype's tolerance
+    size = PLACEMENT[device.type]["qwen3_moe_235b_a22b"]
+    flat, pod = meshes[0], _pod_mesh(n, device)
+    rows = {}
+    for name, over, loss_rtol, n_rows, seq in size["variants"]:
+        cfg = _placement_cfg("qwen3_moe_235b_a22b", device).with_(**over)
+        batch = _token_batch(cfg, n_rows, seq, device)
+        routes = []
+        a = _grad_step(cfg, flat, device, batch, record=routes,
+                       grads=not cuda)
+        b = _grad_step(cfg, pod, device, batch, pin=routes, grads=not cuda)
+        row = dict(
+            config=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+            layouts=[layout(flat), layout(pod)],
+            loss=[a["loss"], b["loss"]], loss_rtol=loss_rtol,
+            loss_rel=abs(b["loss"] - a["loss"]) / abs(a["loss"]),
+            collective_gb=[a["collective_gb"], b["collective_gb"]],
+            peak_gb=[a["peak_gb"], b["peak_gb"]],
+            counted_peak_gb=[a["counted_peak_gb"], b["counted_peak_gb"]],
+            collectives=[a["collectives"], b["collectives"]],
+            expert_placements=b["placements"]["blocks.0.ffn.experts_gate"],
+            rows=n_rows, seq=seq, weights_gathered=[any(
+                "_weight_for" in site for site in x["collectives"]["by_site"])
+                for x in (a, b)])
+        row["collective_ratio"] = b["collective_gb"] / a["collective_gb"]
+        ok = row["loss_rel"] <= loss_rtol
+        ok &= abs(row["collective_ratio"] - 1) <= PLACEMENT_SAME
+        if cuda:
+            row["peak_ratio"] = b["peak_gb"] / a["peak_gb"]
+            ok &= abs(row["peak_ratio"] - 1) <= PLACEMENT_SAME
+        else:
+            row["grad_rel_max"] = _grad_errors(b, a)["grad_rel_max"]
+            ok &= row["grad_rel_max"] <= GRAD_RTOL
+            ref = _grad_step(cfg, None, device, batch)
+            row["loss_rel_meshless"] = abs(b["loss"] - ref["loss"]) / abs(
+                ref["loss"])
+            row["grad_rel_max_meshless"] = _grad_errors(b, ref)[
+                "grad_rel_max"]
+            ok &= row["loss_rel_meshless"] <= loss_rtol and \
+                row["grad_rel_max_meshless"] <= GRAD_RTOL
+        row["ok"] = bool(ok)
+        rows[name] = row
+        show("qwen3-moe pod " + name, {k: v for k, v in row.items()
+                                       if k != "collectives"})
+    out["qwen3_moe"] = dict(variants=rows,
+                            ok=all(r["ok"] for r in rows.values()))
+    if not cuda:
+        out["local_rows"] = _local_rows_losses(device, meshes)
+        show("local rows", out["local_rows"])
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
+
+
+def _local_rows_losses(device, meshes) -> dict:
+    """The other training ops that now run on each rank's rows (the MoE
+    auxiliary loss, the LSH-sampled head's column lookups), on every
+    layout against meshless: the loss to ``LOSS_RTOL`` and each
+    gradient to ``GRAD_RTOL`` of its largest meshless entry."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.dist.sharding import (batch_sharding, distribute_model,
+                                           mesh_axes, shard_of, use_mesh)
+    from repro_torch.models import LM
+    from repro_torch.models.moe import aux_load_balance_loss
+    from repro_torch.models.sampled_softmax import (LMHeadIndex,
+                                                    SampledSoftmaxConfig,
+                                                    sampled_softmax_loss)
+
+    moe_cfg = configs.get_smoke("qwen3_moe_235b_a22b")
+    x = torch.randn((8, 32, moe_cfg.d_model),
+                    generator=torch.Generator().manual_seed(5)).to(device)
+    head_cfg = configs.get_smoke(PHI4)
+    scfg = SampledSoftmaxConfig(k=3, l=6, n_samples=16, multiprobe=1)
+    batch = _token_batch(head_cfg, 8, 32, device)
+    head = LMHeadIndex(LM.init(head_cfg, seed=0, device=device), scfg)
+
+    def run(mesh):
+        got = {}
+        with use_mesh(mesh):
+            model = distribute_model(LM.init(moe_cfg, seed=0, device=device),
+                                     mesh)
+            moe = model._layer(0).ffn
+            xin = x if mesh is None else shard_of(x, mesh,
+                                                  batch_sharding(mesh))
+            loss = aux_load_balance_loss(moe, xin)
+            loss.backward()
+            got["aux"] = (float(_whole(loss.detach())),
+                          {k: _whole(p.grad).detach().clone()
+                           for k, p in moe.named_parameters()
+                           if p.grad is not None})
+            model = distribute_model(LM.init(head_cfg, seed=0, device=device),
+                                     mesh)
+            b = dict(batch) if mesh is None else {
+                k: shard_of(v, mesh, batch_sharding(mesh))
+                for k, v in batch.items()}
+            loss = sampled_softmax_loss(model, head_cfg, scfg,
+                                        head.inject(b, step=1))
+            loss.backward()
+            got["head"] = (float(_whole(loss.detach())),
+                           {k: _whole(p.grad).detach().clone()
+                            for k, p in model.named_parameters()
+                            if p.grad is not None})
+        return got
+
+    ref = run(None)
+    rows = {}
+    for mesh in meshes:
+        got = run(mesh)
+        row = {}
+        for name, (loss, grads) in got.items():
+            loss0, grads0 = ref[name]
+            err = max(float((grads[k] - g).abs().max())
+                      / max(float(g.abs().max()), 1e-30)
+                      for k, g in grads0.items())
+            row[name] = dict(loss_rel=abs(loss - loss0) / abs(loss0),
+                             grad_rel_max=err,
+                             same_leaves=set(grads) == set(grads0))
+        row["ok"] = all(r["loss_rel"] <= LOSS_RTOL
+                        and r["grad_rel_max"] <= GRAD_RTOL
+                        and r["same_leaves"] for r in row.values())
+        rows["x".join(map(str, mesh_axes(mesh).values()))] = row
+    return dict(layouts=rows, ok=all(r["ok"] for r in rows.values()))
+
+
+# ---------------------------------------------------------------------------
 # the processes
 # ---------------------------------------------------------------------------
 
@@ -1143,9 +1590,10 @@ def child(args) -> int:
         prompts = torch.randint(0, _serve_cfg(device).vocab,
                                 (SERVE_B, SERVE_PROMPT), generator=gen,
                                 dtype=torch.int32).to(device)
-        lg0, tok0, _, sdt0, _, cfg_s = _serve(None, device, prompts)
+        serve0 = _serve(None, device, prompts)
+        lg0, tok0, cfg_s = serve0["logits"], serve0["toks"], serve0["cfg"]
         bf0 = _serve(None, device, prompts, forced=tok0,
-                     dtype="bfloat16")[0] if cuda else None
+                     dtype="bfloat16")["logits"] if cuda else None
     if "batch" in checks:
         batch0 = _pipeline_batch(None, device, args.nprocs)
     meshes = _meshes(args.nprocs, device)
@@ -1158,20 +1606,21 @@ def child(args) -> int:
             row["compress"] = _compare_compress(
                 _train(mesh, device, compress=True), ref_c)
         if "serve" in checks:
-            lg, tok, used, sdt, heads, _ = _serve(mesh, device, prompts,
-                                                  forced=tok0)
-            rel = _rel_l2(lg, lg0)
+            got = _serve(mesh, device, prompts, forced=tok0)
+            rel, used = _rel_l2(got["logits"], lg0), got["launches"]
             want = {"flash_attention": cfg_s.n_layers,
                     "flash_decode": cfg_s.n_layers * SERVE_NEW} if cuda \
                 else used
             row["serve"] = dict(
                 rel_l2=rel, tol=SERVE_TOL,
-                same_tokens=all(torch.equal(a, b) for a, b in zip(tok, tok0)),
-                launches=used, wq_placements=heads, s=sdt, s_meshless=sdt0,
+                same_tokens=all(torch.equal(a, b)
+                                for a, b in zip(got["toks"], tok0)),
+                launches=used, wq_placements=got["heads"], s=got["s"],
+                s_meshless=serve0["s"],
                 ok=bool(rel <= SERVE_TOL and used == want))
             if cuda:
                 bf = _serve(mesh, device, prompts, forced=tok0,
-                            dtype="bfloat16")[0]
+                            dtype="bfloat16")["logits"]
                 row["serve_bf16"] = dict(
                     rel_l2_to_f32=_rel_l2(bf, lg0),
                     meshless_rel_l2_to_f32=_rel_l2(bf0, lg0))
@@ -1212,10 +1661,13 @@ def child(args) -> int:
                 {"mesh": mesh_axes(model_mesh), **one_n}), flush=True)
     if "giants" in checks:
         res["giants"] = _giants(device, meshes, args.rank)
+    if "placement" in checks:
+        res["placement"] = _placement(device, meshes, args.rank)
     ok = all(c["ok"] for row in res["meshes"].values()
              for c in row.values() if isinstance(c, dict) and "ok" in c)
     ok &= all(c["ok"] for c in one_n.values())
     ok &= all(c["ok"] for c in res.get("giants", {}).values())
+    ok &= res.get("placement", {}).get("ok", True)
     res["ok"] = ok
     if args.out:
         with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
